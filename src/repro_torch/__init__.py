@@ -1,0 +1,8 @@
+"""PyTorch/CUDA port of the ``repro`` serving path for one NVIDIA H100.
+
+The package mirrors ``repro``'s module and function names so each
+counterpart is easy to find, imports ``torch`` and numpy only, and keeps
+its own copies of what it needs (``configs``).  Attention runs through
+hand-written CUDA kernels (``kernels/csrc``) on CUDA tensors and through
+their plain PyTorch versions on CPU tensors.
+"""

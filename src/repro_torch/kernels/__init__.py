@@ -1,0 +1,21 @@
+"""Hand-written CUDA kernels for Hopper (``csrc/``), each with a wrapper,
+a plain PyTorch version and an execution-map oracle.
+
+* ``flash_attention`` — causal / sliding-window / bidirectional flash
+  prefill with dead-tile skipping (replaces the Pallas ``flash_attention``).
+* ``decode_attention`` — split-KV flash decoding for S=1 steps over a
+  padded cache (replaces the Pallas ``decode_attention``).
+
+Model code reaches them through ``repro_torch.models.layers.flash_attend``
+and ``decode_attend``.
+"""
+
+from repro_torch.kernels.decode_attention import decode_attention, decode_partition_counts
+from repro_torch.kernels.flash_attention import flash_attention, flash_tile_counts
+
+__all__ = [
+    "decode_attention",
+    "decode_partition_counts",
+    "flash_attention",
+    "flash_tile_counts",
+]

@@ -1,0 +1,209 @@
+"""Foundational layers (PyTorch port of ``repro.models.layers``).
+
+Params are plain dicts of tensors with the JAX package's names and
+layouts (dense weights (d_in, d_out), embedding table (vocab, d)), so
+``repro_torch.convert`` carries the reference's params over unchanged.
+Matmuls run in the params' dtype; normalisation statistics, RoPE, SiLU
+and softmax in f32.  Initialisers take an explicit ``torch.Generator``
+and ``device``.
+
+Attention dispatch (``set_attention_impl``):
+  "auto"   — the CUDA kernel for a CUDA tensor, its plain version for a
+             CPU tensor (the default; the launcher never changes it)
+  "kernel" — the CUDA kernel; a CPU tensor raises
+  "ref"    — the plain version on any device (reference runs on the card)
+There is no environment switch: the tensor's device decides under "auto".
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+# ---------------------------------------------------------------------------
+# attention implementation dispatch
+# ---------------------------------------------------------------------------
+
+_ATTN_IMPLS = ("auto", "kernel", "ref")
+_ATTN_IMPL = "auto"
+
+
+def set_attention_impl(impl: str) -> str:
+    """Select the attention backend; returns the previous setting."""
+    global _ATTN_IMPL
+    if impl not in _ATTN_IMPLS:
+        raise ValueError(f"impl must be one of {_ATTN_IMPLS}, got {impl!r}")
+    prev, _ATTN_IMPL = _ATTN_IMPL, impl
+    return prev
+
+
+def attention_impl() -> str:
+    return _ATTN_IMPL
+
+
+def _use_kernel(x: torch.Tensor) -> bool:
+    """True when the call goes to the kernel's wrapper."""
+    if _ATTN_IMPL == "ref":
+        return False
+    if _ATTN_IMPL == "kernel" and x.device.type != "cuda":
+        raise RuntimeError(f"attention impl 'kernel' needs a CUDA tensor, "
+                           f"got one on {x.device}")
+    return True
+
+
+# ---------------------------------------------------------------------------
+# initializers and linear maps
+# ---------------------------------------------------------------------------
+
+
+def _normal(gen, shape, std, dtype, device):
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (w * std).to(dtype)
+
+
+def dense_init(gen, d_in: int, d_out: int, dtype, device, bias: bool = False,
+               scale: float | None = None):
+    if scale is None:
+        scale = 1.0 / (d_in ** 0.5)
+    p = {"w": _normal(gen, (d_in, d_out), scale, dtype, device)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
+
+
+def dense_apply(p, x):
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def embedding_init(gen, vocab: int, d: int, dtype, device):
+    return {"table": _normal(gen, (vocab, d), 0.02, dtype, device)}
+
+
+def embedding_apply(p, ids):
+    return p["table"][ids]
+
+
+def embedding_logits(p, x):
+    """Tied-softmax readout."""
+    return torch.matmul(x, p["table"].T)
+
+
+# ---------------------------------------------------------------------------
+# normalization, RoPE, MLP
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_init(d: int, dtype, device):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm_apply(p, x, eps: float = 1e-5):
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    # a Python-float base: no host-to-device copy (which would synchronise
+    # the stream) on every call
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq).  Half-split
+    convention: the first and second halves of head_dim form the pairs."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions[..., :, None].float() * freqs    # (..., seq, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]            # broadcast over heads
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def gated_mlp_init(gen, d: int, d_ff: int, dtype, device):
+    return {
+        "w_gate": dense_init(gen, d, d_ff, dtype, device),
+        "w_up": dense_init(gen, d, d_ff, dtype, device),
+        "w_down": dense_init(gen, d_ff, d, dtype, device),
+    }
+
+
+def gated_mlp_apply(p, x):
+    g = F.silu(dense_apply(p["w_gate"], x).float()).to(x.dtype)
+    u = dense_apply(p["w_up"], x)
+    return dense_apply(p["w_down"], g * u)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+def causal_mask(q_len: int, kv_len: int, *, window: int = 0,
+                q_offset: int = 0, device=None) -> torch.Tensor:
+    """Boolean mask (q_len, kv_len): True = attend.  ``q_offset`` is the
+    absolute position of query 0; ``window`` > 0 is sliding-window."""
+    q_pos = torch.arange(q_len, device=device) + q_offset
+    kv_pos = torch.arange(kv_len, device=device)
+    mask = kv_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        mask &= kv_pos[None, :] > (q_pos[:, None] - window)
+    return mask
+
+
+def softmax_attend(q, k, v, mask=None, *, scale: float | None = None):
+    """q: (B,S,H,D)  k/v: (B,T,Hkv,D[v]) with H % Hkv == 0 (GQA).
+    ``mask``: (S, T) boolean, True = attend; None = full attention.
+    f32 softmax; returns (B,S,H,Dv)."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, s, hkv, h // hkv, d)
+    scale = scale if scale is not None else d ** -0.5
+    logits = torch.einsum("bshgd,bthd->bhgst", qg.float(), k.float()) * scale
+    if mask is not None:
+        logits = logits.masked_fill(~mask, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgst,bthd->bshgd", probs, v.float())
+    return out.reshape(b, s, h, v.shape[-1]).to(q.dtype)
+
+
+def flash_attend(q, k, v, *, q_offset: int = 0, window: int = 0,
+                 bidirectional: bool = False, scale: float | None = None,
+                 kv_len: int | None = None):
+    """Tiled online-softmax attention; never materialises (S, T) logits.
+
+    q: (B,S,H,D); k/v: (B,T,Hkv,Dv).  ``q_offset``: absolute position of
+    query 0; ``kv_len``: live prefix of a padded cache (host ints).
+    Dispatches to the flash kernel's wrapper or its plain version
+    (``set_attention_impl``).
+    """
+    if _use_kernel(q):
+        return flash_attention(q, k, v, q_offset=q_offset, kv_len=kv_len,
+                               window=window, bidirectional=bidirectional,
+                               scale=scale)
+    return flash_attention_ref(q, k, v, q_offset=q_offset, window=window,
+                               bidirectional=bidirectional, scale=scale,
+                               kv_len=kv_len)
+
+
+def decode_attend(q, k, v, *, kv_len: int, window: int = 0,
+                  scale: float | None = None):
+    """Single-token decode attention over a padded KV cache.
+
+    q: (B,1,H,D); k/v: (B,T,Hkv,D[v]) with the new token's K/V already
+    written, so the query sits at position ``kv_len - 1`` (a host int).
+    Dispatches to the split-KV kernel's wrapper or its plain version
+    (``set_attention_impl``).
+    """
+    if _use_kernel(q):
+        return decode_attention(q, k, v, kv_len=kv_len, window=window, scale=scale)
+    return decode_attention_ref(q, k, v, kv_len=kv_len, window=window, scale=scale)
