@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the ``repro`` serving path for one NVIDIA H100.
+"""PyTorch/CUDA port of the ``repro`` serving paths (static and paged
+continuous batching) for one NVIDIA H100.
 
 The package mirrors ``repro``'s module and function names so each
 counterpart is easy to find, imports ``torch`` and numpy only, and keeps

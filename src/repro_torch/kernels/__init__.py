@@ -5,12 +5,21 @@ a plain PyTorch version and an execution-map oracle.
   prefill with dead-tile skipping (replaces the Pallas ``flash_attention``).
 * ``decode_attention`` — split-KV flash decoding for S=1 steps over a
   padded cache (replaces the Pallas ``decode_attention``).
+* ``paged_decode_attention`` — split-KV decode (S=1) and speculative
+  verify (S>1) over paged pools through block tables (replaces the
+  Pallas ``paged_decode_attention``).
 
-Model code reaches them through ``repro_torch.models.layers.flash_attend``
-and ``decode_attend``.
+Model code reaches them through ``repro_torch.models.layers.flash_attend``,
+``decode_attend`` and ``paged_decode_attend``.
 """
 
-from repro_torch.kernels.decode_attention import decode_attention, decode_partition_counts
+from repro_torch.kernels.decode_attention import (
+    decode_attention,
+    decode_partition_counts,
+    paged_decode_attention,
+    paged_decode_attention_ref,
+    paged_partition_counts,
+)
 from repro_torch.kernels.flash_attention import flash_attention, flash_tile_counts
 
 __all__ = [
@@ -18,4 +27,7 @@ __all__ = [
     "decode_partition_counts",
     "flash_attention",
     "flash_tile_counts",
+    "paged_decode_attention",
+    "paged_decode_attention_ref",
+    "paged_partition_counts",
 ]

@@ -1,5 +1,5 @@
-"""Split-KV decode attention: the CUDA kernel's wrapper, its plain version
-and its partition-accounting oracle.
+"""Split-KV decode attention, dense and paged: the CUDA kernels' wrappers,
+their plain versions and their partition-accounting oracles.
 
 ``decode_attention`` takes the contract of
 ``repro.kernels.decode_attention.decode_attention``: q (B, 1, H, D) is the
@@ -8,6 +8,14 @@ K/V were written, so the query sits at position ``kv_len - 1``.  On a CUDA
 tensor it launches ``csrc/decode_attention.cu`` (partitions, then the
 max / logsumexp combine) or raises; on a CPU tensor it runs the plain
 version, ``decode_attention_ref``.
+
+``paged_decode_attention`` takes the contract of the reference's
+``paged_decode_attention``: K/V in shared page pools addressed through
+per-sequence block tables, per-sequence ``kv_lens`` on the device, S = 1
+decode or S > 1 speculative verify, float or int8 pages.  On a CUDA tensor
+it launches ``csrc/paged_decode_attention.cu`` or raises; on a CPU tensor
+it runs ``paged_decode_attention_ref``.  ``paged_partition_counts`` is the
+oracle of its per-page execution map.
 """
 
 from __future__ import annotations
@@ -186,5 +194,210 @@ def _lib():
         lib.decode_attention_fwd.restype = I
         lib.decode_attention_error_string.argtypes = [I]
         lib.decode_attention_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# paged variant: KV read through per-sequence block tables
+# ---------------------------------------------------------------------------
+
+_KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# shared memory a CTA may opt in to on Hopper (232,448 bytes)
+_MAX_SMEM = 227 * 1024
+
+
+def paged_partition_counts(pages_per_seq: int, kv_lens, *, page_size: int,
+                           window: int = 0):
+    """Per-sequence analytic (executed, total) page counts for one
+    batched paged decode step — ``decode_partition_counts`` evaluated
+    at each sequence's own fill level.  Returns (list[int], total)."""
+    t = pages_per_seq * page_size
+    executed = [decode_partition_counts(t, int(n), block_k=page_size,
+                                        window=window)[0]
+                for n in kv_lens]
+    return executed, pages_per_seq
+
+
+def _paged_live(kv_lens, max_pp: int, pg: int, window: int, s: int):
+    """(B, max_pp) bool: page ``ip`` is live iff it starts before the
+    sequence's length and, with a window, ends inside the OLDEST query
+    row's window (the reference's ``executed`` predicate with ``qs``)."""
+    k_lo = torch.arange(max_pp, device=kv_lens.device) * pg
+    lens = kv_lens.long()[:, None]
+    live = k_lo[None, :] < lens
+    if window > 0:
+        live &= (k_lo[None, :] + pg - 1) > (lens - s - window)
+    return live
+
+
+def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, kv_lens, *,
+                               window: int = 0, scale: float | None = None,
+                               dv: int | None = None, k_scales=None,
+                               v_scales=None, return_counts: bool = False):
+    """Plain version of the kernel, one partition per page as in the
+    reference: gather every block-table page (-1 read as page 0), score
+    the position-major rows with the causal / window mask at each row's
+    position, per-page partial (o, m, l) with neutral statistics for dead
+    pages, then the combine.  P is rounded to the page dtype before the
+    PV product for float pages; int8 page scales fold in after the QK
+    dot and after the PV dot."""
+    b, s, h, d = q.shape
+    hkv, num_pages, pg, _ = k_pages.shape
+    g, rows = h // hkv, s * (h // hkv)
+    dv = v_pages.shape[-1] if dv is None else dv
+    scale = scale if scale is not None else d ** -0.5
+    max_pp = block_tables.shape[1]
+    quantized = k_pages.dtype == torch.int8
+    bt = block_tables.long().clamp(0, num_pages - 1)              # (B, P)
+    kd = k_pages[:, bt][..., :d].float()                           # (Hkv, B, P, pg, d)
+    vd = v_pages[:, bt][..., :dv]
+    q3 = (q.float().reshape(b, s, hkv, g, d).permute(0, 2, 1, 3, 4)
+          .reshape(b, hkv, rows, d))
+    s_ = torch.einsum("bhrd,hbpkd->bhprk", q3, kd) * scale
+    if quantized:
+        s_ = s_ * k_scales[:, bt].permute(1, 0, 2)[..., None, None]
+    lens = kv_lens.long()
+    cols = torch.arange(max_pp * pg, device=q.device).reshape(max_pp, pg)
+    row_pos = (lens[:, None] - s
+               + torch.arange(rows, device=q.device)[None, :] // g)  # (B, R)
+    mask = cols[None, :, None, :] <= row_pos[:, None, :, None]      # (B, P, R, pg)
+    if window > 0:
+        mask &= cols[None, :, None, :] > (row_pos[:, None, :, None] - window)
+    s_ = s_.masked_fill(~mask[:, None], MASK_VALUE)
+    m = s_.amax(-1)                                                # (B, Hkv, P, R)
+    p = torch.exp(s_ - m[..., None])
+    l = p.sum(-1)
+    if quantized:
+        pv = torch.einsum("bhprk,hbpkd->bhprd", p, vd.float())
+        pv = pv * v_scales[:, bt].permute(1, 0, 2)[..., None, None]
+    else:
+        pv = torch.einsum("bhprk,hbpkd->bhprd", p.to(vd.dtype).float(), vd.float())
+    live = _paged_live(kv_lens, max_pp, pg, window, s)             # (B, P)
+    lv = live[:, None, :, None]
+    o_part = pv.masked_fill(~lv[..., None], 0.0)
+    m_part = m.masked_fill(~lv, float("-inf"))
+    l_part = l.masked_fill(~lv, 0.0)
+    out = combine_partitions(o_part, m_part, l_part)               # (B, Hkv, R, dv)
+    out = (out.reshape(b, hkv, s, g, dv).permute(0, 2, 1, 3, 4)
+           .reshape(b, s, h, dv).to(q.dtype))
+    if return_counts:
+        return out, live.int()[:, None, :].expand(b, hkv, max_pp).contiguous()
+    return out
+
+
+def _check_paged(q, k_pages, v_pages, block_tables, kv_lens, dv, k_scales, v_scales):
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"paged_decode_attention takes float32 or bfloat16 q, got {q.dtype}")
+    if k_pages.dtype not in _KV_DTYPES or v_pages.dtype != k_pages.dtype:
+        raise TypeError(f"pages must share one of float32, bfloat16, int8; got "
+                        f"{k_pages.dtype}/{v_pages.dtype}")
+    quantized = k_pages.dtype == torch.int8
+    if quantized != (k_scales is not None) or quantized != (v_scales is not None):
+        raise ValueError("int8 pools need k_scales AND v_scales; float pools must "
+                         "not pass them")
+    tensors = [q, k_pages, v_pages, block_tables, kv_lens]
+    tensors += [x for x in (k_scales, v_scales) if x is not None]
+    if any(x.device != q.device for x in tensors):
+        raise ValueError("every input of paged_decode_attention must be on one device")
+    if q.dim() != 4 or k_pages.dim() != 4 or v_pages.shape[:3] != k_pages.shape[:3]:
+        raise ValueError(f"q is (B, S, H, D), pages (Hkv, num_pages, page, W); got "
+                         f"{tuple(q.shape)}, {tuple(k_pages.shape)}, {tuple(v_pages.shape)}")
+    b, _, h, d = q.shape
+    hkv = k_pages.shape[0]
+    if h % hkv or k_pages.shape[3] < d or not 0 < dv <= v_pages.shape[3]:
+        raise ValueError(f"H={h}, Hkv={hkv}, D={d}, dv={dv} do not fit pages "
+                         f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != b or kv_lens.shape != (b,):
+        raise ValueError(f"block_tables is (B, pages_per_seq) and kv_lens (B,); got "
+                         f"{tuple(block_tables.shape)}, {tuple(kv_lens.shape)}")
+    if quantized and (k_scales.shape != k_pages.shape[:2]
+                      or v_scales.shape != k_pages.shape[:2]):
+        raise ValueError(f"scales are (Hkv, num_pages) = {tuple(k_pages.shape[:2])}")
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens, *,
+                           window: int = 0, scale: float | None = None,
+                           dv: int | None = None, k_scales=None, v_scales=None,
+                           return_counts: bool = False):
+    """Split-KV decode attention over a paged KV pool.
+
+    q (B, S, H, D): the new tokens' queries (S = 1 decode, S > 1
+    speculative verify), their K/V already written, so sequence b's last
+    query sits at position ``kv_lens[b] - 1``; k_pages / v_pages
+    (Hkv, num_pages, page_size, W); block_tables (B, pages_per_seq) int32,
+    -1 past a sequence's pages and for inactive slots; kv_lens (B,) int32
+    live counts on the device (0 = inactive slot, output exactly zero).
+    ``dv`` reads the leading ``dv`` columns of ``v_pages``.  int8 pools
+    pass (Hkv, num_pages) f32 ``k_scales``/``v_scales``.  Returns
+    (B, S, H, dv) in q's dtype, plus the (B, Hkv, pages_per_seq) int32
+    per-page execution map with ``return_counts``.  Nothing here reads
+    the device back: the lengths stay on the device."""
+    dv = v_pages.shape[-1] if dv is None else dv
+    _check_paged(q, k_pages, v_pages, block_tables, kv_lens, dv, k_scales, v_scales)
+    if q.device.type == "cpu":
+        return paged_decode_attention_ref(
+            q, k_pages, v_pages, block_tables, kv_lens, window=window, scale=scale,
+            dv=dv, k_scales=k_scales, v_scales=v_scales, return_counts=return_counts)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention runs on cuda or cpu, not {q.device}")
+    b, s, h, d = q.shape
+    hkv, num_pages, pg, _ = k_pages.shape
+    g, rows = h // hkv, s * (h // hkv)
+    max_pp = block_tables.shape[1]
+    if dv % 4:
+        raise ValueError(f"paged_decode_attention: dv={dv} must be a multiple of 4")
+    _build.check_rows4("paged_decode_attention", q, k_pages, v_pages)
+    bt = block_tables.to(torch.int32).contiguous()
+    lens = kv_lens.to(torch.int32).contiguous()
+    scales = [x.float().contiguous() if x is not None else None
+              for x in (k_scales, v_scales)]
+    lib = _paged_lib()
+    span = max(1, DEFAULT_BLOCK_K // pg)
+    while span > 1 and lib.paged_decode_attention_smem_bytes(rows, d, dv, pg, span) > _MAX_SMEM:
+        span //= 2
+    if lib.paged_decode_attention_smem_bytes(rows, d, dv, pg, span) > _MAX_SMEM:
+        raise ValueError(f"paged_decode_attention: {rows} rows of one page of {pg} keys "
+                         f"exceed shared memory")
+    nspan = -(-max_pp // span)
+    dev = q.device
+    out = torch.empty((b, s, h, dv), dtype=q.dtype, device=dev)
+    o_part = torch.empty((b, hkv, nspan, rows, dv), dtype=torch.float32, device=dev)
+    m_part = torch.empty((b, hkv, nspan, rows), dtype=torch.float32, device=dev)
+    l_part = torch.empty((b, hkv, nspan, rows), dtype=torch.float32, device=dev)
+    counts = (torch.empty((b, hkv, max_pp), dtype=torch.int32, device=dev)
+              if return_counts else None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.paged_decode_attention_fwd(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
+        lens.data_ptr(), *(x.data_ptr() if x is not None else None for x in scales),
+        out.data_ptr(), o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
+        counts.data_ptr() if counts is not None else None,
+        _DTYPES[q.dtype], _KV_DTYPES[k_pages.dtype], b, s, h, hkv, d, dv, pg,
+        num_pages, max_pp, span,
+        q.stride(0), q.stride(1), q.stride(2),
+        k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
+        v_pages.stride(0), v_pages.stride(1), v_pages.stride(2), bt.stride(0),
+        out.stride(0), out.stride(1), out.stride(2),
+        int(window), float(scale if scale is not None else d ** -0.5), stream)
+    _build.check(rc, "paged_decode_attention", lib.paged_decode_attention_error_string)
+    paged_decode_attention.launches += 1
+    return (out, counts) if return_counts else out
+
+
+paged_decode_attention.launches = 0
+
+
+def _paged_lib():
+    lib = _build.load("paged_decode_attention")
+    if not getattr(lib, "_typed", False):
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.paged_decode_attention_fwd.argtypes = (
+            [P] * 12 + [I] * 12 + [L] * 13 + [I, ctypes.c_float, P])
+        lib.paged_decode_attention_fwd.restype = I
+        lib.paged_decode_attention_smem_bytes.argtypes = [I] * 5
+        lib.paged_decode_attention_smem_bytes.restype = ctypes.c_size_t
+        lib.paged_decode_attention_error_string.argtypes = [I]
+        lib.paged_decode_attention_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib

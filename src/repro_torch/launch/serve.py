@@ -1,18 +1,25 @@
-"""Serving launcher, static engine: one fixed batch through chunked
-prefill and greedy decode (PyTorch port of ``repro.launch.serve``).
+"""Serving launcher (PyTorch port of ``repro.launch.serve``).
 
     python -m repro_torch.launch.serve --arch qwen3_0p6b --prompt 2048
+    python -m repro_torch.launch.serve --engine paged --prefix-cache
 
-runs on the CUDA card by default; ``--device cpu`` runs the same path on
-the CPU with the kernels' plain versions.  Weights and prompts are random,
-made from fixed seeds.  It prints the prefill time and decode tok/s next to
-the device name.  Options of the JAX launcher that belong to later slices
-of the port exit with the ROADMAP.md item that ports them.
+``--engine static`` (default) runs one fixed batch through chunked
+prefill and greedy decode and prints the prefill time and decode tok/s.
+``--engine paged`` runs the continuous-batching ``ServingEngine`` over
+the paged KV cache on a mixed-length trace of ``2 * batch`` requests and
+prints the reference's engine summary (tok/s, token latency and TTFT
+percentiles, pool, admission, scheduler, prefix-cache and speculative
+lines).  It runs on the CUDA card by default; ``--device cpu`` runs the
+same path on the CPU with the kernels' plain versions.  Weights and
+prompts are random, made from fixed seeds.  Options of the JAX launcher
+that belong to later slices of the port exit with the ROADMAP.md item
+that ports them.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -21,22 +28,15 @@ from repro_torch.configs.base import get_config
 from repro_torch.models import transformer as tf
 from repro_torch.serve.step import make_prefill_step, make_serve_step
 
-# option -> (value that means "unset", the ROADMAP.md item that ports it)
+# option -> (the values this slice runs, the ROADMAP.md item that ports the rest)
 _UNPORTED = {
-    "engine": ("static", "queue 1, items 5-6 (paged KV cache, ServingEngine)"),
-    "page_size": (None, "queue 1, items 5-6 (paged KV cache)"),
-    "kv_dtype": ("f32", "queue 1, item 7 (int8 serving)"),
-    "prefix_cache": (False, "queue 1, item 6 (ServingEngine prefix cache)"),
-    "draft": (None, "queue 1, item 6 (speculative decoding)"),
-    "prefill_budget": (None, "queue 1, item 6 (SLO scheduler)"),
-    "slo_ms": (None, "queue 1, item 6 (SLO scheduler)"),
-    "priority": (None, "queue 1, item 6 (SLO scheduler)"),
-    "supervise": (False, "queue 1, item 10 (serving supervisor)"),
-    "fault_plan": (None, "queue 1, item 10 (serving supervisor)"),
-    "deadline_ms": (None, "queue 1, item 10 (serving supervisor)"),
-    "autotune": (False, "queue 1, item 13 (measurement and tuning)"),
-    "tuning_file": (None, "queue 1, item 13 (measurement and tuning)"),
-    "strategy": ("fused", "queue 1, item 12 (distributed runtime)"),
+    "kv_dtype": (("f32", "bf16"), "queue 1, item 7 (int8 serving)"),
+    "supervise": ((False,), "queue 1, item 10 (serving supervisor)"),
+    "fault_plan": ((None,), "queue 1, item 10 (serving supervisor)"),
+    "deadline_ms": ((None,), "queue 1, item 10 (serving supervisor)"),
+    "autotune": ((False,), "queue 1, item 13 (measurement and tuning)"),
+    "tuning_file": ((None,), "queue 1, item 13 (measurement and tuning)"),
+    "strategy": (("fused",), "queue 1, item 12 (distributed runtime)"),
 }
 
 
@@ -87,6 +87,91 @@ def run_static(params, cfg, prompts, *, new_tokens: int, chunk: int,
     return result
 
 
+def run_paged_engine(params, cfg, args, device):
+    """The reference's ``_run_paged_engine`` without the supervisor: a
+    ``ServingEngine`` sized from the launcher's options serves a
+    mixed-length trace of ``2 * batch`` requests (generation lengths
+    spread 1/4x..1x so slots churn; with the prefix cache on, every other
+    request shares the first half of its prompt), then the engine summary
+    is printed.  Returns ``{"done": [Request], "engine": ServingEngine,
+    "seconds": float}``."""
+    from repro_torch.serve.engine import ServingEngine, latency_stats
+
+    page_size = args.page_size or 16
+    max_len = args.prompt + args.new_tokens
+    draft_params = draft_cfg = None
+    if args.draft:
+        draft_cfg = get_config(args.draft)
+        if args.smoke:
+            draft_cfg = draft_cfg.scaled_down()
+        draft_cfg = dataclasses.replace(draft_cfg, vocab=cfg.vocab)
+        gen = torch.Generator(device=device).manual_seed(2)
+        draft_params = tf.init(draft_cfg, generator=gen, dtype=torch.float32,
+                               device=device)
+    # with the prefix cache on, a zero-slack pool evicts every retired
+    # prefix before its sharer arrives — double it so pages can linger
+    pages = -(-max_len // page_size) * args.batch
+    eng = ServingEngine(
+        params, cfg, max_slots=args.batch, max_len=max_len,
+        page_size=page_size, kv_dtype=args.kv_dtype,
+        num_pages=2 * pages if args.prefix_cache else pages,
+        prefill_chunk=max(16, args.prompt // 4),
+        prefix_cache=args.prefix_cache,
+        draft_params=draft_params, draft_cfg=draft_cfg, spec_k=args.spec_k,
+        prefill_budget=args.prefill_budget, slo_ms=args.slo_ms)
+    priorities = ([int(p) for p in args.priority.split(",")]
+                  if args.priority else [0])
+    gen = torch.Generator().manual_seed(1)
+    shared = torch.randint(0, cfg.vocab, (args.prompt // 2,), generator=gen)
+    for i in range(2 * args.batch):
+        prompt = torch.randint(0, cfg.vocab, (args.prompt,), generator=gen)
+        if args.prefix_cache and i % 2:
+            prompt = torch.cat([shared, prompt[args.prompt // 2:]])
+        new = max(1, args.new_tokens // (1 + i % 4))
+        eng.submit(prompt.numpy(), new, priority=priorities[i % len(priorities)])
+    t0 = time.monotonic()
+    done = eng.run()
+    _sync(device)
+    dt = time.monotonic() - t0
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    stats = latency_stats(done)
+    print(f"paged engine: {len(done)} requests, {stats['tokens']} tokens "
+          f"in {dt*1e3:.0f} ms over {eng.steps} decode steps "
+          f"({stats['tokens']/dt:.0f} tok/s) on {name}")
+    print(f"  token latency p50 {stats['token_p50_s']*1e3:.1f} ms, "
+          f"p99 {stats['token_p99_s']*1e3:.1f} ms; "
+          f"ttft p50 {stats['ttft_p50_s']*1e3:.1f} ms, "
+          f"p99 {stats['ttft_p99_s']*1e3:.1f} ms; "
+          f"queue wait p99 {stats['queue_p99_s']*1e3:.1f} ms; "
+          f"pool {eng.num_pages} pages x {eng.page_size} slots "
+          f"({eng.kv_dtype}, {eng.pool_bytes/2**10:.0f} KiB)")
+    es = eng.stats()
+    print(f"  admitted {es['admitted']}, rejected {es['rejected']}; "
+          f"prefilled {es['prefilled_tokens']}/{es['prompt_tokens']} "
+          "prompt tokens")
+    if eng.prefill_budget is not None:
+        print(f"  scheduler: budget {es['prefill_budget']} tok/step over "
+              f"{es['prefill_chunk_calls']} chunk calls; "
+              f"{es['preemptions']} preemptions "
+              f"({es['preempt_pages_saved']} pages saved to prefix)")
+    if eng.slo_s is not None:
+        print(f"  slo {es['slo_ms']:.1f} ms: deferred "
+              f"{es['slo_deferred_steps']} admissions, throttled "
+              f"{es['slo_throttled_steps']} steps "
+              f"(chunk {es.get('chunk_cost_ms', 0):.2f} ms, decode "
+              f"{es.get('decode_cost_ms', 0):.2f} ms EWMA)")
+    if args.prefix_cache:
+        print(f"  prefix cache: {es['prefix_hits']}/{es['prefix_lookups']} "
+              f"hits, {es['prefix_hit_tokens']} tokens served from shared "
+              f"pages, {es['prefix_evicted_pages']} evicted, "
+              f"{es['prefix_nodes']} resident nodes")
+    if eng.spec_k:
+        print(f"  speculative k={es['spec_k']}: "
+              f"{es['accepted_per_spec_step']:.2f} tokens/slot-step "
+              f"over {es['spec_steps']} verify steps")
+    return {"done": done, "engine": eng, "seconds": dt}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3_0p6b")
@@ -116,10 +201,10 @@ def main(argv=None):
     ap.add_argument("--deadline-ms", type=float, default=None)
     args = ap.parse_args(argv)
 
-    for name, (unset, item) in _UNPORTED.items():
-        if getattr(args, name) != unset:
-            raise SystemExit(f"--{name.replace('_', '-')} is not ported yet: "
-                             f"ROADMAP.md {item}")
+    for name, (ported, item) in _UNPORTED.items():
+        if getattr(args, name) not in ported:
+            raise SystemExit(f"--{name.replace('_', '-')} {getattr(args, name)} is "
+                             f"not ported yet: ROADMAP.md {item}")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but torch sees no CUDA device; "
@@ -136,6 +221,8 @@ def main(argv=None):
     # random weights from seed 0 and prompts from seed 1, as the reference
     gen = torch.Generator(device=device).manual_seed(0)
     params = tf.init(cfg, generator=gen, dtype=torch.float32, device=device)
+    if args.engine == "paged":
+        return run_paged_engine(params, cfg, args, device)
     gen = torch.Generator(device=device).manual_seed(1)
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt),
                             generator=gen, device=device)

@@ -8,8 +8,15 @@
   — prefill chunks and S=1 decode steps write their K/V at ``len`` and
   attend over the live prefix.  ``len`` is a host int, so the kernels'
   scalar arguments never wait on the device.
+* paged cache ``{"k_pages"/"v_pages": (Hkv, num_pages + 1, page, D),
+  "block_tables": (B, pages) int32, "len": (B,) int32}`` (serve/kv_cache
+  layout, the last page a sink) — S=1 decode and S>1 speculative verify
+  write their S tokens into the pool in place and attend through the
+  block table.  ``len`` is the per-sequence PRE-write fill, a device
+  tensor: nothing here reads it back.  Inactive slots (block-table row
+  -1) send their writes to the sink and emit zeros.
 
-The SWA rolling buffer and the paged cache are later slices of the port.
+The SWA rolling buffer is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from repro_torch.models.layers import (
     dense_apply,
     dense_init,
     flash_attend,
+    paged_decode_attend,
     rmsnorm_apply,
     rmsnorm_init,
     softmax_attend,
@@ -31,6 +39,29 @@ from repro_torch.models.layers import (
 # sequences at or above this length attend via the flash path (never
 # materialises S x T logits); shorter ones go direct
 FLASH_MIN_SEQ = 512
+
+
+def _paged_token_coords(cache, pool_key, s: int = 1):
+    """Where this step's ``s`` tokens land in the pool, per slot.
+
+    Returns (page, slot, new_len): page (B, S) is the pool index at each
+    sequence's write positions ``len .. len+s-1`` — inactive slots
+    (block-table row -1) and positions past the block table (a
+    speculative tail beyond a request's last page) get ``num_pages``,
+    the sink page, never a live one; new_len is the post-write fill (0
+    stays 0 for inactive slots, which zeroes their attention output).
+    All on the device, with no read-back.
+    """
+    bt, lens = cache["block_tables"], cache["len"]
+    leaf = cache[pool_key]
+    sink, pg = leaf.shape[1] - 1, leaf.shape[2]
+    pos = lens.long()[:, None] + torch.arange(s, device=bt.device)[None, :]  # (B, S)
+    idx = torch.clamp(pos // pg, 0, bt.shape[1] - 1)
+    page = torch.gather(bt.long(), 1, idx)
+    page = torch.where((page < 0) | (pos // pg > bt.shape[1] - 1), sink, page)
+    active = bt[:, 0] >= 0
+    new_len = torch.where(active, lens + s, 0).to(torch.int32)
+    return page, pos % pg, new_len
 
 
 def gqa_init(gen, cfg, dtype, device):
@@ -84,8 +115,20 @@ def gqa_apply(p, cfg, x, positions, cache=None, *, bidirectional=False):
             out = softmax_attend(q, k, v, mask)
         new_cache = None
     elif "k_pages" in cache:
-        raise NotImplementedError(
-            "paged KV cache: ROADMAP.md queue 1, item 5 (next slice)")
+        # paged decode (S=1) / speculative verify (S>1): write the S
+        # tokens into their pool pages in place (one index_put_ per
+        # pool; dropped writes land on the sink page), then attend
+        # through the block table, O(own kv_len) per sequence
+        kp, vp = cache["k_pages"], cache["v_pages"]
+        if kp.dtype == torch.int8:
+            raise NotImplementedError(
+                "int8 KV pages are not ported yet: ROADMAP.md queue 1, item 7")
+        page, slot, new_len = cache.get("coords") or _paged_token_coords(cache, "k_pages", s)
+        kp[:, page, slot] = k.permute(2, 0, 1, 3).to(kp.dtype)
+        vp[:, page, slot] = v.permute(2, 0, 1, 3).to(vp.dtype)
+        out = paged_decode_attend(q, kp, vp, cache["block_tables"], new_len,
+                                  window=cfg.sliding_window)
+        new_cache = {"k_pages": kp, "v_pages": vp}
     else:
         t = cache["k"].shape[1]
         cur = cache["len"]

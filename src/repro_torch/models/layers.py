@@ -20,7 +20,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+from repro_torch.kernels.decode_attention import (
+    decode_attention,
+    decode_attention_ref,
+    paged_decode_attention,
+    paged_decode_attention_ref,
+)
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 
 # ---------------------------------------------------------------------------
@@ -207,3 +212,27 @@ def decode_attend(q, k, v, *, kv_len: int, window: int = 0,
     if _use_kernel(q):
         return decode_attention(q, k, v, kv_len=kv_len, window=window, scale=scale)
     return decode_attention_ref(q, k, v, kv_len=kv_len, window=window, scale=scale)
+
+
+def paged_decode_attend(q, k_pages, v_pages, block_tables, kv_lens, *,
+                        window: int = 0, scale: float | None = None,
+                        dv: int | None = None, k_scales=None, v_scales=None):
+    """Decode attention over a paged KV pool (S=1 decode; S>1 verifies
+    S consecutive positions per sequence, the speculative-decoding
+    verify step).
+
+    q: (B,S,H,D) — query s of sequence b sits at ``kv_lens[b] - S + s``;
+    k_pages/v_pages: (Hkv, num_pages, page_size, W) shared pools;
+    block_tables: (B, pages_per_seq) int32 page ids (-1 past a
+    sequence's pages and for inactive slots); kv_lens: (B,) int32 live
+    counts INCLUDING the just-written token(s), on the device (0 =
+    inactive slot, output exactly zero).  ``dv`` restricts values to the
+    leading columns of ``v_pages``.  Dispatches to the paged kernel's
+    wrapper or its plain version (``set_attention_impl``); the plain
+    version computes what the reference's ``paged_decode_attend_ref``
+    does, page by page as the kernel.
+    """
+    kw = dict(window=window, scale=scale, dv=dv, k_scales=k_scales, v_scales=v_scales)
+    if _use_kernel(q):
+        return paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens, **kw)
+    return paged_decode_attention_ref(q, k_pages, v_pages, block_tables, kv_lens, **kw)

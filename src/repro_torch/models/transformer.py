@@ -7,9 +7,11 @@ reference's sharding hints have nothing to do and are gone.
 
   init(cfg, *, generator, dtype, device)        -> params
   forward(params, cfg, tokens)                  -> (logits, aux_loss)
-  init_caches(cfg, batch, max_len, dtype, device) -> caches
+  init_caches(cfg, batch, max_len, dtype, device[, cache_layout="paged"])
+                                                -> caches
   prefill(params, cfg, tokens, caches)          -> (last_logits, caches)
   decode_step(params, cfg, token, caches)       -> (logits, caches)
+  verify_step(params, cfg, tokens, caches)      -> (logits, caches)  (paged)
 
 MoE, MLA, SSM, hybrid, enc-dec, VLM and CNN configs raise
 ``NotImplementedError``: they are later slices of the port.
@@ -127,9 +129,22 @@ def forward(params, cfg, tokens):
     return _head(params, cfg, x), torch.zeros((), device=x.device)
 
 
-def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda"):
-    """Dense serving caches: one (B, max_len, Hkv, D) K/V pair per layer."""
+def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda", *,
+                cache_layout: str = "dense", page_size: int = 16,
+                num_pages: int | None = None, kv_dtype: str | None = None):
+    """Serving caches.  ``cache_layout="dense"`` (default): one
+    (B, max_len, Hkv, D) K/V pair per layer.  ``"paged"``: the
+    serve/kv_cache pool layout (shared pages + block tables +
+    per-sequence lens) that ``decode_step`` and ``verify_step`` serve
+    through the paged kernel — decode-only, engine-managed."""
     check_supported(cfg)
+    if cache_layout == "paged":
+        from repro_torch.serve.kv_cache import init_paged_caches
+
+        return init_paged_caches(cfg, batch, max_len, dtype, page_size=page_size,
+                                 num_pages=num_pages, kv_dtype=kv_dtype, device=device)
+    if cache_layout != "dense":
+        raise ValueError(f"cache_layout must be 'dense' or 'paged', got {cache_layout!r}")
     return {"blocks": [attn.gqa_cache_init(cfg, batch, max_len, dtype, device)
                        for _ in range(cfg.num_layers)]}
 
@@ -151,7 +166,57 @@ def prefill(params, cfg, tokens, caches, *, logit_index: int | None = None):
 
 def decode_step(params, cfg, token, caches):
     """token: (B, 1).  One autoregressive step."""
+    if "block_tables" in caches:
+        return _paged_decode_step(params, cfg, token, caches)
     x = _embed(params, cfg, token)
     positions = _positions(_cache_len(cfg, caches), token)
     x, caches = _apply_stack(params, cfg, x, positions, caches)
     return _head(params, cfg, x), caches
+
+
+def _paged_stack(params, cfg, tokens, caches):
+    """Run ``tokens`` (B, S) at per-sequence positions ``lens .. lens+S-1``
+    through every layer against the paged pools.  The write coordinates
+    are computed once and shared by all layers; every pool is updated in
+    place.  Returns (hidden, blocks)."""
+    x = _embed(params, cfg, tokens)
+    lens, bt = caches["lens"], caches["block_tables"]
+    s = tokens.shape[1]
+    positions = lens.long()[:, None] + torch.arange(s, device=lens.device)[None, :]
+    coords = attn._paged_token_coords(
+        {"block_tables": bt, "len": lens, "k_pages": caches["blocks"][0]["k_pages"]},
+        "k_pages", s)
+    new_blocks = []
+    for p, pool in zip(params["blocks"], caches["blocks"]):
+        cache_i = dict(pool, block_tables=bt, len=lens, coords=coords)
+        x, nc = block_apply(p, cfg, x, positions, cache_i)
+        new_blocks.append(nc)
+    return x, new_blocks
+
+
+def _paged_decode_step(params, cfg, token, caches):
+    """One decode step against paged caches (serve/kv_cache layout).
+
+    Positions are PER-SEQUENCE (``lens``, on the device), so one batched
+    step serves requests at different fill levels — the continuous-
+    batching contract.  Active slots' ``lens`` advance by one."""
+    x, blocks = _paged_stack(params, cfg, token, caches)
+    lens, bt = caches["lens"], caches["block_tables"]
+    active = bt[:, 0] >= 0
+    new_caches = {"blocks": blocks, "block_tables": bt,
+                  "lens": torch.where(active, lens + 1, lens)}
+    return _head(params, cfg, x), new_caches
+
+
+def verify_step(params, cfg, tokens, caches):
+    """Speculative-decoding verify: score ``tokens`` (B, S) — the slot's
+    last emitted token followed by S-1 draft proposals — in ONE
+    multi-token paged step, writing their K/V at ``lens .. lens+S-1``
+    and returning all S head positions.  ``lens`` is returned UNCHANGED:
+    the engine owns advancement, and rejected positions need no rollback
+    (their rows sit at/after the advanced ``lens``, masked out of every
+    later attend and overwritten once decoding reaches them)."""
+    x, blocks = _paged_stack(params, cfg, tokens, caches)
+    new_caches = {"blocks": blocks, "block_tables": caches["block_tables"],
+                  "lens": caches["lens"]}
+    return _head(params, cfg, x), new_caches

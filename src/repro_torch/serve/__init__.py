@@ -1,1 +1,2 @@
-"""Serving steps: chunked prefill, greedy decode, generate."""
+"""Serving: steps (chunked prefill, greedy decode, verify, generate), the
+paged KV cache and the continuous-batching engine."""

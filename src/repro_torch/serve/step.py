@@ -7,6 +7,13 @@ chunk is right-padded to ``chunk`` for attention caches: its logits are
 read at the last real token (``logit_index``) and every cache ``len`` is
 rewound past the pad, so the pad rows are masked out of every later
 attend and overwritten as decode proceeds.
+
+``n_tokens`` (a host int) is the DYNAMIC-length contract the serving
+engine uses: ``tokens`` arrives right-padded and only its first
+``n_tokens`` are real.  The logits are read at the real last token and
+``len`` rewinds to the real count, so a call with the next piece resumes
+exactly where the last one stopped.  The reference traces ``n_tokens``;
+here it is a host int, as the dense ``len``.
 """
 
 from __future__ import annotations
@@ -55,8 +62,37 @@ def make_prefill_step(cfg, chunk: int = 4096, *, return_logits: bool = False):
             caches = _unpad_cache_len(caches, n_pad)
         return logits, caches
 
-    def prefill_step(params, tokens, caches):
-        if tokens.shape[1] <= chunk:
+    def dynamic_prefill(params, tokens, caches, n: int):
+        """Right-padded tokens with ``n`` real: every chunk reads its head
+        at the clamped real-last position, the chunk that holds token
+        ``n - 1`` gives the logits, and ``len`` rewinds past the pad."""
+        if not pad_ok:
+            raise NotImplementedError(
+                "dynamic-length prefill needs a pad-tolerant attention cache")
+        s = tokens.shape[1]
+        if not 1 <= n <= s:
+            raise ValueError(f"n_tokens={n} outside [1, {s}]")
+        if s <= chunk:
+            logits, caches = transformer.prefill(params, cfg, tokens, caches,
+                                                 logit_index=n - 1)
+        else:
+            if s % chunk:
+                raise ValueError(f"a padded prompt of {s} tokens is not a multiple "
+                                 f"of the chunk {chunk}")
+            logits = None
+            for i in range(s // chunk):
+                piece = tokens[:, i * chunk:(i + 1) * chunk]
+                li = min(max(n - 1 - i * chunk, 0), chunk - 1)
+                lg, caches = transformer.prefill(params, cfg, piece, caches,
+                                                 logit_index=li)
+                if (n - 1) // chunk == i:
+                    logits = lg
+        return logits, _unpad_cache_len(caches, s - n)
+
+    def prefill_step(params, tokens, caches, n_tokens: int | None = None):
+        if n_tokens is not None:
+            logits, caches = dynamic_prefill(params, tokens, caches, int(n_tokens))
+        elif tokens.shape[1] <= chunk:
             logits, caches = transformer.prefill(params, cfg, tokens, caches)
         else:
             logits, caches = run_chunks(params, tokens, caches)
@@ -67,6 +103,20 @@ def make_prefill_step(cfg, chunk: int = 4096, *, return_logits: bool = False):
 
     prefill_step.chunk = chunk
     return prefill_step
+
+
+def make_verify_step(cfg):
+    """Speculative verify: ``(params, tokens (B, S), caches)`` ->
+    ``(greedy (B, S), caches)``.  Column j is the target model's greedy
+    token AFTER seeing ``tokens[:, :j+1]``.  Paged caches only (the
+    engine's layout)."""
+    transformer.check_supported(cfg)
+
+    def verify(params, tokens, caches):
+        logits, caches = transformer.verify_step(params, cfg, tokens, caches)
+        return torch.argmax(logits, dim=-1), caches
+
+    return verify
 
 
 def make_serve_step(cfg, *, return_logits: bool = False):

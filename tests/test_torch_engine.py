@@ -1,0 +1,205 @@
+"""The port's ``ServingEngine`` vs the JAX reference engine, and the paged
+launcher.
+
+Both engines serve the same pinned traces under one fake ``_now`` clock
+(installed in both packages), with ``audit()`` on every step: FIFO
+admission; the prefix cache with a copy-on-write fork of a partly filled
+shared page; ``prefill_budget`` with priority preemption under a small
+pool; speculative decoding with a foreign draft (rejections) and with
+the target as its own draft (full acceptance).  Tokens must be equal
+request by request, and so must every ``stats()`` counter,
+``latency_stats`` and ``phase_breakdown``.
+
+Model: ``qwen3_0p6b.scaled_down()`` in f32, params carried over by
+``convert.params_from_numpy``; prompts made with numpy from seeds.
+"""
+
+import contextlib
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs.base import get_config  # noqa: E402
+from repro.models import transformer as jtf  # noqa: E402
+from repro.serve import engine as jeng  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.configs.base import get_config as t_get_config  # noqa: E402
+from repro_torch.launch import serve as tlaunch  # noqa: E402
+from repro_torch.serve import engine as teng  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def model():
+    cfg = get_config("qwen3_0p6b").scaled_down()
+    tcfg = t_get_config("qwen3_0p6b").scaled_down()
+    params = {}
+    for name, seed in (("target", 0), ("draft", 7)):
+        jp = jtf.init(jax.random.PRNGKey(seed), cfg, jnp.float32)
+        params[name] = (jp, convert.params_from_numpy(jax.tree.map(np.asarray, jp),
+                                                      tcfg, "cpu"))
+    return cfg, tcfg, params
+
+
+def _trace(vocab, shared_len=20):
+    """Eight requests, prompts 5..60 tokens; every other one longer than
+    ``shared_len`` starts with one shared prefix (a hit that ends mid-page
+    at page 8, so admission COW-forks the shared tail page)."""
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, vocab, shared_len).astype(np.int32)
+    reqs = []
+    for i, (n, m) in enumerate([(7, 5), (45, 3), (52, 8), (33, 2), (30, 6),
+                                (60, 1), (9, 4), (44, 7)]):
+        p = rng.integers(0, vocab, n).astype(np.int32)
+        if i % 2 and n > shared_len:
+            p[:shared_len] = shared
+        reqs.append((p, m))
+    return reqs
+
+
+TRACES = {
+    "fifo": dict(),
+    "prefix_cow": dict(prefix_cache=True),
+    "budget_preempt": dict(prefix_cache=True, prefill_budget=8, num_pages=14),
+    "spec_foreign_draft": dict(draft="draft", spec_k=3),
+    "spec_self_draft": dict(draft="target", spec_k=3),
+}
+
+
+@contextlib.contextmanager
+def _fake_clock(mod):
+    """Install a clock ticking 1 ms per read as ``mod._now``."""
+    ticks = [0.0]
+
+    def clock():
+        ticks[0] += 1e-3
+        return ticks[0]
+
+    prev, mod._now = mod._now, clock
+    try:
+        yield
+    finally:
+        mod._now = prev
+
+
+def _serve(mod, params, cfg, reqs, draft, **kw):
+    """Drive ``mod.ServingEngine`` over ``reqs`` (request i arrives before
+    step i, priorities alternating 0/1, so later high-priority arrivals
+    meet running low-priority ones) under a fake clock, auditing every
+    step."""
+    with _fake_clock(mod):
+        if draft is not None:
+            kw.update(draft_params=draft, draft_cfg=cfg)
+        eng = mod.ServingEngine(params, cfg, max_slots=2, max_len=128, page_size=8,
+                                prefill_chunk=8, **kw)
+        for t in range(500):
+            if t < len(reqs):
+                eng.submit(reqs[t][0], reqs[t][1], priority=t % 2)
+            elif not eng.pending and eng.active == 0:
+                break
+            eng.step(debug_audit=True)
+        done = eng.run()
+        report = eng.audit()
+    return eng, {r.rid: r for r in done}, report
+
+
+@pytest.mark.parametrize("name", list(TRACES))
+def test_engine_matches_reference_engine(model, name, monkeypatch):
+    cfg, tcfg, params = model
+    forks = []
+    fork = teng.kv_cache.fork_page
+    monkeypatch.setattr(teng.kv_cache, "fork_page",
+                        lambda *a: forks.append(a[1:]) or fork(*a))
+    kw = dict(TRACES[name])
+    draft = kw.pop("draft", None)
+    reqs = _trace(cfg.vocab)
+    jdraft, tdraft = params[draft] if draft else (None, None)
+    jeng_, jdone, jrep = _serve(jeng, params["target"][0], cfg, reqs, jdraft, **kw)
+    teng_, tdone, trep = _serve(teng, params["target"][1], tcfg, reqs, tdraft, **kw)
+    assert sorted(tdone) == sorted(jdone) == list(range(len(reqs)))
+    for rid, r in jdone.items():
+        assert tdone[rid].tokens == r.tokens, rid
+        assert tdone[rid].preemptions == r.preemptions
+    assert teng_.stats() == jeng_.stats()
+    assert trep == jrep
+    done_t = [tdone[i] for i in sorted(tdone)]
+    done_j = [jdone[i] for i in sorted(jdone)]
+    assert teng.latency_stats(done_t) == jeng.latency_stats(done_j)
+    assert teng.phase_breakdown(done_t) == jeng.phase_breakdown(done_j)
+    # zero leaks: every page not held by the radix tree is free
+    held = len(teng_.prefix.pages()) if teng_.prefix is not None else 0
+    assert teng_.allocator.num_free + held == teng_.num_pages
+    assert (teng_.block_tables == -1).all()
+    st = teng_.stats()
+    if name == "prefix_cow":
+        assert forks and st["prefix_hits"] >= 2
+    if name == "budget_preempt":
+        assert st["preemptions"] >= 1 and st["prefill_budget"] == 8
+    if name == "spec_self_draft":
+        assert st["accepted_per_spec_step"] > 2
+    if name == "spec_foreign_draft":
+        assert st["accepted_per_spec_step"] < 2
+
+
+def test_engine_cancel_and_quarantine_match_reference(model):
+    """``cancel`` of a queued and of a running request, then
+    ``quarantine_slot`` on the freed lane: same tokens, stats, audits."""
+    cfg, tcfg, params = model
+    reqs = _trace(cfg.vocab)
+    out = []
+    for mod, p, c in ((jeng, params["target"][0], cfg), (teng, params["target"][1], tcfg)):
+        with _fake_clock(mod):
+            eng = mod.ServingEngine(p, c, max_slots=2, max_len=128, page_size=8,
+                                    prefill_chunk=8)
+            rs = [eng.submit(q, m) for q, m in reqs]
+            eng.step()
+            eng.step()
+            assert eng.cancel(rs[-1]) and eng.cancel(rs[0])
+            sid = next(i for i, s in enumerate(eng.slots) if s.req is None)
+            eng.quarantine_slot(sid)
+            done = eng.run()
+            out.append(({r.rid: (r.tokens, r.cancelled) for r in done}, eng.stats(),
+                        eng.audit()))
+    assert out[0] == out[1]
+    assert out[1][1]["cancelled"] == 2 and out[1][1]["slots_quarantined"] == 1
+
+
+def test_engine_refuses_what_the_port_lacks(model):
+    _, tcfg, params = model
+    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+        teng.ServingEngine(params["target"][1], tcfg, kv_dtype="int8")
+    swa = dataclasses.replace(tcfg, sliding_window=16)
+    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+        teng.ServingEngine(params["target"][1], swa)
+    with pytest.raises(ValueError, match="prefill_budget"):
+        teng.ServingEngine(params["target"][1], tcfg, prefill_budget=0)
+
+
+def test_paged_launcher_runs_on_cpu_when_asked(capsys):
+    res = tlaunch.main(["--engine", "paged", "--device", "cpu", "--smoke", "--batch", "2",
+                        "--prompt", "64", "--new-tokens", "8", "--prefix-cache"])
+    out = capsys.readouterr().out
+    assert "paged engine: 4 requests" in out and "on cpu" in out
+    assert "token latency p50" in out and "ttft p50" in out
+    assert "admitted 4, rejected 0" in out and "prefix cache: " in out
+    assert len(res["done"]) == 4
+    res["engine"].audit()
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--kv-dtype", "int8"], "queue 1, item 7"),
+    (["--supervise"], "queue 1, item 10"),
+    (["--fault-plan", "decode_nan:step=3"], "queue 1, item 10"),
+    (["--deadline-ms", "50"], "queue 1, item 10"),
+    (["--autotune"], "queue 1, item 13"),
+    (["--tuning-file", "t.json"], "queue 1, item 13"),
+    (["--strategy", "pipeline"], "queue 1, item 12"),
+])
+def test_launcher_unported_flags_name_their_item(flags, item):
+    with pytest.raises(SystemExit, match=item):
+        tlaunch.main(["--engine", "paged", "--device", "cpu", "--smoke", *flags])

@@ -114,3 +114,115 @@ def test_generate_on_card_goes_through_kernels(cuda):
         layers.set_attention_impl(prev)
     assert (tfl.flash_attention.launches, tdec.decode_attention.launches) == n1
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+def _paged(dev, dtype, b, s, h, hkv, d, w, pg, kv_lens, *, int8=False, seed=0):
+    """Random q and page pools with every sequence's pages at shuffled,
+    non-contiguous pool indices and -1 tails (one spare table entry at
+    least); int8 pools come with per-page, per-head scales."""
+    rng = np.random.default_rng(seed)
+    pages = [-(-n // pg) for n in kv_lens]
+    max_pp, num_pages = max(pages) + 1, sum(pages) + 3
+    perm = rng.permutation(num_pages)
+    bt = -np.ones((b, max_pp), np.int32)
+    nxt = 0
+    for i, n in enumerate(pages):
+        bt[i, :n] = perm[nxt:nxt + n]
+        nxt += n
+    q = torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(np.float32))
+    shape = (hkv, num_pages, pg, w)
+    if int8:
+        kp, vp = (torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
+                  for _ in range(2))
+        ks, vs = (torch.from_numpy((rng.random(shape[:2]) * 0.02 + 1e-3).astype(np.float32))
+                  for _ in range(2))
+        extra = dict(k_scales=ks.to(dev), v_scales=vs.to(dev))
+    else:
+        kp, vp = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dtype)
+                  for _ in range(2))
+        extra = {}
+    return (q.to(dev, dtype), kp.to(dev), vp.to(dev), torch.from_numpy(bt).to(dev),
+            torch.tensor(kv_lens, dtype=torch.int32, device=dev)), extra
+
+
+GPU_PAGED = [(s, window, pg) for s in (1, 5) for window in (0, 100) for pg in (16, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,window,pg", GPU_PAGED)
+def test_paged_kernel_matches_plain_on_card(cuda, s, window, pg, dtype):
+    kv_lens = [0, 1, pg - 1, pg, pg + 1, 2064]
+    args, extra = _paged(cuda, getattr(torch, dtype), 6, s, 16, 8, 128, 128, pg,
+                         kv_lens, seed=pg + s + window)
+    n0 = tdec.paged_decode_attention.launches
+    got, counts = tdec.paged_decode_attention(*args, window=window, return_counts=True)
+    torch.cuda.synchronize()
+    assert tdec.paged_decode_attention.launches == n0 + 1
+    want, want_map = tdec.paged_decode_attention_ref(*args, window=window,
+                                                     return_counts=True)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=TOL[dtype])
+    assert not got[0].any(), "kv_len 0 gives exactly zero"
+    np.testing.assert_array_equal(counts.cpu().numpy(), want_map.cpu().numpy())
+    if s == 1:
+        executed, total = tdec.paged_partition_counts(args[3].shape[1], kv_lens,
+                                                      page_size=pg, window=window)
+        assert counts.shape[2] == total
+        assert counts[:, 0].sum(1).tolist() == executed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["dv", "int8", "int8_verify"])
+def test_paged_kernel_dv_and_int8_on_card(cuda, case):
+    int8 = case.startswith("int8")
+    s = 5 if case == "int8_verify" else 1
+    kv_lens = [0, 1, 15, 16, 17, 2064]
+    args, extra = _paged(cuda, torch.float32, 6, s, 16, 8, 128, 160 if case == "dv" else 128,
+                         16, kv_lens, int8=int8, seed=7)
+    dv = 96 if case == "dv" else None
+    got, counts = tdec.paged_decode_attention(*args, dv=dv, window=100,
+                                              return_counts=True, **extra)
+    torch.cuda.synchronize()
+    want, want_map = tdec.paged_decode_attention_ref(*args, dv=dv, window=100,
+                                                     return_counts=True, **extra)
+    assert got.shape[-1] == (96 if case == "dv" else 128)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=TOL["float32"])
+    np.testing.assert_array_equal(counts.cpu().numpy(), want_map.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_paged_engine_on_card_goes_through_kernels(cuda):
+    """A reduced qwen3 ServingEngine trace on the card: every decode step
+    launches the paged kernel once per layer, and the tokens equal a run
+    on the plain versions."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import ServingEngine
+
+    cfg = get_config("qwen3_0p6b").scaled_down()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = tf.init(cfg, generator=gen, dtype=torch.float32, device=cuda)
+    rng = np.random.default_rng(0)
+    trace = [(rng.integers(0, cfg.vocab, n).astype(np.int32), m)
+             for n, m in [(40, 6), (70, 3), (25, 9), (90, 5)]]
+
+    def run():
+        eng = ServingEngine(params, cfg, max_slots=2, max_len=128, page_size=16,
+                            prefill_chunk=32, prefix_cache=True)
+        for p, m in trace:
+            eng.submit(p, m)
+        done = eng.run()
+        eng.audit()
+        return {r.rid: r.tokens for r in done}, eng.steps
+
+    n0 = tdec.paged_decode_attention.launches
+    got, steps = run()
+    assert tdec.paged_decode_attention.launches - n0 == steps * cfg.num_layers
+    prev = layers.set_attention_impl("ref")
+    try:
+        want, _ = run()
+    finally:
+        layers.set_attention_impl(prev)
+    assert got == want

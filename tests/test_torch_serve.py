@@ -129,9 +129,9 @@ def test_launcher_runs_on_cpu_when_asked(capsys):
 
 def test_launcher_refuses_unported_options():
     with pytest.raises(SystemExit, match="ROADMAP"):
-        tlaunch.main(["--device", "cpu", "--smoke", "--engine", "paged"])
+        tlaunch.main(["--device", "cpu", "--smoke", "--kv-dtype", "int8"])
     with pytest.raises(SystemExit, match="ROADMAP"):
-        tlaunch.main(["--device", "cpu", "--smoke", "--draft", "qwen3_0p6b"])
+        tlaunch.main(["--device", "cpu", "--smoke", "--supervise"])
 
 
 def test_launcher_default_device_needs_cuda():
