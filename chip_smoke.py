@@ -17,7 +17,12 @@ qwen3_0p6b (f32, random weights from seed 0):
   cache, a 512-token prefill budget and a pool small enough to preempt,
   auditing the pool on every step, with its tokens held to a run on the
   plain versions; then 8 of those requests with speculative decoding (the
-  target as its own draft, k = 4, S = 5 verify calls).
+  target as its own draft, k = 4, S = 5 verify calls);
+* the VTA path: ResNet-18's convolutions (batch 1, 224 x 224) as int8
+  GEMMs through ``ops.vta_conv2d`` and ``ops.dense_requant_int8``;
+* int8 serving: the same weights packed by ``optim.quant.quantize_params``
+  through the static path (every projection on the VTA GEMM's dequant
+  epilogue) and through the engine trace on int8 KV pools.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after, and the counts must be exactly those the path's own
@@ -34,6 +39,7 @@ JSON record.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -45,7 +51,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the main path is f32 and must
 # not use TF32, so f32 work is bounded by the SIMT f32 rate
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
 
 # kernel vs plain version on the same card and inputs:
@@ -69,6 +75,25 @@ EXPECT_DECODE = 28 * (NEW_TOKENS - 1)   # 868
 ENGINE = dict(max_slots=8, max_len=2048 + 64, page_size=16, prefill_chunk=512)
 ENGINE_POOL, ENGINE_REQUESTS, SPEC_REQUESTS, SPEC_K = 600, 16, 8, 4
 
+# int8 serving.  Kernel vs plain version: none, requant and dequant with act
+# none / relu are bitwise (the same int32 sums, the same two f32 roundings);
+# silu / gelu within ACT_TOL of max(1, |y|) (the kernel's expf / tanhf
+# against PyTorch's exp / tanh)
+ACT_TOL = 1e-5
+PROJ = [("mixer", "wq"), ("mixer", "wk"), ("mixer", "wv"), ("mixer", "wo"),
+        ("ffn", "w_gate"), ("ffn", "w_up"), ("ffn", "w_down")]
+# 7 projections in each of 28 layers per forward call; the static path makes
+# 4 prefill-chunk calls and 31 decode calls
+EXPECT_DEQUANT = 7 * 28 * (PROMPT // CHUNK + NEW_TOKENS - 1)  # 6860
+# ResNet-18 convolutions at batch 1, 224 x 224 (the paper's workload):
+# (name, H = W, C in, C out, kernel, stride); their GEMMs are M = HO * WO,
+# K = kernel^2 * C in, N = C out
+RESNET = [("stem 7x7x3->64 s2", 224, 3, 64, 7, 2),
+          ("3x3x64->64 at 56", 56, 64, 64, 3, 1),
+          ("3x3x256->512 s2", 14, 256, 512, 3, 2),
+          ("3x3x512->512 at 7", 7, 512, 512, 3, 1)]
+REQUANT_SHIFT = 12
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -88,15 +113,44 @@ def nvidia_smi() -> str:
 
 
 def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, CUDA events."""
-    for _ in range(warmup):
-        fn()
+    """Mean device time of ``fn`` over ``reps`` calls, CUDA events.  ``fn``
+    gets the call's index, so a caller can cycle through operands larger
+    than the L2 cache, as a forward pass streams its layers' weights."""
+    for i in range(warmup):
+        fn(i)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    for i in range(reps):
+        fn(i)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, reps: int = 20) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls captured in one CUDA
+    graph and replayed: for calls whose host-side launch cost exceeds
+    their device time (a decode-row GEMM runs for microseconds), this
+    times the device work and not the host's enqueue rate.  ``fn`` gets
+    the call's index, as in :func:`cuda_ms`."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(3):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
@@ -133,6 +187,13 @@ def paged_work(b, s, h, hkv, d, dv, kv_lens, esize, pages_per_seq):
     nbytes = (esize * (b * s * h * d + keys * hkv * (d + dv) + b * s * h * dv)
               + 4 * (b * pages_per_seq + b))
     return flops, nbytes
+
+
+def gemm_work(m, k, n, out_bytes, extra_bytes=0):
+    """Operations and bytes one int8 GEMM call needs: 2*M*N*K operations;
+    a and w read once (int8), the output written once, plus its
+    per-column vectors."""
+    return 2 * m * n * k, m * k + k * n + out_bytes * m * n + extra_bytes
 
 
 def paged_inputs(torch, gen, dev, dtype, b, s, h, hkv, d, w, pg, kv_lens, int8=False):
@@ -202,6 +263,47 @@ def drive_engine(eng, reqs):
     return {r.rid: r.tokens for r in done}, done, time.perf_counter() - t0
 
 
+@contextlib.contextmanager
+def plain_versions():
+    """Run attention and the quantized GEMMs on their plain versions (the
+    reference runs on the card); the dispatch is restored after."""
+    from repro_torch.models import layers
+
+    prev = layers.set_attention_impl("ref"), layers.set_gemm_impl("ref")
+    try:
+        yield
+    finally:
+        layers.set_attention_impl(prev[0])
+        layers.set_gemm_impl(prev[1])
+
+
+def margin_check(torch, params, cfg, dev, reqs, got, ref, what, tol):
+    """Tokens of ``got`` equal ``ref`` request by request, except from a
+    position where a teacher-forced forward of ref's sequence (plain
+    versions) shows a top-2 logit margin <= ``tol``.  Returns the number
+    of requests that diverge."""
+    from repro_torch.models import transformer as tf
+
+    diverged = 0
+    for rid, want in ref.items():
+        have = got[rid]
+        check(len(have) == len(want), f"{what}: request {rid} length")
+        if have == want:
+            continue
+        j = next(i for i, (a, b_) in enumerate(zip(have, want)) if a != b_)
+        seq = torch.tensor([list(reqs[rid][0]) + want[:j]], device=dev)
+        with plain_versions(), torch.inference_mode():
+            lg = tf.forward(params, cfg, seq)[0][0, -1]
+        top2 = lg.topk(2).values
+        margin = (top2[0] - top2[1]).item()
+        check(margin <= tol, f"{what}: request {rid} diverges at token {j} where "
+              f"the reference's top-2 margin is {margin} > {tol}")
+        log(f"[engine] {what}: request {rid} diverges at token {j}, reference margin "
+            f"{margin:.3e} <= {tol}")
+        diverged += 1
+    return diverged
+
+
 def engine_phases(torch, params, cfg, dev, card: str) -> int:
     """The paged ``ServingEngine`` at full width: the trace with the
     kernels (launch counts exact, preemption, prefix hits, audit green,
@@ -211,8 +313,6 @@ def engine_phases(torch, params, cfg, dev, card: str) -> int:
     launches in the first run."""
     from repro_torch.kernels.decode_attention import paged_decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.models import layers
-    from repro_torch.models import transformer as tf
     from repro_torch.serve.engine import ServingEngine, latency_stats
 
     layers_n = cfg.num_layers
@@ -229,31 +329,8 @@ def engine_phases(torch, params, cfg, dev, card: str) -> int:
     def launch_counts():
         return flash_attention.launches, paged_decode_attention.launches
 
-    def margin_check(got, ref, what):
-        """Tokens of ``got`` equal ``ref`` request by request, except from a
-        position where a teacher-forced forward of ref's sequence (plain
-        versions) shows a top-2 logit margin <= LOGIT_TOL.  Returns the
-        number of requests that diverge."""
-        diverged = 0
-        for rid, want in ref.items():
-            have = got[rid]
-            check(len(have) == len(want), f"{what}: request {rid} length")
-            if have == want:
-                continue
-            j = next(i for i, (a, b_) in enumerate(zip(have, want)) if a != b_)
-            seq = torch.tensor([list(reqs[rid][0]) + want[:j]], device=dev)
-            prev = layers.set_attention_impl("ref")
-            try:
-                with torch.inference_mode():
-                    lg = tf.forward(params, cfg, seq)[0][0, -1]
-            finally:
-                layers.set_attention_impl(prev)
-            top2 = lg.topk(2).values
-            margin = (top2[0] - top2[1]).item()
-            check(margin <= LOGIT_TOL, f"{what}: request {rid} diverges at token {j} where "
-                  f"the reference's top-2 margin is {margin} > {LOGIT_TOL}")
-            diverged += 1
-        return diverged
+    def margins(got, ref, what):
+        return margin_check(torch, params, cfg, dev, reqs, got, ref, what, LOGIT_TOL)
 
     flash_attention.launches = paged_decode_attention.launches = 0
     eng = engine(num_pages=ENGINE_POOL, prefill_budget=512)
@@ -280,17 +357,14 @@ def engine_phases(torch, params, cfg, dev, card: str) -> int:
     n_tok = lat["tokens"]
     del eng
 
-    prev = layers.set_attention_impl("ref")
-    try:
+    with plain_versions():
         eng = engine(num_pages=ENGINE_POOL, prefill_budget=512)
         ref_toks, _, ref_s = drive_engine(eng, reqs)
         eng.audit()
         ref_stats = eng.stats()
         del eng
-    finally:
-        layers.set_attention_impl(prev)
     check(launch_counts() == (n_eflash, n_paged), "the reference engine run launched no kernel")
-    diverged = margin_check(toks, ref_toks, "engine vs the plain-version run")
+    diverged = margins(toks, ref_toks, "engine vs the plain-version run")
     log(f"[engine] tokens vs a run on the plain versions ({ref_s:.2f} s, "
         f"{ref_stats['preemptions']} preemptions): {len(ref_toks) - diverged}/{len(ref_toks)} "
         f"requests equal, {diverged} diverge where the reference's margin <= {LOGIT_TOL}")
@@ -315,8 +389,8 @@ def engine_phases(torch, params, cfg, dev, card: str) -> int:
     check(n_spaged == layers_n * sst["spec_steps"] * (SPEC_K + 2)
           and n_sflash == layers_n * (sst["prefill_chunk_calls"] + draft_chunks),
           "the speculative run's attention calls all went through the kernels")
-    spec_div = margin_check(spec_toks, {rid: toks[rid] for rid in spec_toks},
-                            "speculative vs non-speculative")
+    spec_div = margins(spec_toks, {rid: toks[rid] for rid in spec_toks},
+                       "speculative vs non-speculative")
     log(f"[engine] speculative tokens vs the non-speculative run: "
         f"{len(spec_toks) - spec_div}/{len(spec_toks)} requests equal, {spec_div} diverge "
         f"where the margin <= {LOGIT_TOL}")
@@ -375,6 +449,421 @@ def device_breakdown(torch, fn, top: int = 6):
     return wall, sum(r[1] for r in rows) / 1e6, rows[:top]
 
 
+def _counters(stats: dict) -> dict:
+    """An engine's ``stats()`` without its measured costs (host-clock
+    EWMAs, which differ from run to run)."""
+    return {k: v for k, v in stats.items() if not k.endswith("_cost_ms")}
+
+
+def reset_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    from repro_torch.kernels.decode_attention import decode_attention, paged_decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.vta_gemm import vta_gemm
+
+    flash_attention.launches = decode_attention.launches = 0
+    paged_decode_attention.launches = 0
+    vta_gemm.launches.update(none=0, requant=0, dequant=0)
+
+
+def int8_operands(torch, gen, dev, *shape):
+    return torch.randint(-128, 128, shape, generator=gen, device=dev).to(torch.int8)
+
+
+def vta_parity(torch, gen, dev) -> dict:
+    """The VTA GEMM against its plain version for all three epilogues, at
+    the CPU tests' shapes and qwen3_0p6b's projection shapes at M 4, 8,
+    512 and 2048.  Returns the largest |err| per epilogue."""
+    from repro_torch.kernels.vta_gemm import vta_gemm, vta_gemm_ref
+
+    shapes = [(16, 16, 16), (128, 128, 128), (100, 200, 300), (1, 2048, 512),
+              (384, 64, 640)]
+    shapes += [(m, k, n) for m in (4, 8, 512, 2048)
+               for k, n in ((1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072),
+                            (3072, 1024))]
+    errs = {"none": 0.0, "requant": 0.0, "dequant": 0.0}
+    for m, k, n in shapes:
+        a, w = int8_operands(torch, gen, dev, m, k), int8_operands(torch, gen, dev, k, n)
+        ibias = torch.randint(-(2 ** 14), 2 ** 14, (n,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        scale = torch.rand((n,), generator=gen, device=dev) * 1e-4 + 1e-6
+        fbias = torch.randn((n,), generator=gen, device=dev)
+        cases = [("none", {}),
+                 ("requant", dict(bias=ibias, shift=8, relu=True)),
+                 ("requant", dict(bias=ibias, shift=0, relu=False)),
+                 ("dequant", dict(scale=scale)),
+                 ("dequant", dict(scale=scale, bias=fbias, act="relu")),
+                 ("dequant", dict(scale=scale, act="silu")),
+                 ("dequant", dict(scale=scale, bias=fbias, act="gelu"))]
+        worst = 0.0
+        for epi, kw in cases:
+            got = vta_gemm(a, w, epilogue=epi, **kw)
+            want = vta_gemm_ref(a, w, epilogue=epi, **kw)
+            torch.cuda.synchronize()
+            check(got.dtype == want.dtype and got.shape == (m, n),
+                  f"vta_gemm {epi} {m}x{k}x{n}: dtype / shape")
+            err = (got.double() - want.double()).abs().max().item()
+            if kw.get("act") in ("silu", "gelu"):
+                rel = ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
+                check(rel <= ACT_TOL, f"vta_gemm {epi} {kw['act']} {m}x{k}x{n}: "
+                      f"err {rel} > {ACT_TOL} of max(1, |y|)")
+            else:
+                check(torch.equal(got, want), f"vta_gemm {epi} act={kw.get('act')} "
+                      f"{m}x{k}x{n}: not bitwise equal to the plain version (max|err| {err})")
+            errs[epi] = max(errs[epi], err)
+            worst = max(worst, err)
+        log(f"[vta_gemm] M {m} K {k} N {n}: none, requant (shift 8 relu / 0), dequant "
+            f"(none, relu+bias bitwise; silu, gelu+bias max|err| {worst:.3e})")
+    return errs
+
+
+def vta_phase(torch, gen, dev):
+    """The VTA path: ResNet-18's convolutions at batch 1, 224 x 224, as int8
+    GEMMs — ``ops.vta_conv2d`` (epilogue none) and ``ops.dense_requant_int8``
+    on the same patches (requant) — with the launch counts set to 0 before
+    and read after, then each output held bitwise to its plain version and
+    the convolution also to an f64 ``conv2d`` with the reference's SAME
+    padding.  Returns (launches none, launches requant, the GEMM operands)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.vta_gemm import vta_gemm, vta_gemm_ref
+
+    convs = []
+    for name, hw, cin, cout, kk, stride in RESNET:
+        x = int8_operands(torch, gen, dev, 1, hw, hw, cin)
+        w = int8_operands(torch, gen, dev, kk, kk, cin, cout)
+        bias = torch.randint(-(2 ** 16), 2 ** 16, (cout,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        convs.append((name, x, w, bias, kk, stride))
+    torch.cuda.synchronize()
+    reset_counts()
+    outs = []
+    for name, x, w, bias, kk, stride in convs:
+        conv = ops.vta_conv2d(x, w, stride=stride)
+        patches, _, _ = ops._im2col(x, kk, kk, stride)
+        req = ops.dense_requant_int8(patches, w.reshape(-1, w.shape[-1]), bias,
+                                     shift=REQUANT_SHIFT, relu=True)
+        outs.append((conv, patches, req))
+    torch.cuda.synchronize()
+    n_none, n_req = vta_gemm.launches["none"], vta_gemm.launches["requant"]
+    log(f"[vta] launches: vta_gemm none {n_none}, requant {n_req} (expect {len(RESNET)} each)")
+    check(n_none == n_req == len(RESNET), "the VTA path's GEMMs all went through the kernel")
+    operands = []
+    for (name, x, w, bias, kk, stride), (conv, patches, req) in zip(convs, outs):
+        wmat = w.reshape(-1, w.shape[-1])
+        m, k = patches.shape
+        n = wmat.shape[1]
+        ho = -(-x.shape[1] // stride)
+        pad = max((ho - 1) * stride + kk - x.shape[1], 0)
+        xp = F.pad(x.permute(0, 3, 1, 2).double(),
+                   (pad // 2, pad - pad // 2, pad // 2, pad - pad // 2))
+        want = F.conv2d(xp, w.permute(3, 2, 0, 1).double(), stride=stride)
+        check(torch.equal(conv, want.permute(0, 2, 3, 1).to(torch.int32)),
+              f"vta_conv2d {name}: not bitwise equal to an f64 conv2d")
+        check(torch.equal(conv.reshape(m, n), vta_gemm_ref(patches, wmat)),
+              f"vta_conv2d {name}: not bitwise equal to the plain version")
+        want_req = vta_gemm_ref(patches, wmat, bias, epilogue="requant",
+                                shift=REQUANT_SHIFT, relu=True)
+        check(torch.equal(req, want_req), f"dense_requant_int8 {name}: not bitwise equal")
+        sat = (req == 127).float().mean().item()
+        log(f"[vta] {name}: GEMM M {m} K {k} N {n}; conv bitwise == f64 conv2d == plain "
+            f"version; requant (shift {REQUANT_SHIFT}, relu) bitwise, {sat:.1%} at 127")
+        operands.append((name, patches, wmat, bias))
+    return n_none, n_req, operands
+
+
+def int8_static_phase(torch, params, qparams, cfg, prompts, dev, card: str):
+    """Full-width int8 static serving: launches exact (every projection of
+    every forward call on the dequant kernel), finite logits of the right
+    shape, teacher-forced logits bitwise equal to a run with the GEMMs on
+    their plain version and within int8 noise of a run on every plain
+    version, tokens under the margin rule, then a timed warm run and a
+    decode profile.  Returns the dequant kernel's launches."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.vta_gemm import vta_gemm
+    from repro_torch.launch.serve import run_static
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.step import make_prefill_step, make_serve_step
+
+    check(layers.gemm_impl() == "auto" and layers.attention_impl() == "auto",
+          "the int8 path runs with gemm and attention impl auto")
+    reset_counts()
+    res = run_static(qparams, cfg, prompts, new_tokens=NEW_TOKENS, chunk=CHUNK,
+                     return_logits=True)
+    counts = (flash_attention.launches, decode_attention.launches, vta_gemm.launches["dequant"])
+    log(f"[int8 static] launches: vta_gemm dequant {counts[2]} (expect {EXPECT_DEQUANT} = 196 x "
+        f"{PROMPT // CHUNK + NEW_TOKENS - 1} forward calls), flash {counts[0]}, decode {counts[1]}")
+    check(counts == (EXPECT_FLASH, EXPECT_DECODE, EXPECT_DEQUANT),
+          "the int8 path's projections and attention all went through the kernels")
+    tokens = res["tokens"]
+    check(tokens.shape == (BATCH, NEW_TOKENS), f"int8 token shape {tuple(tokens.shape)}")
+    check(int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab, "int8 token ids in vocab")
+    logits = torch.stack(res["logits"], dim=1)
+    check(logits.shape == (BATCH, NEW_TOKENS, cfg.vocab) and bool(torch.isfinite(logits).all()),
+          "int8 logits finite, of shape (B, new tokens, vocab)")
+    def teacher_forced(p):
+        """(B, new tokens, vocab) logits of ``p`` fed the int8 run's tokens."""
+        with torch.inference_mode():
+            caches = tf.init_caches(cfg, BATCH, PROMPT + NEW_TOKENS, torch.float32, dev)
+            _, lg, caches = make_prefill_step(cfg, CHUNK, return_logits=True)(p, prompts, caches)
+            out = [lg[:, -1]]
+            step = make_serve_step(cfg, return_logits=True)
+            for i in range(NEW_TOKENS - 1):
+                _, lg, caches = step(p, tokens[:, i:i + 1], caches)
+                out.append(lg[:, -1])
+        return torch.stack(out, dim=1)
+
+    # the dequant kernel against its plain version along the whole path: the
+    # same run with only the GEMMs on the plain version gives the same logits
+    prev = layers.set_gemm_impl("ref")
+    try:
+        gemm_plain = teacher_forced(qparams)
+    finally:
+        layers.set_gemm_impl(prev)
+    check(vta_gemm.launches["dequant"] == counts[2], "the plain-GEMM run launched no GEMM kernel")
+    gerr = (logits - gemm_plain).abs().max().item()
+    log(f"[int8 static] teacher-forced logits vs the run with the GEMMs on their plain "
+        f"version: max|err| {gerr:.3e} (bitwise expected)")
+    check(torch.equal(logits, gemm_plain), "int8 logits equal to the plain-GEMM run")
+    # every kernel on its plain version, and the f32 weights: the attention
+    # kernels' ~1e-6 differences move int8 codes at rounding ties, and over
+    # 28 layers the two int8 runs part by int8 rounding noise; that noise is
+    # measured by the f32 weights' distance from the int8 run, and the two
+    # int8 runs must stay within twice it
+    with plain_versions():
+        plain = teacher_forced(qparams)
+    f32 = teacher_forced(params)
+    check(vta_gemm.launches["dequant"] == counts[2], "the reference runs launched no GEMM kernel")
+    err = (logits - plain).abs().max().item()
+    noise = (logits - f32).abs().max().item()
+    tol = 2 * noise
+    top2 = plain.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > tol
+    agree = tokens == plain.argmax(-1)
+    log(f"[int8 static] teacher-forced logits vs the plain-version run: max|err| {err:.3e}; "
+        f"vs the f32 weights {noise:.3e} (tol {tol:.3e} = 2x that); |logits| max "
+        f"{logits.abs().max().item():.3f}; greedy tokens equal at {int(agree.sum())}/"
+        f"{agree.numel()}, {int(decided.sum())} with margin > tol; f32 weights' greedy "
+        f"tokens equal at {int((f32.argmax(-1) == tokens).sum())}/{tokens.numel()}")
+    check(err <= tol, f"int8 logits vs the plain-version run: {err} > {tol}")
+    check(bool(agree[decided].all()), "int8 greedy token differs where the margin is clear")
+
+    warm = run_static(qparams, cfg, prompts, new_tokens=NEW_TOKENS, chunk=CHUNK)
+    log(f"[time] int8 static: prefill {BATCH}x{PROMPT} {warm['prefill_s'] * 1e3:.2f} ms; "
+        f"decode {BATCH * (NEW_TOKENS - 1) / warm['decode_s']:.1f} tok/s "
+        f"({warm['decode_s'] / (NEW_TOKENS - 1) * 1e3:.2f} ms/step); on {card}")
+    caches = tf.init_caches(cfg, BATCH, PROMPT + NEW_TOKENS, torch.float32, dev)
+    prefill_step, serve_step = make_prefill_step(cfg, CHUNK), make_serve_step(cfg)
+    state = {}
+
+    @torch.inference_mode()
+    def run_prefill():
+        state["tok"], state["caches"] = prefill_step(qparams, prompts, caches)
+
+    @torch.inference_mode()
+    def run_decode(steps=8):
+        tok, c = state["tok"][:, None], state["caches"]
+        for _ in range(steps):
+            tok, c = serve_step(qparams, tok, c)
+
+    for phase, fn in (("int8 prefill 4 chunks", run_prefill), ("int8 decode 8 steps", run_decode)):
+        wall, busy, top = device_breakdown(torch, fn)
+        log(f"[profile] {phase}: wall {wall * 1e3:.2f} ms (profiled), device kernels "
+            f"{busy * 1e3:.2f} ms, device idle {100 * (1 - busy / wall):.1f} %")
+        for name, us, calls in top:
+            log(f"[profile]   {us / 1e3:9.3f} ms {calls:5d}x {name[:90]}")
+    return counts[2]
+
+
+def int8_engine_phase(torch, qparams, cfg, dev, card: str) -> None:
+    """The engine trace on int8 weights and int8 KV pools: launch counts
+    exact against ``engine.stats()``, prefix hits only at whole pages, the
+    audit green on every step and no page leaked, tokens and counters equal
+    to the same trace with the GEMMs on their plain version, and the timing
+    line."""
+    from repro_torch.kernels.decode_attention import paged_decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.vta_gemm import vta_gemm
+    from repro_torch.models import layers
+    from repro_torch.serve.engine import ServingEngine, latency_stats
+
+    reqs = engine_trace(cfg.vocab)
+    pg = ENGINE["page_size"]
+
+    def engine():
+        return ServingEngine(qparams, cfg, prefix_cache=True, aging_s=None, kv_dtype="int8",
+                             num_pages=ENGINE_POOL, prefill_budget=512, **ENGINE)
+
+    def launch_counts():
+        return (flash_attention.launches, paged_decode_attention.launches,
+                vta_gemm.launches["dequant"])
+
+    reset_counts()
+    eng = engine()
+    toks, done, engine_s = drive_engine(eng, reqs)
+    n_flash, n_paged, n_deq = launch_counts()
+    est = eng.stats()
+    calls = est["steps"] + est["prefill_chunk_calls"]
+    log(f"[int8 engine] stats: {est}")
+    log(f"[int8 engine] launches: paged {n_paged} (expect {cfg.num_layers} x {est['steps']} "
+        f"decode steps), flash {n_flash} (expect {cfg.num_layers} x "
+        f"{est['prefill_chunk_calls']} chunks), vta_gemm dequant {n_deq} (expect {7 * cfg.num_layers} x "
+        f"{calls} forward calls)")
+    check(n_paged == cfg.num_layers * est["steps"]
+          and n_flash == cfg.num_layers * est["prefill_chunk_calls"]
+          and n_deq == 7 * cfg.num_layers * calls,
+          "the int8 engine's attention and projections all went through the kernels")
+    check(eng.blocks[0]["k_pages"].dtype == torch.int8 and eng.prefix.full_pages_only,
+          "the engine serves int8 pools with a whole-page prefix tree")
+    check(est["prefix_hits"] >= 1 and est["prefix_hit_tokens"] % pg == 0,
+          "prefix hits, and only at whole pages")
+    check(len(done) == len(reqs) and all(len(r.tokens) == r.max_new for r in done),
+          "every int8 request finished with its max_new tokens")
+    audit = eng.audit()
+    check(eng.allocator.num_free + len(eng.prefix.pages()) == eng.num_pages
+          and (eng.block_tables == -1).all(), "int8: every page not held by the tree is free")
+    log(f"[int8 engine] audit after run: {audit}; pool {eng.num_pages} pages of "
+        f"{eng.pool_bytes / 2 ** 20:.1f} MiB (int8)")
+    lat = latency_stats(done)
+    del eng
+    # the same trace with the GEMMs on their plain version (attention on its
+    # kernels): every token and counter equal
+    prev = layers.set_gemm_impl("ref")
+    try:
+        eng = engine()
+        ref_toks, _, ref_s = drive_engine(eng, reqs)
+        eng.audit()
+        ref_stats = eng.stats()
+        del eng
+    finally:
+        layers.set_gemm_impl(prev)
+    check(vta_gemm.launches["dequant"] == n_deq, "the plain-GEMM engine run launched no GEMM kernel")
+    same = sum(ref_toks[rid] == toks[rid] for rid in toks)
+    log(f"[int8 engine] tokens vs the same trace with the GEMMs on their plain version "
+        f"({ref_s:.2f} s): {same}/{len(toks)} requests equal, stats equal: "
+        f"{_counters(ref_stats) == _counters(est)}")
+    check(same == len(toks) and _counters(ref_stats) == _counters(est),
+          "int8 engine tokens and counters equal to the plain-GEMM run")
+    log(f"[time] int8 engine: {len(reqs)} requests, {lat['tokens']} tokens in {engine_s:.3f} s "
+        f"({lat['tokens'] / engine_s:.1f} tok/s) over {est['steps']} decode steps, "
+        f"{est['prefill_chunk_calls']} prefill chunks, {est['preemptions']} preemptions; "
+        f"TTFT p50 {lat['ttft_p50_s'] * 1e3:.1f} ms, p99 {lat['ttft_p99_s'] * 1e3:.1f} ms; "
+        f"token latency p50 {lat['token_p50_s'] * 1e3:.1f} ms, p99 "
+        f"{lat['token_p99_s'] * 1e3:.1f} ms; on {card}")
+
+
+def int_mm_operands(torch, a, w):
+    """``torch._int_mm``'s operands for a (M, K) x w (K, N): M padded to 32
+    rows (it needs M > 16), K to a multiple of 8 with zero columns, w
+    column-major (the layout cuBLASLt's int8 GEMM takes)."""
+    m, k = a.shape
+    kp = -(-k // 8) * 8
+    ap = torch.zeros((max(m, 32), kp), dtype=torch.int8, device=a.device)
+    ap[:m, :k] = a
+    wp = torch.zeros((kp, w.shape[1]), dtype=torch.int8, device=w.device)
+    wp[:k] = w
+    return ap, wp.t().contiguous().t()
+
+
+def time_dequant(torch, gen, params, qparams, dev):
+    """The dequant kernel at the int8 paths' shapes: each of qwen3's seven
+    projections at M 4 (static decode), 8 (engine decode), 512 (engine
+    prefill chunk) and 2048 (static prefill chunk), cycling through the 28
+    layers' real weights so that the weights stream from device memory as in
+    a forward pass.  Beside the kernel: the plain version, ``torch._int_mm``
+    plus the same epilogue in PyTorch, the f32 ``torch.matmul`` of the same
+    projection, and the bound (int8 operations at 1,979 TOP/s or bytes at
+    3.35 TB/s).  Every time is device time from CUDA-graph replays.  Returns the decode row (M 4, one layer's seven projections
+    summed) for the kernels line."""
+    from repro_torch.kernels.vta_gemm import vta_gemm, vta_gemm_ref
+
+    layers_n = len(qparams["blocks"])
+    rows = {}
+    for m in (4, 8, 512, 2048):
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, f32_ms=0.0, flops=0, bytes=0)
+        for mod, name in PROJ:
+            qws = [qparams["blocks"][li][mod][name]["qw"] for li in range(layers_n)]
+            fws = [params["blocks"][li][mod][name]["w"] for li in range(layers_n)]
+            k, n = qws[0].shape
+            a = int8_operands(torch, gen, dev, m, k)
+            xf = torch.randn((m, k), generator=gen, device=dev)
+            scale = torch.rand((n,), generator=gen, device=dev) * 1e-4 + 1e-6
+            mm = [int_mm_operands(torch, a, w) for w in qws]
+            reps = layers_n if m <= 512 else 8
+            ms = graph_ms(torch, lambda i: vta_gemm(a, qws[i % layers_n], scale=scale,
+                                                    epilogue="dequant"), reps=reps)
+            plain = graph_ms(torch, lambda i: vta_gemm_ref(a, qws[i % layers_n], scale=scale,
+                                                           epilogue="dequant"), reps=4)
+            lib = graph_ms(torch, lambda i: torch._int_mm(*mm[i % layers_n])[:m].float() * scale,
+                           reps=reps)
+            f32 = graph_ms(torch, lambda i: torch.matmul(xf, fws[i % layers_n]), reps=reps)
+            flops, nbytes = gemm_work(m, k, n, 4, 4 * n)
+            bnd, by = bound_ms(flops, nbytes, "int8")
+            log(f"[time] dequant {name} M {m} K {k} N {n}: kernel {ms:.4f} ms, plain "
+                f"{plain:.4f} ms, _int_mm + epilogue {lib:.4f} ms, f32 matmul {f32:.4f} ms, "
+                f"bound {bnd:.4f} ms ({by})")
+            for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                             ("f32_ms", f32), ("flops", flops), ("bytes", nbytes)):
+                tot[key] += val
+            del mm
+        bnd, by = bound_ms(tot["flops"], tot["bytes"], "int8")
+        log(f"[time] dequant M {m}, one layer's 7 projections: kernel {tot['ms']:.4f} ms, "
+            f"plain {tot['plain_ms']:.4f} ms, _int_mm + epilogue {tot['library_ms']:.4f} ms, "
+            f"f32 matmul {tot['f32_ms']:.4f} ms, bound {bnd:.4f} ms ({by}); x {layers_n} "
+            f"layers: kernel {tot['ms'] * layers_n:.3f} ms, bound {bnd * layers_n:.3f} ms, "
+            f"{tot['bytes'] * layers_n / (tot['ms'] * layers_n * 1e-3) / 1e12:.3f} TB/s, "
+            f"{tot['flops'] / (tot['ms'] * 1e-3) / 1e12:.1f} TOP/s")
+        rows[m] = dict(tot, bound_ms=bnd, bound_by=by)
+    return rows
+
+
+def time_vta(torch, operands):
+    """The none and requant epilogues at ResNet-18's conv GEMMs: kernel,
+    plain version, ``torch._int_mm`` (plus the requant epilogue in
+    PyTorch) and bound, summed over the four convolutions."""
+    from repro_torch.kernels.vta_gemm import vta_gemm, vta_gemm_ref
+
+    rows = {}
+    for epi in ("none", "requant"):
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0, bytes=0)
+        for name, patches, wmat, bias in operands:
+            m, k = patches.shape
+            n = wmat.shape[1]
+            kw = (dict(bias=bias, shift=REQUANT_SHIFT, relu=True, epilogue="requant")
+                  if epi == "requant" else {})
+            ap, wp = int_mm_operands(torch, patches, wmat)
+
+            def library(_):
+                acc = torch._int_mm(ap, wp)[:m]
+                if epi == "none":
+                    return acc
+                v = torch.clamp_min((acc + bias) >> REQUANT_SHIFT, 0)
+                return torch.clamp(v, -128, 127).to(torch.int8)
+
+            ms = graph_ms(torch, lambda _: vta_gemm(patches, wmat, **kw))
+            plain = graph_ms(torch, lambda _: vta_gemm_ref(patches, wmat, **kw), reps=5)
+            lib = graph_ms(torch, library)
+            flops, nbytes = gemm_work(m, k, n, 4 if epi == "none" else 1,
+                                      4 * n if epi == "requant" else 0)
+            bnd, by = bound_ms(flops, nbytes, "int8")
+            log(f"[time] {epi} {name} (M {m} K {k} N {n}): kernel {ms:.4f} ms, plain "
+                f"{plain:.4f} ms, _int_mm{' + epilogue' if epi == 'requant' else ''} "
+                f"{lib:.4f} ms, bound {bnd:.4f} ms ({by}), "
+                f"{flops / (ms * 1e-3) / 1e12:.1f} TOP/s")
+            for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                             ("flops", flops), ("bytes", nbytes)):
+                tot[key] += val
+        bnd, by = bound_ms(tot["flops"], tot["bytes"], "int8")
+        log(f"[time] {epi} over the 4 ResNet-18 convolutions: kernel {tot['ms']:.4f} ms, "
+            f"plain {tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} ms, bound "
+            f"{bnd:.4f} ms ({by})")
+        rows[epi] = dict(tot, bound_ms=bnd, bound_by=by)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -394,6 +883,7 @@ def main() -> int:
     from repro_torch.launch.serve import run_static
     from repro_torch.models import layers
     from repro_torch.models import transformer as tf
+    from repro_torch.optim.quant import quantize_params
     from repro_torch.serve.step import make_prefill_step, make_serve_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -514,6 +1004,9 @@ def main() -> int:
             f"map == plain version's{' == paged_partition_counts' if sq == 1 else ''} "
             f"({int(counts[:, 0].sum())} live pages)")
 
+    # the VTA GEMM, all three epilogues
+    errs.update({f"vta_gemm_{epi}": err for epi, err in vta_parity(torch, gen, dev).items()})
+
     # ---- the main path -----------------------------------------------------
     cfg = get_config(ARCH)
     wgen = torch.Generator(device=dev).manual_seed(0)
@@ -607,6 +1100,12 @@ def main() -> int:
     # ---- the paged engine: the second main path ------------------------------
     n_paged = engine_phases(torch, params, cfg, dev, f"{kind} ({smi})")
 
+    # ---- the VTA path and int8 serving: the third ------------------------------
+    n_none, n_req, vta_operands = vta_phase(torch, gen, dev)
+    qparams = quantize_params(params)
+    n_deq = int8_static_phase(torch, params, qparams, cfg, prompts, dev, f"{kind} ({smi})")
+    int8_engine_phase(torch, qparams, cfg, dev, f"{kind} ({smi})")
+
     q = randn(b, s, h, d)
     k = randn(b, t, hkv, d)
     v = randn(b, t, hkv, d)
@@ -620,10 +1119,10 @@ def main() -> int:
         qt = q.transpose(1, 2)
         kt = k[:, :kv_len].repeat_interleave(h // hkv, dim=2).transpose(1, 2)
         vt = v[:, :kv_len].repeat_interleave(h // hkv, dim=2).transpose(1, 2)
-        ms = cuda_ms(torch, lambda: flash_attention(q, k, v, q_offset=q_off, kv_len=kv_len))
-        plain = cuda_ms(torch, lambda: flash_attention_ref(q, k, v, q_offset=q_off,
+        ms = cuda_ms(torch, lambda _: flash_attention(q, k, v, q_offset=q_off, kv_len=kv_len))
+        plain = cuda_ms(torch, lambda _: flash_attention_ref(q, k, v, q_offset=q_off,
                                                            kv_len=kv_len), reps=5)
-        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
+        lib = cuda_ms(torch, lambda _: F.scaled_dot_product_attention(qt, kt, vt,
                                                                     attn_mask=mask))
         flops, nbytes = flash_work(b, s, h, hkv, d, d, q_off, kv_len, 4)
         bnd, by = bound_ms(flops, nbytes, "float32")
@@ -648,9 +1147,9 @@ def main() -> int:
     qdt = qd.transpose(1, 2)
     kdt = k[:, :kv_len].repeat_interleave(h // hkv, dim=2).transpose(1, 2)
     vdt = v[:, :kv_len].repeat_interleave(h // hkv, dim=2).transpose(1, 2)
-    ms = cuda_ms(torch, lambda: decode_attention(qd, k, v, kv_len=kv_len), reps=50)
-    plain = cuda_ms(torch, lambda: decode_attention_ref(qd, k, v, kv_len=kv_len))
-    lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qdt, kdt, vdt), reps=50)
+    ms = cuda_ms(torch, lambda _: decode_attention(qd, k, v, kv_len=kv_len), reps=50)
+    plain = cuda_ms(torch, lambda _: decode_attention_ref(qd, k, v, kv_len=kv_len))
+    lib = cuda_ms(torch, lambda _: F.scaled_dot_product_attention(qdt, kdt, vdt), reps=50)
     flops, nbytes = decode_work(b, h, hkv, d, d, kv_len, 4)
     bnd, by = bound_ms(flops, nbytes, "float32")
     log(f"[time] decode kv_len={kv_len}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
@@ -675,9 +1174,9 @@ def main() -> int:
     vdt = (vp[:, live].permute(1, 0, 2, 3, 4).reshape(b, hkv, -1, d)[:, :, :kv_lens[0]]
            .repeat_interleave(h // hkv, dim=1))
     qpt = qp.transpose(1, 2)
-    ms = cuda_ms(torch, lambda: paged_decode_attention(*args), reps=50)
-    plain = cuda_ms(torch, lambda: paged_decode_attention_ref(*args))
-    lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qpt, kdt, vdt), reps=50)
+    ms = cuda_ms(torch, lambda _: paged_decode_attention(*args), reps=50)
+    plain = cuda_ms(torch, lambda _: paged_decode_attention_ref(*args))
+    lib = cuda_ms(torch, lambda _: F.scaled_dot_product_attention(qpt, kdt, vdt), reps=50)
     flops, nbytes = paged_work(b, 1, h, hkv, d, d, kv_lens, 4, bt.shape[1])
     bnd, by = bound_ms(flops, nbytes, "float32")
     log(f"[time] paged kv_len={kv_lens[0]} page=16 shuffled: kernel {ms:.4f} ms, plain "
@@ -688,6 +1187,18 @@ def main() -> int:
         replaces="src/repro/kernels/decode_attention.py:402", launches=n_paged,
         max_abs_err=errs["paged_decode_attention"], ms=ms, plain_ms=plain,
         bound_ms=bnd, bound_by=by, library_ms=lib)
+
+    deq = time_dequant(torch, gen, params, qparams, dev)
+    vta = time_vta(torch, vta_operands)
+    for epi, line, launches, row in (("none", 178, n_none, vta["none"]),
+                                     ("requant", 189, n_req, vta["requant"]),
+                                     ("dequant", 206, n_deq, deq[4])):
+        rows[f"vta_gemm_{epi}"] = dict(
+            route="cuda", source="src/repro_torch/kernels/csrc/vta_gemm.cu",
+            replaces=f"src/repro/kernels/vta_gemm.py:{line}", launches=launches,
+            max_abs_err=errs[f"vta_gemm_{epi}"], ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"])
+    check(len(rows) == 6, "six kernels in the record")
 
     print(json.dumps({"kernels": [dict(name=n, **r) for n, r in rows.items()]}))
     print(smi)

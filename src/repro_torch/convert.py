@@ -5,6 +5,11 @@ axis (``repro.models.transformer.init``); the port keeps a list of
 per-layer dicts.  The caller turns the reference's arrays into numpy
 first (``jax.tree.map(np.asarray, params)``), so this module needs no
 JAX.
+
+Quantized trees (``optim.quant.quantize_params``) carry over as they are:
+integer leaves (``qw``) keep their dtype, and the int8 scale leaves
+(``qscale``, and the KV pools' ``*_scales``) stay f32 whatever ``dtype``
+is, as the reference keeps them.
 """
 
 from __future__ import annotations
@@ -13,14 +18,20 @@ import numpy as np
 import torch
 
 
-def _to_torch(tree, device, dtype):
+def _is_scale_leaf(key) -> bool:
+    """An int8 scale leaf, which stays f32 in every dtype."""
+    return key == "qscale" or (isinstance(key, str) and key.endswith("_scales"))
+
+
+def _to_torch(tree, device, dtype, key=None):
     if isinstance(tree, dict):
-        return {k: _to_torch(v, device, dtype) for k, v in tree.items()}
+        return {k: _to_torch(v, device, dtype, k) for k, v in tree.items()}
     arr = np.asarray(tree)
     if arr.dtype.kind == "f" or arr.dtype.name == "bfloat16":
         arr = arr.astype(np.float32)
-        return torch.from_numpy(arr).to(device=device, dtype=dtype)
-    return torch.from_numpy(arr).to(device=device)
+        leaf_dtype = torch.float32 if _is_scale_leaf(key) else dtype
+        return torch.from_numpy(arr).to(device=device, dtype=leaf_dtype)
+    return torch.from_numpy(np.array(arr)).to(device=device)
 
 
 def _layer(tree, li):
@@ -33,7 +44,7 @@ def params_from_numpy(tree, cfg, device, dtype=torch.float32):
     """The port's params from the reference's params as a nested dict of
     numpy arrays: the stacked ``blocks`` are unstacked into a list of
     ``cfg.num_layers`` per-layer dicts; float leaves become ``dtype`` on
-    ``device``."""
+    ``device`` (int8 scale leaves f32), integer leaves keep their dtype."""
     out = {k: _to_torch(v, device, dtype) for k, v in tree.items() if k != "blocks"}
     out["blocks"] = [_to_torch(_layer(tree["blocks"], li), device, dtype)
                      for li in range(cfg.num_layers)]

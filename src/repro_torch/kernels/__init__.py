@@ -8,9 +8,13 @@ a plain PyTorch version and an execution-map oracle.
 * ``paged_decode_attention`` — split-KV decode (S=1) and speculative
   verify (S>1) over paged pools through block tables (replaces the
   Pallas ``paged_decode_attention``).
+* ``vta_gemm`` — the VTA GEMM core: int8 x int8 with exact int32 sums on
+  the int8 tensor cores and the ``none`` / ``requant`` / ``dequant``
+  epilogues (replaces the Pallas ``vta_gemm``); ``ops`` wraps it as the
+  reference's ``kernels.ops`` does.
 
 Model code reaches them through ``repro_torch.models.layers.flash_attend``,
-``decode_attend`` and ``paged_decode_attend``.
+``decode_attend``, ``paged_decode_attend`` and ``quant_dense_apply``.
 """
 
 from repro_torch.kernels.decode_attention import (
@@ -21,6 +25,7 @@ from repro_torch.kernels.decode_attention import (
     paged_partition_counts,
 )
 from repro_torch.kernels.flash_attention import flash_attention, flash_tile_counts
+from repro_torch.kernels.vta_gemm import vta_gemm, vta_gemm_ref
 
 __all__ = [
     "decode_attention",
@@ -30,4 +35,6 @@ __all__ = [
     "paged_decode_attention",
     "paged_decode_attention_ref",
     "paged_partition_counts",
+    "vta_gemm",
+    "vta_gemm_ref",
 ]

@@ -21,7 +21,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("flash_attention", "decode_attention", "paged_decode_attention")
+KERNELS = ("flash_attention", "decode_attention", "paged_decode_attention", "vta_gemm")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

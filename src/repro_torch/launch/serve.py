@@ -11,9 +11,12 @@ prints the reference's engine summary (tok/s, token latency and TTFT
 percentiles, pool, admission, scheduler, prefix-cache and speculative
 lines).  It runs on the CUDA card by default; ``--device cpu`` runs the
 same path on the CPU with the kernels' plain versions.  Weights and
-prompts are random, made from fixed seeds.  Options of the JAX launcher
-that belong to later slices of the port exit with the ROADMAP.md item
-that ports them.
+prompts are random, made from fixed seeds.  ``--kv-dtype int8`` serves
+the paged engine from int8 pools; the static path ignores it, as the
+reference's does.  Int8 weights come from ``optim.quant.quantize_params``
+(the reference launcher has no flag for them either).  Options of the
+JAX launcher that belong to later slices of the port exit with the
+ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -30,7 +33,6 @@ from repro_torch.serve.step import make_prefill_step, make_serve_step
 
 # option -> (the values this slice runs, the ROADMAP.md item that ports the rest)
 _UNPORTED = {
-    "kv_dtype": (("f32", "bf16"), "queue 1, item 7 (int8 serving)"),
     "supervise": ((False,), "queue 1, item 10 (serving supervisor)"),
     "fault_plan": ((None,), "queue 1, item 10 (serving supervisor)"),
     "deadline_ms": ((None,), "queue 1, item 10 (serving supervisor)"),

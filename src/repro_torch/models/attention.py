@@ -14,7 +14,9 @@
   write their S tokens into the pool in place and attend through the
   block table.  ``len`` is the per-sequence PRE-write fill, a device
   tensor: nothing here reads it back.  Inactive slots (block-table row
-  -1) send their writes to the sink and emit zeros.
+  -1) send their writes to the sink and emit zeros.  int8 pools (with
+  ``k_scales``/``v_scales``) insert the S tokens one by one, each
+  requantizing its page.
 
 The SWA rolling buffer is a later slice of the port.
 """
@@ -35,6 +37,7 @@ from repro_torch.models.layers import (
     rmsnorm_init,
     softmax_attend,
 )
+from repro_torch.serve.kv_cache import quant_page_update
 
 # sequences at or above this length attend via the flash path (never
 # materialises S x T logits); shorter ones go direct
@@ -120,15 +123,24 @@ def gqa_apply(p, cfg, x, positions, cache=None, *, bidirectional=False):
         # pool; dropped writes land on the sink page), then attend
         # through the block table, O(own kv_len) per sequence
         kp, vp = cache["k_pages"], cache["v_pages"]
-        if kp.dtype == torch.int8:
-            raise NotImplementedError(
-                "int8 KV pages are not ported yet: ROADMAP.md queue 1, item 7")
         page, slot, new_len = cache.get("coords") or _paged_token_coords(cache, "k_pages", s)
-        kp[:, page, slot] = k.permute(2, 0, 1, 3).to(kp.dtype)
-        vp[:, page, slot] = v.permute(2, 0, 1, 3).to(vp.dtype)
-        out = paged_decode_attend(q, kp, vp, cache["block_tables"], new_len,
-                                  window=cfg.sliding_window)
-        new_cache = {"k_pages": kp, "v_pages": vp}
+        if kp.dtype == torch.int8:
+            # sequential inserts: token j's requant sees tokens < j of its
+            # page live, rows past its own slot zeroed
+            ksc, vsc = cache["k_scales"], cache["v_scales"]
+            for j in range(s):
+                quant_page_update(kp, ksc, page[:, j], slot[:, j], k[:, j].transpose(0, 1))
+                quant_page_update(vp, vsc, page[:, j], slot[:, j], v[:, j].transpose(0, 1))
+            out = paged_decode_attend(q, kp, vp, cache["block_tables"], new_len,
+                                      window=cfg.sliding_window, k_scales=ksc,
+                                      v_scales=vsc)
+            new_cache = {"k_pages": kp, "v_pages": vp, "k_scales": ksc, "v_scales": vsc}
+        else:
+            kp[:, page, slot] = k.permute(2, 0, 1, 3).to(kp.dtype)
+            vp[:, page, slot] = v.permute(2, 0, 1, 3).to(vp.dtype)
+            out = paged_decode_attend(q, kp, vp, cache["block_tables"], new_len,
+                                      window=cfg.sliding_window)
+            new_cache = {"k_pages": kp, "v_pages": vp}
     else:
         t = cache["k"].shape[1]
         cur = cache["len"]

@@ -13,6 +13,12 @@ Attention dispatch (``set_attention_impl``):
   "kernel" — the CUDA kernel; a CPU tensor raises
   "ref"    — the plain version on any device (reference runs on the card)
 There is no environment switch: the tensor's device decides under "auto".
+
+Quantized dense layers (``{"qw", "qscale"}`` dicts from
+``optim.quant.quantize_params``) dispatch the same way through
+``set_gemm_impl``: "auto" sends a CUDA tensor to the VTA GEMM kernel
+(dequant epilogue) and a CPU tensor to its plain version; "kernel" on a
+CPU tensor raises; "ref" runs the plain version on any device.
 """
 
 from __future__ import annotations
@@ -27,6 +33,9 @@ from repro_torch.kernels.decode_attention import (
     paged_decode_attention_ref,
 )
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+from repro_torch.kernels.ops import dense_int8
+from repro_torch.kernels.vta_gemm import vta_gemm_ref
+from repro_torch.optim.quant import quant_int8
 
 # ---------------------------------------------------------------------------
 # attention implementation dispatch
@@ -49,14 +58,38 @@ def attention_impl() -> str:
     return _ATTN_IMPL
 
 
-def _use_kernel(x: torch.Tensor) -> bool:
-    """True when the call goes to the kernel's wrapper."""
-    if _ATTN_IMPL == "ref":
+def _to_wrapper(impl: str, what: str, x: torch.Tensor) -> bool:
+    """True when the call goes to the kernel's wrapper under ``impl``."""
+    if impl == "ref":
         return False
-    if _ATTN_IMPL == "kernel" and x.device.type != "cuda":
-        raise RuntimeError(f"attention impl 'kernel' needs a CUDA tensor, "
+    if impl == "kernel" and x.device.type != "cuda":
+        raise RuntimeError(f"{what} impl 'kernel' needs a CUDA tensor, "
                            f"got one on {x.device}")
     return True
+
+
+def _use_kernel(x: torch.Tensor) -> bool:
+    return _to_wrapper(_ATTN_IMPL, "attention", x)
+
+
+# ---------------------------------------------------------------------------
+# quantized-GEMM implementation dispatch (same contract)
+# ---------------------------------------------------------------------------
+
+_GEMM_IMPL = "auto"
+
+
+def set_gemm_impl(impl: str) -> str:
+    """Select the quantized-GEMM backend; returns the previous setting."""
+    global _GEMM_IMPL
+    if impl not in _ATTN_IMPLS:
+        raise ValueError(f"impl must be one of {_ATTN_IMPLS}, got {impl!r}")
+    prev, _GEMM_IMPL = _GEMM_IMPL, impl
+    return prev
+
+
+def gemm_impl() -> str:
+    return _GEMM_IMPL
 
 
 # ---------------------------------------------------------------------------
@@ -80,10 +113,34 @@ def dense_init(gen, d_in: int, d_out: int, dtype, device, bias: bool = False,
 
 
 def dense_apply(p, x):
+    if "qw" in p:
+        return quant_dense_apply(p, x)
     y = x @ p["w"]
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+def quant_dense_apply(p, x, act: str | None = None):
+    """QuantizedLinear forward: int8 weights (per-output-channel scales)
+    against dynamically int8-quantized activations, exact int32
+    accumulation, fused dequant -> bias -> ``act``.
+
+    The activation scale is ONE per call, over every row of the
+    ``(-1, K)`` matrix (pad rows and idle slots included, as in the
+    reference), and folds on the device into the per-column weight
+    scales; nothing is read back to the host.  Dispatches to the VTA
+    GEMM's wrapper or its plain version (``set_gemm_impl``); the result
+    is cast back to ``x.dtype``."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    qx, sx = quant_int8(x.reshape(-1, k))
+    scale = p["qscale"].float() * sx
+    bias = p["b"].float() if "b" in p else None
+    if _to_wrapper(_GEMM_IMPL, "gemm", x):
+        y = dense_int8(qx, p["qw"], scale, bias=bias, act=act)
+    else:
+        y = vta_gemm_ref(qx, p["qw"], bias, scale, epilogue="dequant", act=act)
+    return y.reshape(*lead, -1).to(x.dtype)
 
 
 def embedding_init(gen, vocab: int, d: int, dtype, device):
@@ -143,6 +200,11 @@ def gated_mlp_init(gen, d: int, d_ff: int, dtype, device):
 
 
 def gated_mlp_apply(p, x):
+    if "qw" in p["w_gate"]:
+        # quantized: SiLU fuses into the gate GEMM's epilogue
+        g = quant_dense_apply(p["w_gate"], x, act="silu")
+        u = quant_dense_apply(p["w_up"], x)
+        return quant_dense_apply(p["w_down"], g * u)
     g = F.silu(dense_apply(p["w_gate"], x).float()).to(x.dtype)
     u = dense_apply(p["w_up"], x)
     return dense_apply(p["w_down"], g * u)

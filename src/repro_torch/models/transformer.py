@@ -136,7 +136,9 @@ def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device="cud
     (B, max_len, Hkv, D) K/V pair per layer.  ``"paged"``: the
     serve/kv_cache pool layout (shared pages + block tables +
     per-sequence lens) that ``decode_step`` and ``verify_step`` serve
-    through the paged kernel — decode-only, engine-managed."""
+    through the paged kernel — decode-only, engine-managed; ``kv_dtype``
+    ("f32"/"bf16"/"int8") sets the pools' precision, and int8 pools carry
+    per-page-per-head scales."""
     check_supported(cfg)
     if cache_layout == "paged":
         from repro_torch.serve.kv_cache import init_paged_caches

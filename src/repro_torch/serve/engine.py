@@ -74,9 +74,11 @@ memory, asynchronous copies) and reads the step's tokens back once; the
 only other sync is the SLO probe, one prefill step in eight.
 
 The port runs the dense family with plain (non-SWA) attention caches
-and float pools; SWA rolling buffers and int8 pools raise, naming their
-ROADMAP.md items.  Step functions are plain closures built per engine:
-PyTorch runs eagerly, so the reference's cross-engine jit cache has
+on float or int8 pools (an int8 prefix tree shares whole pages only, so
+``row_lo`` is page-aligned and no partial int8 page is ever COW-forked);
+SWA rolling buffers raise, naming their ROADMAP.md item.  Step
+functions are plain closures built per engine: PyTorch runs eagerly,
+so the reference's cross-engine jit cache has
 nothing to keep.  Knobs left unset take the reference's untuned
 defaults, ``page_size=16`` and ``prefill_chunk=64`` (the tuning table
 is ROADMAP.md queue 1, item 13).

@@ -1,5 +1,5 @@
 """Paged KV cache: fixed-size pages, free-list allocator, block tables
-(PyTorch port of ``repro.serve.kv_cache``, float pools).
+(PyTorch port of ``repro.serve.kv_cache``).
 
 Each layer's cache is a shared pool of fixed-size **pages**:
 
@@ -22,10 +22,17 @@ written by a dropped one.  ``num_pages``, :func:`page_bytes`, the
 allocator, its audit and :func:`find_nonfinite_pages` do not count the
 sink; :func:`pool_num_pages` gives the served count of a pool.
 
+**int8 pools** (``kv_dtype="int8"``): pages store int8 rows plus ONE f32
+scale per (kv-head, page), ``k_scales``/``v_scales`` of shape
+(Hkv, num_pages + 1) — the sink has a scale column too.  Quantization
+happens at write time (:func:`write_prompt_pages` per page,
+:func:`quant_page_update` per decode token) with the shared
+``optim.quant`` convention; the paged kernel dequantizes as it reads.
+
 The JAX versions of the pool writers are pure functions that the engine
 jits with donated pools; here they update the pools in place.  The
 allocator and the radix tree are plain Python, copied from the
-reference.  int8 pools (``kv_dtype="int8"``) are the next slice.
+reference.
 """
 
 from __future__ import annotations
@@ -35,10 +42,10 @@ from collections import Counter
 import numpy as np
 import torch
 
-#: serving pool dtypes (int8 pools are ROADMAP.md queue 1, item 7)
-KV_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
+from repro_torch.optim.quant import quant_with_scale, scale_for, scale_from_amax
 
-INT8_ITEM = "ROADMAP.md queue 1, item 7 (int8 serving)"
+#: serving pool dtypes: per-page-per-head f32 scales appear iff int8
+KV_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
 
 
 class PoolAuditError(RuntimeError):
@@ -511,8 +518,12 @@ def _layer_pool(cfg, num_pages: int, page_size: int, dtype, device):
             "MLA's shared paged pool is not ported yet: ROADMAP.md queue 1, item 8")
     # one page more than served: the sink (see the module docstring)
     shape = (cfg.kv_heads, num_pages + 1, page_size, cfg.head_dim)
-    return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
+    pool = {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
             "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+    if dtype == torch.int8:  # per-page-per-head scales, the sink's included
+        for key in ("k_scales", "v_scales"):
+            pool[key] = torch.zeros(shape[:2], dtype=torch.float32, device=device)
+    return pool
 
 
 def pool_num_pages(leaf: torch.Tensor) -> int:
@@ -529,7 +540,8 @@ def init_paged_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
     (B, pages_for(max_len)) int32 (-1 = unmapped), "lens": (B,) int32},
     all on ``device``.  ``num_pages`` defaults to full backing (every
     slot can reach ``max_len``); each pool holds one sink page beyond
-    it.  ``kv_dtype`` ("f32"/"bf16") overrides ``dtype`` for the pools.
+    it.  ``kv_dtype`` ("f32"/"bf16"/"int8") overrides ``dtype`` for the
+    pools; int8 pools carry per-page-per-head f32 scales next to the pages.
     """
     if not supports_paged(cfg):
         raise NotImplementedError(
@@ -540,8 +552,6 @@ def init_paged_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
             raise ValueError(f"kv_dtype must be one of {tuple(KV_DTYPES)}, "
                              f"got {kv_dtype!r}")
         dtype = KV_DTYPES[kv_dtype]
-    if dtype == torch.int8:
-        raise NotImplementedError(f"int8 KV pools are not ported yet: {INT8_ITEM}")
     max_pp = pages_for(max_len, page_size)
     if num_pages is None:
         num_pages = batch * max_pp
@@ -557,7 +567,7 @@ def init_paged_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
 def page_bytes(cfg, page_size: int, kv_dtype: str = "f32") -> int:
     """Device bytes ONE logical page costs across all layers — the unit
     the engine's byte-budgeted pool sizing divides by (the sink page is
-    not counted).  int8 pools would add 4 B of scale per head and page."""
+    not counted).  int8 pools add 4 B of scale per head and page."""
     dtype = KV_DTYPES[kv_dtype]
     item = torch.empty((), dtype=dtype).element_size()
     scales = 4 if dtype == torch.int8 else 0
@@ -590,7 +600,9 @@ def page_size_of(caches) -> int:
 def find_nonfinite_pages(paged_blocks) -> list[int]:
     """Served pool pages holding a non-finite value in ANY layer (the
     sink, which collects dropped writes, is not probed).  Every leaf
-    keeps the page on axis 1.  Reads the answer back to the host."""
+    keeps the page on axis 1.  int8 page rows cannot hold a NaN, but their
+    f32 scales can, so quantized pools are probed through their scale
+    leaves.  Reads the answer back to the host."""
     first = next(iter(paged_blocks[0].values()))
     n = pool_num_pages(first)
     bad = torch.zeros((n,), dtype=torch.bool, device=first.device)
@@ -610,11 +622,11 @@ def find_nonfinite_pages(paged_blocks) -> list[int]:
 
 def fork_page(paged_blocks, src: int, dst: int):
     """Copy-on-write fork: duplicate pool page ``src`` into ``dst``
-    across every layer and every pool leaf, in place.  The engine calls
-    this when a new reader would otherwise WRITE into a shared,
-    partially-filled tail page: the reader gets a private copy to fill,
-    the original stays byte-identical for its other readers.  Returns
-    ``paged_blocks``."""
+    across every layer and every pool leaf (page rows and int8 scales),
+    in place.  The engine calls this when a new reader would otherwise
+    WRITE into a shared, partially-filled tail page: the reader gets a
+    private copy to fill, the original stays byte-identical for its other
+    readers.  Returns ``paged_blocks``."""
     for pool in paged_blocks:
         for leaf in pool.values():
             leaf[:, dst] = leaf[:, src]
@@ -628,8 +640,9 @@ def seed_prefix_dense(dense_caches, paged_blocks, block_row, n_prefix: int):
     ``dense_caches`` is ``{"blocks": [per-layer {"k", "v", "len"}]}``
     (rows at and past ``n_prefix`` stay zero); ``block_row``
     (pages_per_seq,) is the request's page ids on the pools' device;
-    every layer's ``len`` becomes ``n_prefix``.  Written in place;
-    returns ``dense_caches``."""
+    every layer's ``len`` becomes ``n_prefix``; int8 pages are
+    dequantized by their page scales.  Written in place; returns
+    ``dense_caches``."""
     first = next(iter(paged_blocks[0].values()))
     pg = first.shape[2]
     max_pp = block_row.shape[0]
@@ -640,8 +653,10 @@ def seed_prefix_dense(dense_caches, paged_blocks, block_row, n_prefix: int):
     slot = pos % pg
     for pool, dense in zip(paged_blocks, dense_caches["blocks"]):
         for key in ("k", "v"):
-            rows = pool[f"{key}_pages"][:, page, slot]            # (Hkv, n, W)
-            rows = rows * valid[None, :, None].to(rows.dtype)
+            rows = pool[f"{key}_pages"][:, page, slot].float()    # (Hkv, n, W)
+            if f"{key}_scales" in pool:
+                rows = rows * pool[f"{key}_scales"][:, page][..., None]
+            rows = rows * valid[None, :, None]
             dense[key][0, :n_prefix] = rows.transpose(0, 1).to(dense[key].dtype)
         dense["len"] = n_prefix
     return dense_caches
@@ -667,21 +682,73 @@ def write_prompt_pages(paged_blocks, dense_blocks, block_row, n_tokens: int,
 
     ``row_lo`` drops rows BELOW a position too: a prefix-cache hit means
     positions [0, row_lo) live in SHARED pages that must not be
-    rewritten, so only the freshly prefilled suffix scatters.  Written in
-    place, one scatter per pool leaf; returns ``paged_blocks``."""
+    rewritten, so only the freshly prefilled suffix scatters.
+
+    int8 pools quantize per (page, head) over the page's VALID rows.  The
+    scales of every mapped page from the first non-shared one on are
+    written: pages reserved beyond the prompt get the eps scale (their
+    recycled codes dequantize to ~0 until a decode write replaces them);
+    the scales of pages wholly below ``row_lo`` stay untouched (the engine
+    page-aligns ``row_lo`` on int8 pools).  Written in place, one scatter
+    per pool leaf; returns ``paged_blocks``."""
     first = next(iter(paged_blocks[0].values()))
-    if first.dtype == torch.int8:
-        raise NotImplementedError(f"int8 page writes are not ported yet: {INT8_ITEM}")
     sink, pg = pool_num_pages(first), first.shape[2]
     max_pp = block_row.shape[0]
     t = dense_blocks[0]["k"].shape[1]
     pos = torch.arange(t, device=first.device)
-    page = block_row.long()[torch.clamp(pos // pg, 0, max_pp - 1)]
+    local = torch.clamp(pos // pg, 0, max_pp - 1)
+    page = block_row.long()[local]
     valid = (pos >= row_lo) & (pos < n_tokens) & (page >= 0)
     page = torch.where(valid, page, sink)
     slot = pos % pg
+    if first.dtype == torch.int8:
+        owned = torch.arange(max_pp, device=first.device) >= row_lo // pg
+        spage = torch.where((block_row >= 0) & owned, block_row.long(), sink)
+
+    def page_quant(rows):
+        """rows (T, Hkv, W) -> (int8 rows, per-page scales (max_pp, Hkv))."""
+        amax = torch.where(valid[:, None], rows.float().abs().amax(-1), 0.0)
+        seg = torch.zeros((max_pp, amax.shape[1]), dtype=torch.float32,
+                          device=amax.device)
+        seg.scatter_reduce_(0, local[:, None].expand_as(amax), amax, "amax")
+        scales = scale_from_amax(seg)
+        return quant_with_scale(rows, scales[local][..., None]), scales
+
     for pool, dense in zip(paged_blocks, dense_blocks):
         for key in ("k", "v"):
             leaf = pool[f"{key}_pages"]
-            leaf[:, page, slot] = dense[key][0].transpose(0, 1).to(leaf.dtype)
+            rows = dense[key][0]                                   # (T, Hkv, W)
+            if leaf.dtype == torch.int8:
+                rows, scales = page_quant(rows)
+                pool[f"{key}_scales"][:, spage] = scales.T
+            leaf[:, page, slot] = rows.transpose(0, 1).to(leaf.dtype)
     return paged_blocks
+
+
+def quant_page_update(pages, scales, page, slot, row):
+    """Insert one decode token's row per sequence into its int8 page,
+    requantizing the page under the (possibly grown) scale, in place.
+
+    pages: (Hkv, num_pages + 1, pg, W) int8 pool; scales: (Hkv,
+    num_pages + 1) f32; page/slot: (B,) write coordinates from
+    ``_paged_token_coords`` (the sink page for inactive slots and dropped
+    positions); row: (Hkv, B, W).  Returns (pages, scales).
+
+    The page is gathered, dequantized, the new row inserted, and the
+    whole page requantized at its new max: a row inside the old range
+    leaves the old codes exact; a range-growing row re-rounds the page
+    once.  Rows past the write slot are recycled-page garbage, masked out
+    of the max and zeroed.  Dropped writes land on the sink, several at
+    once if need be; the reference gathers a clipped live page for them
+    and drops the write, so no live page is read or written in their
+    place here either."""
+    pg = pages.shape[2]
+    b = page.shape[0]
+    cur = pages[:, page].float() * scales[:, page][..., None, None]  # (Hkv, B, pg, W)
+    cur[:, torch.arange(b, device=page.device), slot] = row.float()
+    live = torch.arange(pg, device=page.device)[None, :] <= slot[:, None]  # (B, pg)
+    cur = cur * live[None, :, :, None]
+    new_scale = scale_for(cur, axes=(2, 3))                      # (Hkv, B)
+    pages[:, page] = quant_with_scale(cur, new_scale[..., None, None])
+    scales[:, page] = new_scale
+    return pages, scales

@@ -226,3 +226,147 @@ def test_paged_engine_on_card_goes_through_kernels(cuda):
     finally:
         layers.set_attention_impl(prev)
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# the VTA GEMM (int8 tensor cores) and the int8 serving path
+# ---------------------------------------------------------------------------
+
+tvta = importlib.import_module("repro_torch.kernels.vta_gemm")
+tops = importlib.import_module("repro_torch.kernels.ops")
+
+GPU_GEMM = [(16, 16, 16), (100, 200, 300), (1, 2048, 512), (384, 64, 640),
+            (4, 1024, 2048), (8, 3072, 1024), (512, 1024, 3072), (2048, 2048, 1024),
+            (49, 4608, 512), (12544, 147, 64)]
+GEMM_CASES = ["none", "requant", "dequant", "dequant_relu_bias", "dequant_silu",
+              "dequant_gelu"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GEMM_CASES)
+@pytest.mark.parametrize("m,k,n", GPU_GEMM, ids=["x".join(map(str, s)) for s in GPU_GEMM])
+def test_vta_gemm_kernel_matches_plain_on_card(cuda, m, k, n, case):
+    """none / requant / dequant none and relu bitwise; silu and gelu within
+    1e-5 of max(1, |y|) (the kernel's expf / tanhf against PyTorch's)."""
+    rng = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(np.int8)).to(cuda)
+    w = torch.from_numpy(rng.integers(-128, 128, (k, n)).astype(np.int8)).to(cuda)
+    epi = case.split("_")[0]
+    kw = dict(epilogue=epi)
+    if epi == "requant":
+        kw.update(bias=torch.from_numpy(rng.integers(-4096, 4096, n).astype(np.int32)).to(cuda),
+                  shift=9, relu=True)
+    if epi == "dequant":
+        kw["scale"] = torch.from_numpy(rng.uniform(1e-6, 1e-4, n).astype(np.float32)).to(cuda)
+        kw["act"] = None if case == "dequant" else case.split("_")[1]
+        if case.endswith("bias"):
+            kw["bias"] = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda)
+    n0 = dict(tvta.vta_gemm.launches)
+    got = tvta.vta_gemm(a, w, **kw)
+    torch.cuda.synchronize()
+    assert tvta.vta_gemm.launches[epi] == n0[epi] + 1
+    want = tvta.vta_gemm_ref(a, w, **kw)
+    assert got.dtype == want.dtype and got.shape == (m, n)
+    if case in ("dequant_silu", "dequant_gelu"):
+        err = ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
+        assert err <= 1e-5
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw,cin,cout,kk,stride", [(224, 3, 64, 7, 2), (56, 64, 64, 3, 1),
+                                                   (14, 256, 512, 3, 2), (16, 8, 8, 3, 2)])
+def test_vta_conv2d_on_card(cuda, hw, cin, cout, kk, stride):
+    """ResNet-18-shaped convolutions through im2col and the kernel, bitwise
+    against an f64 convolution with the reference's SAME padding."""
+    rng = np.random.default_rng(hw + cin)
+    x = torch.from_numpy(rng.integers(-128, 128, (1, hw, hw, cin)).astype(np.int8)).to(cuda)
+    w = torch.from_numpy(rng.integers(-128, 128, (kk, kk, cin, cout)).astype(np.int8)).to(cuda)
+    got = tops.vta_conv2d(x, w, stride=stride)
+    ho = -(-hw // stride)
+    pad = max((ho - 1) * stride + kk - hw, 0)
+    xp = torch.nn.functional.pad(x.permute(0, 3, 1, 2).double(),
+                                 (pad // 2, pad - pad // 2, pad // 2, pad - pad // 2))
+    want = torch.nn.functional.conv2d(xp, w.permute(3, 2, 0, 1).double(), stride=stride)
+    assert torch.equal(got, want.permute(0, 2, 3, 1).to(torch.int32))
+
+
+def _quantized_model(dev):
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.quant import quantize_params
+
+    cfg = get_config("qwen3_0p6b").scaled_down()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return cfg, quantize_params(tf.init(cfg, generator=gen, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.gpu
+def test_quantized_generate_on_card_goes_through_kernels(cuda):
+    """Reduced qwen3 on int8 weights: every projection of every forward
+    call launches the dequant kernel, and the tokens equal a run whose
+    GEMMs take the plain version (bitwise equal for act none)."""
+    from repro_torch.models import layers
+    from repro_torch.serve.step import generate
+
+    cfg, params = _quantized_model(cuda)
+    prompt = torch.randint(0, cfg.vocab, (2, 600), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    n0 = tvta.vta_gemm.launches["dequant"]
+    got = generate(params, cfg, prompt, 5, 1030, torch.float32, chunk=512)
+    # two prefill chunks and four decode steps, 7 projections per layer
+    assert tvta.vta_gemm.launches["dequant"] - n0 == 7 * cfg.num_layers * 6
+    prev = layers.set_gemm_impl("ref")
+    try:
+        want = generate(params, cfg, prompt, 5, 1030, torch.float32, chunk=512)
+    finally:
+        layers.set_gemm_impl(prev)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_int8_engine_on_card_goes_through_kernels(cuda):
+    """A reduced ServingEngine trace on int8 weights and int8 pools with
+    the prefix cache: launches per step exact, prefix hits on whole pages,
+    no page leaked, tokens equal to a run whose GEMMs take the plain
+    version."""
+    from repro_torch.models import layers
+    from repro_torch.serve.engine import ServingEngine
+
+    cfg, params = _quantized_model(cuda)
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.vocab, 40)
+    trace = []
+    for n, m in [(40, 6), (70, 3), (25, 9), (90, 5)]:
+        p = rng.integers(0, cfg.vocab, n).astype(np.int32)
+        if n > 40:
+            p[:40] = shared
+        trace.append((p, m))
+
+    def run():
+        eng = ServingEngine(params, cfg, max_slots=2, max_len=128, page_size=16,
+                            prefill_chunk=32, prefix_cache=True, kv_dtype="int8")
+        for p, m in trace:
+            eng.submit(p, m)
+        for _ in range(200):
+            if not eng.pending and eng.active == 0:
+                break
+            eng.step(debug_audit=True)
+        done = eng.run()
+        eng.audit()
+        assert eng.allocator.num_free + len(eng.prefix.pages()) == eng.num_pages
+        return {r.rid: r.tokens for r in done}, eng.stats()
+
+    n0 = (tdec.paged_decode_attention.launches, tvta.vta_gemm.launches["dequant"])
+    got, st = run()
+    assert tdec.paged_decode_attention.launches - n0[0] == st["steps"] * cfg.num_layers
+    assert (tvta.vta_gemm.launches["dequant"] - n0[1]
+            == 7 * cfg.num_layers * (st["steps"] + st["prefill_chunk_calls"]))
+    assert st["prefix_hits"] >= 1 and st["prefix_hit_tokens"] % 16 == 0
+    prev = layers.set_gemm_impl("ref")
+    try:
+        want, _ = run()
+    finally:
+        layers.set_gemm_impl(prev)
+    assert got == want

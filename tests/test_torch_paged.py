@@ -10,7 +10,8 @@
 * ``PageAllocator`` / ``RadixPrefixCache`` on one seeded op sequence;
 * the pool writers (``write_prompt_pages``, ``seed_prefix_dense``,
   ``fork_page``, ``find_nonfinite_pages``), whose port updates the pools
-  in place and keeps a sink page past the served ones;
+  in place and keeps a sink page past the served ones, and an int8 pool
+  written by a prefill and six decode steps;
 * paged ``decode_step`` / ``verify_step`` logits at mixed fill levels with
   an inactive slot, and the dynamic ``n_tokens`` prefill resumed across
   chunks.
@@ -289,10 +290,54 @@ def test_pool_writers_match_reference(model):
     assert tkv.find_nonfinite_pages(tc["blocks"]) == jkv.find_nonfinite_pages(jb) == [3, 17]
 
 
-def test_int8_pools_name_their_roadmap_item(model):
-    _, _, tcfg, _ = model
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        tkv.init_paged_caches(tcfg, 1, 32, page_size=8, kv_dtype="int8", device="cpu")
+def test_int8_pools_match_reference(model):
+    """The reference's int8-pool path (``TestInt8PagedModel``): a dense
+    prefill of 21 tokens scattered into int8 pages (per-page, per-head
+    scales; the pages past the prompt get the eps scale), then six paged
+    decode steps that requantize their page per token, teacher-forced
+    with the reference's tokens.  The pools' layout and dtypes match,
+    with one sink page and scale column more; codes within one step (an
+    ulp apart in f32 K/V rows can round to neighbouring codes); logits
+    within 1e-3 and greedy tokens equal."""
+    cfg, jparams, tcfg, tparams = model
+    prompt = np.random.default_rng(4).integers(0, cfg.vocab, (1, 21)).astype(np.int32)
+    pg, max_len, n = 8, 64, 21
+    jc = jkv.init_paged_caches(cfg, 1, max_len, jnp.float32, page_size=pg, kv_dtype="int8")
+    tc = tkv.init_paged_caches(tcfg, 1, max_len, torch.float32, page_size=pg,
+                               kv_dtype="int8", device="cpu")
+    for jp, tp in zip(jc["blocks"], tc["blocks"]):
+        assert set(tp) == set(jp) == {"k_pages", "v_pages", "k_scales", "v_scales"}
+        for key in jp:
+            assert tp[key].shape[0] == jp[key].shape[0]
+            assert tp[key].shape[1] == jp[key].shape[1] + 1
+            assert tp[key].dtype == getattr(torch, str(jp[key].dtype))
+    bt = -np.ones((1, max_len // pg), np.int32)
+    bt[0, :5] = [3, 0, 6, 1, 2]
+    jd = jtf.init_caches(cfg, 1, 32, jnp.float32)
+    td = ttf.init_caches(tcfg, 1, 32, torch.float32, "cpu")
+    jt, jd = jstep.make_prefill_step(cfg, chunk=32)(jparams, jnp.asarray(prompt), jd)
+    tt, td = tstep.make_prefill_step(tcfg, chunk=32)(tparams, torch.from_numpy(prompt).long(), td)
+    assert tt.tolist() == np.asarray(jt).tolist()
+    jb = jkv.write_prompt_pages(jc["blocks"], jd["blocks"], jnp.asarray(bt[0]), n)
+    tkv.write_prompt_pages(tc["blocks"], td["blocks"], torch.from_numpy(bt[0]), n)
+    jcache = {"blocks": jb, "block_tables": jnp.asarray(bt), "lens": jnp.asarray([n], jnp.int32)}
+    tcache = {"blocks": tc["blocks"], "block_tables": torch.from_numpy(bt),
+              "lens": torch.tensor([n], dtype=torch.int32)}
+    tok = np.asarray(jt).astype(np.int32)[:, None]
+    for _ in range(6):
+        jl, jcache = jtf.decode_step(jparams, cfg, jnp.asarray(tok), jcache)
+        tl, tcache = ttf.decode_step(tparams, tcfg, torch.from_numpy(tok).long(), tcache)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-3)
+        assert tl[0, -1].argmax().item() == int(np.asarray(jl)[0, -1].argmax())
+        tok = np.asarray(jl)[:, -1].argmax(-1).astype(np.int32)[:, None]
+    assert tcache["lens"].tolist() == np.asarray(jcache["lens"]).tolist() == [n + 6]
+    for tp, jp in zip(tcache["blocks"], jcache["blocks"]):
+        for key in ("k_pages", "v_pages"):
+            diff = tp[key][:, :-1].int().numpy() - np.asarray(jp[key]).astype(np.int32)
+            assert np.abs(diff).max() <= 1
+        for key in ("k_scales", "v_scales"):
+            np.testing.assert_allclose(tp[key][:, :-1].numpy(), np.asarray(jp[key]), rtol=1e-5)
+        assert (tp["k_scales"][:, 2] == 1e-12 / 127).all(), "pool page 2 is never written"
 
 
 # ---------------------------------------------------------------------------

@@ -127,11 +127,16 @@ def test_launcher_runs_on_cpu_when_asked(capsys):
     assert res["tokens"].shape == (2, 4)
 
 
-def test_launcher_refuses_unported_options():
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        tlaunch.main(["--device", "cpu", "--smoke", "--kv-dtype", "int8"])
+def test_launcher_refuses_unported_options(capsys):
     with pytest.raises(SystemExit, match="ROADMAP"):
         tlaunch.main(["--device", "cpu", "--smoke", "--supervise"])
+    # the static path ignores --kv-dtype, as the reference's does
+    argv = ["--device", "cpu", "--smoke", "--batch", "1", "--prompt", "16",
+            "--new-tokens", "3"]
+    plain = tlaunch.main(argv)
+    res = tlaunch.main(argv + ["--kv-dtype", "int8"])
+    assert torch.equal(res["tokens"], plain["tokens"])
+    assert "decode 2 steps" in capsys.readouterr().out
 
 
 def test_launcher_default_device_needs_cuda():
