@@ -22,7 +22,15 @@ qwen3_0p6b (f32, random weights from seed 0):
   GEMMs through ``ops.vta_conv2d`` and ``ops.dense_requant_int8``;
 * int8 serving: the same weights packed by ``optim.quant.quantize_params``
   through the static path (every projection on the VTA GEMM's dequant
-  epilogue) and through the engine trace on int8 KV pools.
+  epilogue) and through the engine trace on int8 KV pools;
+* the VTA ALU (``ops.alu``, all seven ops) on the VTA path's int32
+  accumulators, a ragged shape, an int8 input and the int32 ends;
+* ResNet-18 (``resnet18_vta``) at full width, 224 x 224, 1000 classes,
+  random weights from seed 5: f32 against the same forward in f64 (so no
+  TF32), bf16, and the int8 fc head on the dequant kernel, with its MACs
+  held to the planner's ``resnet18_graph``, timed at batch 1 and 32;
+* the cluster planner: ``auto_schedule`` of ResNet-18's graph on 1-12
+  simulated Zynq-7020 boards.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after, and the counts must be exactly those the path's own
@@ -129,12 +137,13 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(torch, fn, reps: int = 20) -> float:
+def graph_ms(torch, fn, reps: int = 20, replays: int = 5) -> float:
     """Mean device time of ``fn`` over ``reps`` calls captured in one CUDA
-    graph and replayed: for calls whose host-side launch cost exceeds
-    their device time (a decode-row GEMM runs for microseconds), this
-    times the device work and not the host's enqueue rate.  ``fn`` gets
-    the call's index, as in :func:`cuda_ms`."""
+    graph, the median over ``replays`` replays: for calls whose host-side
+    launch cost exceeds their device time (a decode-row GEMM runs for
+    microseconds), this times the device work and not the host's enqueue
+    rate, and one slow replay does not move a reading of a few
+    microseconds.  ``fn`` gets the call's index, as in :func:`cuda_ms`."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -149,11 +158,14 @@ def graph_ms(torch, fn, reps: int = 20) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    times = []
+    for _ in range(replays):
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return sorted(times)[replays // 2]
 
 
 def bound_ms(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
@@ -459,11 +471,13 @@ def reset_counts() -> None:
     """Set every kernel's launch count to 0."""
     from repro_torch.kernels.decode_attention import decode_attention, paged_decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.vta_alu import vta_alu
     from repro_torch.kernels.vta_gemm import vta_gemm
 
     flash_attention.launches = decode_attention.launches = 0
     paged_decode_attention.launches = 0
     vta_gemm.launches.update(none=0, requant=0, dequant=0)
+    vta_alu.launches.update({op: 0 for op in vta_alu.launches})
 
 
 def int8_operands(torch, gen, dev, *shape):
@@ -523,7 +537,8 @@ def vta_phase(torch, gen, dev):
     on the same patches (requant) — with the launch counts set to 0 before
     and read after, then each output held bitwise to its plain version and
     the convolution also to an f64 ``conv2d`` with the reference's SAME
-    padding.  Returns (launches none, launches requant, the GEMM operands)."""
+    padding.  Returns (launches none, launches requant, the GEMM operands
+    and int32 accumulators)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
@@ -569,7 +584,7 @@ def vta_phase(torch, gen, dev):
         sat = (req == 127).float().mean().item()
         log(f"[vta] {name}: GEMM M {m} K {k} N {n}; conv bitwise == f64 conv2d == plain "
             f"version; requant (shift {REQUANT_SHIFT}, relu) bitwise, {sat:.1%} at 127")
-        operands.append((name, patches, wmat, bias))
+        operands.append((name, patches, wmat, bias, conv.reshape(m, n)))
     return n_none, n_req, operands
 
 
@@ -829,7 +844,7 @@ def time_vta(torch, operands):
     rows = {}
     for epi in ("none", "requant"):
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0, bytes=0)
-        for name, patches, wmat, bias in operands:
+        for name, patches, wmat, bias, _ in operands:
             m, k = patches.shape
             n = wmat.shape[1]
             kw = (dict(bias=bias, shift=REQUANT_SHIFT, relu=True, epilogue="requant")
@@ -864,6 +879,328 @@ def time_vta(torch, operands):
     return rows
 
 
+# the VTA ALU phase: every op once on each operand pair, the shifts 0, 7, 31
+# and 40 (past 31: all sign bits) and immediates at the int32 ends; the row
+# of the kernels line times each op at ResNet-18's stem accumulator
+ALU_CALLS = ([("add", {}), ("max", {}), ("min", {}), ("add_imm", {"imm": -3}),
+              ("add_imm", {"imm": 2 ** 31 - 1}), ("max_imm", {"imm": 11}), ("relu", {})]
+             + [("shr", {"shift": sh}) for sh in (0, 7, 31, 40)])
+ALU_TIMED = {"add": {}, "max": {}, "min": {}, "add_imm": {"imm": -3}, "max_imm": {"imm": 11},
+             "relu": {}, "shr": {"shift": 7}}
+
+
+def alu_operands(torch, gen, dev, operands):
+    """(name, x, y) pairs of the [vta_alu] phase: the int32 accumulators of
+    the four ResNet-18 conv GEMMs of the [vta] phase (y: the same
+    accumulator upside down, so a binary op combines two real
+    accumulators), a ragged (100, 64), an int8 x against an int32 y and
+    against an int8 y, and the whole int32 range
+    with both ends present (the adds wrap)."""
+    def full(*shape):
+        return torch.randint(-(2 ** 31), 2 ** 31, shape, generator=gen, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+
+    pairs = [(f"{name} M {acc.shape[0]} N {acc.shape[1]}", acc, acc.flip(0))
+             for name, *_, acc in operands]
+    small = torch.randint(-(2 ** 20), 2 ** 20, (100, 64), generator=gen, device=dev,
+                          dtype=torch.int32)
+    pairs.append(("ragged M 100 N 64", small, small.flip(1)))
+    x8, y8 = (torch.randint(-128, 128, (100, 64), generator=gen, device=dev).to(torch.int8)
+              for _ in range(2))
+    pairs.append(("int8 x M 100 N 64", x8, small))
+    pairs.append(("int8 x, y M 100 N 64", x8, y8))
+    x, y = full(64, 64), full(64, 64)
+    ends = torch.tensor([2 ** 31 - 1, -(2 ** 31)], dtype=torch.int32, device=dev)
+    x[0, :4], y[0, :2], y[0, 2:6] = ends.repeat(2), ends, ends.repeat(2)
+    pairs.append(("int32 ends M 64 N 64", x, y))
+    return pairs
+
+
+def alu_phase(torch, gen, dev, operands):
+    """The VTA ALU on the VTA path's accumulators: every op of ALU_CALLS on
+    every operand pair, with the launch counts set to 0 before and read
+    after (exact per op), then each output held bitwise to the plain
+    version.  Returns (launches per op, max |err| of the binary and the
+    unary ops, the operand pairs)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.vta_alu import _BINARY, vta_alu, vta_alu_ref
+
+    pairs = alu_operands(torch, gen, dev, operands)
+    torch.cuda.synchronize()
+    reset_counts()
+    outs = [ops.alu(x, y if op in _BINARY else None, op=op, **kw)
+            for _, x, y in pairs for op, kw in ALU_CALLS]
+    torch.cuda.synchronize()
+    counts = dict(vta_alu.launches)
+    expect = {op: len(pairs) * sum(o == op for o, _ in ALU_CALLS) for op in counts}
+    log(f"[vta_alu] launches: {counts} (expect {expect}: {len(pairs)} operand pairs)")
+    check(counts == expect, "the ALU calls all went through the kernel, once each")
+    got = iter(outs)
+    errs = {"binary": 0, "unary": 0}
+    for name, x, y in pairs:
+        for op, kw in ALU_CALLS:
+            out = next(got)
+            want = vta_alu_ref(x, y if op in _BINARY else None, op, **kw)
+            check(out.dtype == torch.int32 and out.shape == x.shape,
+                  f"vta_alu {op} {kw} on {name}: dtype / shape")
+            kind = "binary" if op in _BINARY else "unary"
+            err = (out.long() - want.long()).abs().max().item()
+            errs[kind] = max(errs[kind], err)
+            check(torch.equal(out, want),
+                  f"vta_alu {op} {kw} on {name}: not bitwise equal to the plain version "
+                  f"(max|err| {err})")
+        log(f"[vta_alu] {name} ({x.dtype}): {len(ALU_CALLS)} calls (7 ops, shifts 0/7/31/40, "
+            f"imm -3 / 2^31-1 / 11) bitwise == plain version")
+    return counts, errs, pairs
+
+
+def time_alu(torch, pairs):
+    """Each ALU op at the four accumulators' shapes and on the int8 x:
+    kernel, plain version, the one-call PyTorch counterpart and the byte
+    bound (each operand read once, the int32 output written once: 12 bytes
+    per element binary and 8 unary on int32 operands), device time of
+    CUDA-graph replays.  Returns
+    the binary and unary rows at the stem accumulator (M 12544, N 64), each
+    the mean over its ops."""
+    from repro_torch.kernels.vta_alu import _BINARY, vta_alu, vta_alu_ref
+
+    library = {"add": lambda x, y, kw: torch.add(x, y),
+               "max": lambda x, y, kw: torch.maximum(x, y),
+               "min": lambda x, y, kw: torch.minimum(x, y),
+               "add_imm": lambda x, y, kw: x + kw["imm"],
+               "max_imm": lambda x, y, kw: torch.clamp_min(x, kw["imm"]),
+               "relu": lambda x, y, kw: torch.relu(x),
+               "shr": lambda x, y, kw: x >> kw["shift"]}
+    rows = {}
+    timed = pairs[:4] + [p for p in pairs if p[1].dtype == torch.int8]
+    for pi, (name, x, y) in enumerate(timed):
+        for op, kw in ALU_TIMED.items():
+            yy = y if op in _BINARY else None
+            ms = graph_ms(torch, lambda _: vta_alu(x, yy, op=op, **kw))
+            plain = graph_ms(torch, lambda _: vta_alu_ref(x, yy, op, **kw))
+            lib = graph_ms(torch, lambda _: library[op](x, yy, kw))
+            nbytes = (x.element_size() + 4 + (yy.element_size() if yy is not None else 0)
+                      ) * x.numel()
+            bnd, by = bound_ms(0, nbytes, "int8")
+            log(f"[time] vta_alu {op} {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                f"torch {lib:.4f} ms, bound {bnd:.4f} ms ({by}), "
+                f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s")
+            if pi == 0:
+                kind = "binary" if op in _BINARY else "unary"
+                acc = rows.setdefault(kind, dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
+                                                 bound_ms=bnd, bound_by=by, ops=0))
+                for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib)):
+                    acc[key] += val
+                acc["ops"] += 1
+    for kind, acc in rows.items():
+        for key in ("ms", "plain_ms", "library_ms"):
+            acc[key] /= acc["ops"]
+        log(f"[time] vta_alu {kind} mean over {acc['ops']} ops at {pairs[0][0]}: kernel "
+            f"{acc['ms']:.4f} ms, plain {acc['plain_ms']:.4f} ms, torch "
+            f"{acc['library_ms']:.4f} ms, bound {acc['bound_ms']:.4f} ms ({acc['bound_by']})")
+    return rows
+
+
+# ResNet-18 (the paper's workload, resnet18_vta) at full width: 224 x 224
+# images, 1000 classes; the checks run at batch 4, the timings at 1 and 32.
+# f32 vs an f64 run of the same forward: the two differ by f32 rounding in
+# 20 layers (~1e-6 of the logits); a control run with cuDNN's TF32 on
+# (10-bit mantissas) reads how far TF32 would be.  bf16 vs f32: bf16 rounding of every activation
+RESNET_BATCH, RESNET_HW, RESNET_CLASSES = 4, 224, 1000
+RESNET_TOL, RESNET_BF16_TOL, RESNET_MAC_TOL = 1e-4, 5e-2, 1e-4
+
+
+def resnet_params(torch, dev, seed: int = 5):
+    """Full-width ResNet-18 params from the port's ``init`` (seeded
+    generator), every batch norm's scale / bias / mean / var drawn by
+    numpy so that no BN is the identity."""
+    import numpy as np
+
+    from repro_torch.models import resnet
+
+    params = resnet.init(torch.Generator(device=dev).manual_seed(seed), RESNET_CLASSES,
+                         dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(seed)
+
+    def draw(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    for blk in [params["stem"]] + [b for stage in params["stages"] for b in stage]:
+        for name, bn in blk.items():
+            if "bn" in name:
+                c = bn["mean"].shape[0]
+                bn.update(scale=draw(rng.uniform(0.5, 1.5, c)),
+                          bias=draw(0.1 * rng.standard_normal(c)),
+                          mean=draw(0.1 * rng.standard_normal(c)),
+                          var=draw(rng.uniform(0.5, 1.5, c)))
+    return params
+
+
+def cast_tree(torch, tree, dtype, key=None):
+    """``tree`` in ``dtype``; batch-norm mean / var stay f32 (as
+    ``resnet._bn_init`` keeps them; ``_bn`` computes in f64 for an f64
+    ``x``, where their f32 values widen exactly)."""
+    from repro_torch.convert import keeps_f32
+
+    if isinstance(tree, list):
+        return [cast_tree(torch, v, dtype) for v in tree]
+    if isinstance(tree, dict):
+        return {k: cast_tree(torch, v, dtype, k) for k, v in tree.items()}
+    return tree if keeps_f32(key) else tree.to(dtype)
+
+
+def resnet_phase(torch, dev, card: str) -> int:
+    """ResNet-18 at full width through ``resnet.forward``: f32 at batch 4
+    against the same forward in f64, bf16 against f32, the int8 head
+    (``quantize_params``) with its dequant launches exact and its logits
+    bitwise equal to the plain-GEMM run, the MACs of the convolutions and
+    the head as the forward runs them against the planner's
+    ``resnet18_graph``, then ms per forward, device idle share and top
+    kernels at batch 1 and 32.  Returns the dequant launches of one int8
+    forward."""
+    from repro_torch.core.graph import resnet18_graph
+    from repro_torch.kernels.vta_gemm import vta_gemm
+    from repro_torch.models import layers, resnet
+    from repro_torch.optim.quant import quantize_params
+
+    cudnn = torch.backends.cudnn
+    conv_prec = getattr(getattr(cudnn, "conv", None), "fp32_precision", "n/a")
+    log(f"[resnet] TF32 flags: cudnn.allow_tf32 {cudnn.allow_tf32} (conv.fp32_precision "
+        f"{conv_prec}), cuda.matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}; "
+        f"resnet._conv turns cuDNN's off around each f32 convolution")
+    check(cudnn.allow_tf32, "cuDNN's TF32 flag at its default (on), so that only "
+          "resnet._conv keeps the f32 convolutions in f32")
+    params = resnet_params(torch, dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    images = torch.randn((RESNET_BATCH, RESNET_HW, RESNET_HW, 3), generator=gen, device=dev)
+
+    conv, macs = resnet._conv, []
+
+    def counting_conv(p, x, stride):
+        y = conv(p, x, stride)
+        kh, kw, cin, _ = p["w"].shape
+        macs.append(y[0].numel() * kh * kw * cin)
+        return y
+
+    reset_counts()
+    resnet._conv = counting_conv
+    try:
+        with torch.inference_mode():
+            f32 = resnet.forward(params, images)
+    finally:
+        resnet._conv = conv
+    torch.cuda.synchronize()
+    check(vta_gemm.launches["dequant"] == 0, "the f32 forward launched no GEMM kernel")
+    fc = params["fc"]["w"]
+    mac_img = sum(macs) + fc.shape[0] * fc.shape[1]
+    graph = resnet18_graph(RESNET_HW, RESNET_CLASSES)
+    graph_macs = graph.total_macs
+    log(f"[resnet] MACs per image as the forward runs them: {len(macs)} convolutions "
+        f"{sum(macs)} + fc {fc.shape[0] * fc.shape[1]} = {mac_img} ({mac_img / 1e9:.4f} GMAC); "
+        f"resnet18_graph().total_macs {graph_macs:.0f} (the pool and add ALU terms "
+        f"{graph_macs - mac_img:.0f} besides)")
+    check(len(macs) == 20 and abs(mac_img - graph_macs) <= RESNET_MAC_TOL * graph_macs,
+          "the forward's MACs equal the planner graph's within 0.01 %")
+    check(f32.shape == (RESNET_BATCH, RESNET_CLASSES) and bool(torch.isfinite(f32).all()),
+          "f32 logits finite, of shape (B, 1000)")
+    with torch.inference_mode():
+        f64 = resnet.forward(cast_tree(torch, params, torch.float64), images.double())
+        bf16 = resnet.forward(cast_tree(torch, params, torch.bfloat16), images.bfloat16())
+    scale = f64.abs().max().item()
+    err = (f32.double() - f64).abs().max().item()
+    log(f"[resnet] f32 batch {RESNET_BATCH} vs the same forward in f64: max|err| {err:.3e}, "
+        f"{err / scale:.3e} of max|logit| {scale:.3f} (tol {RESNET_TOL})")
+    check(err <= RESNET_TOL * scale, f"f32 logits vs f64: {err} > {RESNET_TOL} x {scale}")
+    # the control: the same f32 forward with cuDNN's TF32 left on (the
+    # default), to show what RESNET_TOL holds the f32 path to
+    ieee = resnet._ieee_f32
+    resnet._ieee_f32 = lambda x: contextlib.nullcontext()
+    try:
+        with torch.inference_mode():
+            tf32 = resnet.forward(params, images)
+    finally:
+        resnet._ieee_f32 = ieee
+    terr = (tf32.double() - f64).abs().max().item()
+    log(f"[resnet] control, f32 with cuDNN TF32 on vs f64: max|err| {terr:.3e}, "
+        f"{terr / scale:.3e} of max|logit| "
+        f"({'outside' if terr > RESNET_TOL * scale else 'within'} tol {RESNET_TOL})")
+    berr = (bf16.float() - f32).abs().max().item()
+    fscale = f32.abs().max().item()
+    log(f"[resnet] bf16 vs f32: max|err| {berr:.3e}, {berr / fscale:.3e} of max|logit| "
+        f"(tol {RESNET_BF16_TOL}); top-1 equal at "
+        f"{int((bf16.float().argmax(-1) == f32.argmax(-1)).sum())}/{RESNET_BATCH}")
+    check(bool(torch.isfinite(bf16).all()) and berr <= RESNET_BF16_TOL * fscale,
+          f"bf16 logits vs f32: {berr} > {RESNET_BF16_TOL} x {fscale}")
+
+    qparams = quantize_params(params)
+    check(set(qparams["fc"]) == {"qw", "qscale", "b"} and "w" in qparams["stem"]["conv"],
+          "quantize_params packs the fc head only")
+    reset_counts()
+    with torch.inference_mode():
+        q = resnet.forward(qparams, images)
+    torch.cuda.synchronize()
+    n_deq = vta_gemm.launches["dequant"]
+    log(f"[resnet] int8 head: vta_gemm dequant launches {n_deq} (expect 1 per forward)")
+    check(n_deq == 1, "the int8 head went through the dequant kernel, once")
+    prev = layers.set_gemm_impl("ref")
+    try:
+        with torch.inference_mode():
+            q_plain = resnet.forward(qparams, images)
+    finally:
+        layers.set_gemm_impl(prev)
+    check(vta_gemm.launches["dequant"] == n_deq, "the plain-GEMM run launched no GEMM kernel")
+    qerr = (q - f32).abs().max().item()
+    log(f"[resnet] int8 head logits vs the plain-GEMM run: max|err| "
+        f"{(q - q_plain).abs().max().item():.3e} (bitwise expected); vs f32 {qerr:.3e} "
+        f"({qerr / fscale:.3e} of max|logit|)")
+    check(torch.equal(q, q_plain), "int8 head logits equal to the plain-GEMM run")
+
+    nparam = graph.total_param_bytes  # conv and fc weights (int8 bytes: one per weight)
+    bf16_params = cast_tree(torch, params, torch.bfloat16)
+    for batch in (1, 32):
+        imgs = torch.randn((batch, RESNET_HW, RESNET_HW, 3), generator=gen, device=dev)
+        for mode, p, x, dt, esize in (("f32", params, imgs, "float32", 4),
+                                      ("bf16", bf16_params, imgs.bfloat16(), "bfloat16", 2),
+                                      ("int8 head", qparams, imgs, "float32", 4)):
+            @torch.inference_mode()
+            def fwd(_=0, p=p, x=x):
+                return resnet.forward(p, x)
+
+            ms = cuda_ms(torch, fwd, reps=10 if batch > 1 else 20)
+            flops = 2 * mac_img * batch
+            bnd, by = bound_ms(flops, esize * (nparam + x.numel() + batch * RESNET_CLASSES), dt)
+            wall, busy, rows = device_breakdown(torch, fwd, top=10 ** 6)
+            launches = sum(r[2] for r in rows)
+            log(f"[time] resnet {mode} batch {batch}: {ms:.3f} ms/forward, {ms / batch:.4f} "
+                f"ms/image, {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s; bound {bnd:.4f} ms "
+                f"({by}, {flops / 1e9:.2f} GFLOP at {PEAK_FLOPS[dt] / 1e12:.0f} TFLOP/s); "
+                f"on {card}")
+            log(f"[profile] resnet {mode} batch {batch}: wall {wall * 1e3:.2f} ms (profiled), "
+                f"device kernels {busy * 1e3:.2f} ms in {launches} launches, device idle "
+                f"{100 * (1 - busy / wall):.1f} %")
+            for name, us, calls in rows[:6]:
+                log(f"[profile]   {us / 1e3:9.3f} ms {calls:5d}x {name[:90]}")
+    return n_deq
+
+
+def planner_phase() -> None:
+    """The port's cluster planner on ResNet-18's graph: the strategy
+    ``auto_schedule`` picks for a cluster of 1-12 simulated Zynq-7020
+    boards (the paper's testbed), with the simulator's ms per image."""
+    from repro_torch.core.cost_model import ZYNQ7020
+    from repro_torch.core.graph import resnet18_graph
+    from repro_torch.core.scheduler import auto_schedule
+
+    g = resnet18_graph()
+    picks = []
+    for n in (1, 2, 4, 8, 12):
+        choice = auto_schedule(g, n, ZYNQ7020)
+        picks.append(f"N={n} {choice.plan.strategy} {choice.result.avg_ms_per_image:.2f}")
+    log(f"[planner] ResNet-18 graph ({g.total_macs / 1e9:.4f} GMAC, {len(g)} ops), "
+        f"auto_schedule on simulated Zynq-7020 boards (strategy, simulated ms/image): "
+        + "; ".join(picks))
+
+
 def main() -> int:
     import torch
 
@@ -886,8 +1223,10 @@ def main() -> int:
     from repro_torch.optim.quant import quantize_params
     from repro_torch.serve.step import make_prefill_step, make_serve_step
 
+    # f32 matmuls in full f32 (PyTorch's default, stated); cuDNN's TF32 flag
+    # stays at its default (on): resnet._conv turns it off around its f32
+    # convolutions, and the [resnet] phase's f64 check would catch a miss
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -1106,6 +1445,11 @@ def main() -> int:
     n_deq = int8_static_phase(torch, params, qparams, cfg, prompts, dev, f"{kind} ({smi})")
     int8_engine_phase(torch, qparams, cfg, dev, f"{kind} ({smi})")
 
+    # ---- the VTA ALU, ResNet-18 and the planner: the fourth --------------------
+    alu_counts, alu_errs, alu_pairs = alu_phase(torch, gen, dev, vta_operands)
+    resnet_phase(torch, dev, f"{kind} ({smi})")
+    planner_phase()
+
     q = randn(b, s, h, d)
     k = randn(b, t, hkv, d)
     v = randn(b, t, hkv, d)
@@ -1198,7 +1542,18 @@ def main() -> int:
             replaces=f"src/repro/kernels/vta_gemm.py:{line}", launches=launches,
             max_abs_err=errs[f"vta_gemm_{epi}"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"])
-    check(len(rows) == 6, "six kernels in the record")
+    alu = time_alu(torch, alu_pairs)
+    for kind_, line, ops_ in (("binary", 68, ("add", "max", "min")),
+                              ("unary", 77, ("add_imm", "max_imm", "relu", "shr"))):
+        row = alu[kind_]
+        rows[f"vta_alu_{kind_}"] = dict(
+            route="cuda", source="src/repro_torch/kernels/csrc/vta_alu.cu",
+            replaces=f"src/repro/kernels/vta_alu.py:{line}",
+            launches=sum(alu_counts[o] for o in ops_), max_abs_err=float(alu_errs[kind_]),
+            ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"])
+    check(len(rows) == 8, "eight kernels in the record")
 
     print(json.dumps({"kernels": [dict(name=n, **r) for n, r in rows.items()]}))
     print(smi)

@@ -9,7 +9,9 @@ JAX.
 Quantized trees (``optim.quant.quantize_params``) carry over as they are:
 integer leaves (``qw``) keep their dtype, and the int8 scale leaves
 (``qscale``, and the KV pools' ``*_scales``) stay f32 whatever ``dtype``
-is, as the reference keeps them.
+is, as the reference keeps them.  ``resnet_params_from_numpy`` carries
+ResNet-18's nested tree (lists of blocks, no stacked axis), whose batch
+norm statistics stay f32 as well (``keeps_f32`` says which leaves).
 """
 
 from __future__ import annotations
@@ -18,18 +20,23 @@ import numpy as np
 import torch
 
 
-def _is_scale_leaf(key) -> bool:
-    """An int8 scale leaf, which stays f32 in every dtype."""
-    return key == "qscale" or (isinstance(key, str) and key.endswith("_scales"))
+def keeps_f32(key) -> bool:
+    """A float leaf that stays f32 in every dtype: an int8 scale leaf
+    (``qscale``, ``*_scales``) or a batch norm's running ``mean`` / ``var``
+    (``resnet._bn_init``)."""
+    return key in ("qscale", "mean", "var") or (isinstance(key, str)
+                                                and key.endswith("_scales"))
 
 
 def _to_torch(tree, device, dtype, key=None):
     if isinstance(tree, dict):
         return {k: _to_torch(v, device, dtype, k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_torch(v, device, dtype) for v in tree]
     arr = np.asarray(tree)
     if arr.dtype.kind == "f" or arr.dtype.name == "bfloat16":
         arr = arr.astype(np.float32)
-        leaf_dtype = torch.float32 if _is_scale_leaf(key) else dtype
+        leaf_dtype = torch.float32 if keeps_f32(key) else dtype
         return torch.from_numpy(arr).to(device=device, dtype=leaf_dtype)
     return torch.from_numpy(np.array(arr)).to(device=device)
 
@@ -49,3 +56,13 @@ def params_from_numpy(tree, cfg, device, dtype=torch.float32):
     out["blocks"] = [_to_torch(_layer(tree["blocks"], li), device, dtype)
                      for li in range(cfg.num_layers)]
     return out
+
+
+def resnet_params_from_numpy(tree, device, dtype=torch.float32):
+    """The port's ResNet-18 params from the reference's ``{"stem",
+    "stages": [[block, ...], ...], "fc"}`` tree of numpy arrays: the same
+    nesting (lists stay lists); float leaves become ``dtype`` on
+    ``device`` except the batch-norm ``mean`` / ``var`` and int8 scale
+    leaves, which stay f32; integer leaves (a packed ``fc``'s ``qw``) keep
+    their dtype."""
+    return _to_torch(tree, device, dtype)

@@ -10,8 +10,12 @@ a plain PyTorch version and an execution-map oracle.
   Pallas ``paged_decode_attention``).
 * ``vta_gemm`` — the VTA GEMM core: int8 x int8 with exact int32 sums on
   the int8 tensor cores and the ``none`` / ``requant`` / ``dequant``
-  epilogues (replaces the Pallas ``vta_gemm``); ``ops`` wraps it as the
-  reference's ``kernels.ops`` does.
+  epilogues (replaces the Pallas ``vta_gemm``);
+* ``vta_alu`` — the VTA ALU: element-wise int32 add / max / min and their
+  immediate, ReLU and shift forms in one flat pass (replaces the Pallas
+  ``vta_alu``).
+
+``ops`` wraps the two VTA kernels as the reference's ``kernels.ops`` does.
 
 Model code reaches them through ``repro_torch.models.layers.flash_attend``,
 ``decode_attend``, ``paged_decode_attend`` and ``quant_dense_apply``.
@@ -25,6 +29,7 @@ from repro_torch.kernels.decode_attention import (
     paged_partition_counts,
 )
 from repro_torch.kernels.flash_attention import flash_attention, flash_tile_counts
+from repro_torch.kernels.vta_alu import vta_alu, vta_alu_ref
 from repro_torch.kernels.vta_gemm import vta_gemm, vta_gemm_ref
 
 __all__ = [
@@ -35,6 +40,8 @@ __all__ = [
     "paged_decode_attention",
     "paged_decode_attention_ref",
     "paged_partition_counts",
+    "vta_alu",
+    "vta_alu_ref",
     "vta_gemm",
     "vta_gemm_ref",
 ]

@@ -21,9 +21,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("flash_attention", "decode_attention", "paged_decode_attention", "vta_gemm")
+KERNELS = ("flash_attention", "decode_attention", "paged_decode_attention", "vta_gemm",
+           "vta_alu")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_SMS: dict[int, int] = {}
 
 
 def _nvcc() -> str:
@@ -87,6 +89,18 @@ def load(name: str) -> ctypes.CDLL:
         build_all((name,))
         lib = _LIBS[name] = ctypes.CDLL(str(_target(name)))
     return lib
+
+
+def sm_count(device) -> int:
+    """The number of SMs of CUDA ``device`` (a ``torch.device``), looked up
+    once per device."""
+    import torch
+
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    sms = _SMS.get(idx)
+    if sms is None:
+        sms = _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return sms
 
 
 def check_rows4(what: str, *tensors) -> None:

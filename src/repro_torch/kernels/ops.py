@@ -1,14 +1,15 @@
-"""Public wrappers around the VTA GEMM kernel (PyTorch port of
+"""Public wrappers around the VTA GEMM and ALU kernels (PyTorch port of
 ``repro.kernels.ops``).
 
 Conv-as-GEMM lowering (im2col — how VTA executes 2D convolutions on its
-GEMM core), the quantization helper and the dense entry points, with the
-reference's names and layouts (NHWC activations, HWIO weights, SAME
-padding).  The reference pads every operand to block multiples before
-its Pallas call; the port's kernel masks its own ragged edges, so nothing
-is padded or sliced here.  ``BLOCK_PRESETS`` (the paper's Table I and
-§IV accelerator configurations) are accepted for parity and do not change
-the result: the CUDA kernel's tile is its own.
+GEMM core), the quantization helper, the dense entry points and the ALU,
+with the reference's names and layouts (NHWC activations, HWIO weights,
+SAME padding).  The reference pads every operand to block multiples
+before its Pallas calls; the port's kernels cover ragged shapes
+themselves, so nothing is padded or sliced here.  ``BLOCK_PRESETS`` (the
+paper's Table I and §IV accelerator configurations) and ``block`` are
+accepted for parity and do not change the result: the CUDA kernels'
+tiles are their own.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.vta_alu import vta_alu
 from repro_torch.kernels.vta_gemm import vta_gemm
 
 BLOCK_PRESETS = {
@@ -78,10 +80,10 @@ def vta_conv2d(x, w, *, stride: int = 1, preset: str = "table1"):
 
 
 def alu(x, y=None, **kw):
-    """The VTA ALU (Pallas ``vta_alu``) is not ported yet."""
-    raise NotImplementedError(
-        "ops.alu (the VTA ALU kernels) is not ported yet: ROADMAP.md queue 2, "
-        "items 5-6")
+    """The VTA ALU over (M, N) int8 or int32 tensors (``vta_alu``'s ops, ``imm`` and
+    ``shift``).  The kernel covers any M, so nothing is padded; ``block``
+    is accepted and changes nothing."""
+    return vta_alu(x, y, **kw)
 
 
 __all__ = [

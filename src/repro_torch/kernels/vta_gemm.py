@@ -36,8 +36,6 @@ EPILOGUES = {"none": 0, "requant": 1, "dequant": 2}
 ACTS = {None: 0, "none": 0, "relu": 1, "silu": 2, "gelu": 3}
 _TILE_MN, _TILE_K = 64, 64  # the kernel's output tile and K step
 
-_SMS: dict[int, int] = {}
-
 
 def apply_act(y, act):
     """The dequant epilogue's nonlinearity (f32 in, f32 out), written out
@@ -155,11 +153,7 @@ def vta_gemm(a, w, bias=None, scale=None, *, block_m: int = 128,
         scale = scale.to(torch.float32).contiguous()
         if bias is not None:
             bias = bias.to(torch.float32).contiguous()
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    sms = _SMS.get(idx)
-    if sms is None:
-        sms = _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    splits, per = _splits(m, n, k, sms)
+    splits, per = _splits(m, n, k, _build.sm_count(dev))
     ws = torch.empty((m, n), dtype=torch.int32, device=dev) if splits > 1 else None
     lib = _lib()
     rc = lib.vta_gemm_fwd(

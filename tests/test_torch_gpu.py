@@ -370,3 +370,116 @@ def test_int8_engine_on_card_goes_through_kernels(cuda):
     finally:
         layers.set_gemm_impl(prev)
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# the VTA ALU and ResNet-18
+# ---------------------------------------------------------------------------
+
+talu = importlib.import_module("repro_torch.kernels.vta_alu")
+ALU_OPS = [("add", {}), ("max", {}), ("min", {}), ("add_imm", {"imm": -(2 ** 31)}),
+           ("max_imm", {"imm": 11}), ("relu", {})]
+ALU_OPS += [("shr", {"shift": s}) for s in (0, 7, 31, 40)]
+# ResNet-18's stem accumulator, a ragged (100, 64), an odd flat length at a
+# pointer 4 bytes off 16-byte alignment (the scalar path), an int8 x, an
+# int8 x and y, an int8 x 1 byte off 4-byte alignment (its scalar path)
+ALU_SHAPES = ["12544x64", "100x64", "misaligned", "int8", "int8xy", "int8misaligned"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ALU_SHAPES)
+@pytest.mark.parametrize("op,kw", ALU_OPS, ids=[o + "".join(f"_{v}" for v in k.values())
+                                                for o, k in ALU_OPS])
+def test_vta_alu_kernel_matches_plain_on_card(cuda, op, kw, shape):
+    """Every op bitwise against the plain version, int32 wrap included (the
+    operands span the whole int32 range), one launch counted per call."""
+    rng = np.random.default_rng(len(op) + len(shape))
+
+    def draw(n, dtype=np.int32):
+        lo, hi = (-128, 127) if dtype == np.int8 else (-(2 ** 31), 2 ** 31 - 1)
+        return torch.from_numpy(rng.integers(lo, hi, n, endpoint=True).astype(dtype)).to(cuda)
+
+    if shape == "misaligned":
+        x, y = draw(10001)[1:], draw(10001)[1:]
+    elif shape == "int8":
+        x, y = draw(100 * 64, np.int8).view(100, 64), draw(100 * 64).view(100, 64)
+    elif shape == "int8xy":
+        x, y = draw(12544 * 64, np.int8).view(12544, 64), draw(12544 * 64, np.int8).view(12544, 64)
+    elif shape == "int8misaligned":
+        x, y = draw(10001, np.int8)[1:], draw(10000)
+    else:
+        m, n = map(int, shape.split("x"))
+        x, y = draw(m * n).view(m, n), draw(m * n).view(m, n)
+    binary = op in talu._BINARY
+    n0 = talu.vta_alu.launches[op]
+    got = tops.alu(x, y if binary else None, op=op, **kw)
+    torch.cuda.synchronize()
+    assert talu.vta_alu.launches[op] == n0 + 1
+    want = talu.vta_alu_ref(x, y if binary else None, op, **kw)
+    assert got.dtype == torch.int32 and got.shape == x.shape
+    assert torch.equal(got, want)
+
+
+def _resnet_params(dev, dtype=torch.float32, num_classes=10):
+    """Seeded ResNet-18 params with batch norms that are not the identity."""
+    from repro_torch.models import resnet
+
+    params = resnet.init(torch.Generator(device=dev).manual_seed(0), num_classes,
+                         dtype=dtype, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for blk in [params["stem"]] + [b for stage in params["stages"] for b in stage]:
+        for name, bn in blk.items():
+            if name.endswith("bn") or name.startswith("bn"):
+                c = bn["mean"].shape[0]
+                u = torch.rand((4, c), generator=gen, device=dev)
+                bn.update(scale=(0.5 + u[0]).to(dtype), bias=(0.2 * u[1] - 0.1).to(dtype),
+                          mean=0.2 * u[2] - 0.1, var=0.5 + u[3])
+    return params
+
+
+def _to_f64(tree):
+    if isinstance(tree, list):
+        return [_to_f64(v) for v in tree]
+    if isinstance(tree, dict):
+        return {k: _to_f64(v) for k, v in tree.items()}
+    return tree.double()
+
+
+@pytest.mark.gpu
+def test_resnet18_f32_on_card_matches_f64(cuda):
+    """The f32 forward (cuDNN's TF32 flag left at its default, on) within
+    1e-4 x max|logit| of the same forward in f64: TF32 would miss it."""
+    from repro_torch.models import resnet
+
+    params = _resnet_params(cuda)
+    img = torch.randn((2, 64, 64, 3), generator=torch.Generator(device=cuda).manual_seed(2),
+                      device=cuda)
+    got = resnet.forward(params, img)
+    want = resnet.forward(_to_f64(params), img.double())
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (2, 10)
+    err = (got.double() - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), err
+
+
+@pytest.mark.gpu
+def test_resnet18_int8_head_on_card(cuda):
+    """The int8 head: one dequant launch per forward, logits bitwise equal
+    to the same run with the GEMM on its plain version."""
+    from repro_torch.models import layers, resnet
+    from repro_torch.optim.quant import quantize_params
+
+    params = quantize_params(_resnet_params(cuda))
+    img = torch.randn((3, 64, 64, 3), generator=torch.Generator(device=cuda).manual_seed(3),
+                      device=cuda)
+    n0 = tvta.vta_gemm.launches["dequant"]
+    got = resnet.forward(params, img)
+    torch.cuda.synchronize()
+    assert tvta.vta_gemm.launches["dequant"] == n0 + 1
+    prev = layers.set_gemm_impl("ref")
+    try:
+        want = resnet.forward(params, img)
+    finally:
+        layers.set_gemm_impl(prev)
+    assert tvta.vta_gemm.launches["dequant"] == n0 + 1
+    assert torch.equal(got, want)

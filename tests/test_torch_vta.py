@@ -17,7 +17,10 @@ reference's ``ops`` wrappers with ``interpret=True``:
   the last bits);
 * ``vta_conv2d`` bitwise over ``test_conv_as_gemm``'s cases, through the
   padded im2col lowering; ``dense_requant_int8`` on conv patches; the
-  presets, ``quantize`` and the unported ALU.
+  presets and ``quantize``;
+* the ALU (``ops.alu``) bitwise for all seven ops over
+  ``tests/test_kernels.py``'s cases, a ragged M, an int8 ``x``, the int32
+  wrap and shifts 0, 7, 31 and 40; and the inputs it refuses.
 """
 
 import importlib
@@ -35,6 +38,8 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 
 # the module (the package exports its function under the same name)
 tvta = importlib.import_module("repro_torch.kernels.vta_gemm")
+tvta_alu = importlib.import_module("repro_torch.kernels.vta_alu")
+INT32_MIN, INT32_MAX = tvta_alu.INT32_MIN, tvta_alu.INT32_MAX
 
 I = dict(interpret=True)
 # qwen3_0p6b's projections (K, N): q, k/v, o, gate/up, down
@@ -167,12 +172,98 @@ def test_vta_conv2d_bitwise(hw, cin, cout, kk, stride):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_quantize_and_unported_alu():
+def test_quantize_bitwise():
     x = np.random.default_rng(0).standard_normal((32, 32)).astype(np.float32) * 4
     for scale in (0.05, 0.013):
         want = np.asarray(jops.quantize(jnp.asarray(x), scale))
         got = tops.quantize(torch.from_numpy(x), scale)
         assert got.dtype == torch.int8 and got.numpy().min() == -128
         np.testing.assert_array_equal(got.numpy(), want)
-    with pytest.raises(NotImplementedError, match="queue 2, items 5-6"):
-        tops.alu(torch.zeros((4, 4), dtype=torch.int32), op="relu")
+
+
+# the VTA ALU: tests/test_kernels.py's ops and immediates, the shifts 0, 7,
+# 31 and 40 (past 31: all sign bits), and immediates at the int32 ends
+ALU_OPS = [("add", {}), ("max", {}), ("min", {}), ("relu", {}),
+           ("add_imm", {"imm": -3}), ("max_imm", {"imm": 11}),
+           ("add_imm", {"imm": INT32_MAX}), ("add_imm", {"imm": INT32_MIN}),
+           ("max_imm", {"imm": INT32_MIN})]
+ALU_OPS += [("shr", {"shift": s}) for s in (0, 7, 31, 40)]
+# test_kernels.py's (100, 64) int32 in [-2**20, 2**20); a ragged M (257
+# rows, not a block multiple) and a narrow N; an int8 x (-128 included)
+# against an int32 y, and int8 both; the full int32 range with both ends
+# present (the adds wrap)
+ALU_DATA = ["test_kernels", "ragged", "int8_x", "int8_xy", "wrap"]
+
+
+def _alu_operands(kind, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "test_kernels":
+        return (rng.integers(-(2 ** 20), 2 ** 20, (100, 64)).astype(np.int32),
+                rng.integers(-(2 ** 20), 2 ** 20, (100, 64)).astype(np.int32))
+    if kind == "ragged":
+        return (rng.integers(-(2 ** 20), 2 ** 20, (257, 24)).astype(np.int32),
+                rng.integers(-(2 ** 20), 2 ** 20, (257, 24)).astype(np.int32))
+    if kind in ("int8_x", "int8_xy"):
+        x = rng.integers(-128, 128, (100, 64)).astype(np.int8)
+        x[0, 0] = -128
+        if kind == "int8_xy":
+            y = rng.integers(-128, 128, (100, 64)).astype(np.int8)
+            y[0, 1] = 127
+            return x, y
+        return x, rng.integers(-(2 ** 20), 2 ** 20, (100, 64)).astype(np.int32)
+    x, y = (rng.integers(INT32_MIN, INT32_MAX, (64, 32), endpoint=True).astype(np.int32)
+            for _ in range(2))
+    x[0, :4] = y[0, 2:6] = [INT32_MAX, INT32_MIN, INT32_MAX, INT32_MIN]
+    y[0, :2] = [INT32_MAX, INT32_MIN]
+    return x, y
+
+
+def _alu_id(case):
+    op, kw = case
+    return op + "".join(f"_{k}{v}" for k, v in kw.items())
+
+
+@pytest.mark.parametrize("kind", ALU_DATA)
+@pytest.mark.parametrize("op,kw", ALU_OPS, ids=[_alu_id(c) for c in ALU_OPS])
+def test_alu_bitwise(op, kw, kind):
+    """ops.alu equals the reference's Pallas vta_alu in interpret mode
+    (through its padded ops.alu) bitwise, and the plain version
+    equals it too."""
+    x, y = _alu_operands(kind, len(op) + 17 * kw.get("shift", 0))
+    binary = op in tvta_alu._BINARY
+    want = np.asarray(jops.alu(jnp.asarray(x), jnp.asarray(y) if binary else None,
+                               op=op, **kw, **I))
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y) if binary else None
+    n0 = dict(tvta_alu.vta_alu.launches)
+    got = tops.alu(tx, ty, op=op, **kw)
+    assert got.dtype == torch.int32 and got.shape == x.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(tvta_alu.vta_alu_ref(tx, ty, op, **kw).numpy(), want)
+    assert tvta_alu.vta_alu.launches == n0  # the CPU runs the plain version
+
+
+def test_alu_surface_and_raising():
+    """block changes nothing; a negative shift, an imm outside int32,
+    mismatched or missing y, an unknown op, and operands neither int8 nor
+    int32 (the kernel's types) raise."""
+    x, y = (torch.from_numpy(a) for a in _alu_operands("ragged", 3))
+    assert torch.equal(tops.alu(x, y, op="add", block=8), tops.alu(x, y, op="add"))
+    assert torch.equal(tops.alu(x, op="relu", block=1024), torch.clamp_min(x, 0))
+    # a unary op ignores y, as the reference's unary kernel does
+    assert torch.equal(tops.alu(x, y, op="shr", shift=3), x >> 3)
+    with pytest.raises(ValueError, match="shift"):
+        tops.alu(x, op="shr", shift=-1)
+    for imm in (INT32_MAX + 1, INT32_MIN - 1):
+        with pytest.raises(ValueError, match="imm"):
+            tops.alu(x, op="add_imm", imm=imm)
+    with pytest.raises(ValueError, match="shape"):
+        tops.alu(x, y[:-1], op="max")
+    with pytest.raises(ValueError, match="shape"):
+        tops.alu(x, op="min")
+    with pytest.raises(ValueError, match="unknown ALU op"):
+        tops.alu(x, y, op="mul")
+    for bad in (x.float(), x.long(), x.to(torch.int16)):
+        with pytest.raises(TypeError, match="int8 or int32"):
+            tops.alu(bad, op="relu")
+    with pytest.raises(TypeError, match="int8 or int32"):
+        tops.alu(x, y.long(), op="add")
