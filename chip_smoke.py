@@ -19,7 +19,8 @@ qwen3_0p6b (f32, random weights from seed 0):
   plain versions; then 8 of those requests with speculative decoding (the
   target as its own draft, k = 4, S = 5 verify calls);
 * the VTA path: ResNet-18's convolutions (batch 1, 224 x 224) as int8
-  GEMMs through ``ops.vta_conv2d`` and ``ops.dense_requant_int8``;
+  GEMMs through ``ops.vta_conv2d`` and ``ops.dense_requant_int8``, the
+  conv weights packed K-major by ``ops.pack_conv_weight``;
 * int8 serving: the same weights packed by ``optim.quant.quantize_params``
   through the static path (every projection on the VTA GEMM's dequant
   epilogue) and through the engine trace on int8 KV pools;
@@ -57,20 +58,26 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, dense): the main path is f32 and must
-# not use TF32, so f32 work is bounded by the SIMT f32 rate
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
+# H100 SXM peaks (NVIDIA data sheet, dense).  The main path is f32 and keeps
+# f32 accuracy: f32 work outside the tensor cores is bounded by the SIMT f32
+# rate; the flash kernel's f32 products run as three TF32 passes (3xTF32),
+# so its f32 bound is 3 x its operations at the TF32 rate
+PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
 
 # kernel vs plain version on the same card and inputs:
-#   f32  — both sum in f32, in another order (32-key tiles / per-warp
-#          partials vs whole chunks); errors are ~1e-6 of |out| <= ~4
+#   f32  — both sum in f32, in another order (64-key tiles on the tensor
+#          cores, products split 3xTF32 to ~2^-22, per-warp partials vs
+#          whole chunks); errors are ~1e-6 of |out| <= ~4
 #   bf16 — both round the output to bf16 (ulp 2**-6 at |x| < 4) and the
 #          kernel also rounds P to bf16 before the PV product
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # teacher-forced logits, kernel run vs reference run: 28 f32 layers
 # amplify the ~1e-6 attention differences; logits are ~0.6 in scale
 LOGIT_TOL = 1e-3
+# flash f32 against exact f64 attention: 3xTF32 keeps f32 accuracy (~1e-6);
+# one TF32 pass (10-bit mantissas) would be ~1e-4 to 1e-3 off
+F64_TOL = 1e-5
 
 ARCH, BATCH, PROMPT, NEW_TOKENS = "qwen3_0p6b", 4, 2048, 32
 CHUNK = max(16, PROMPT // 4)  # the launcher's chunk rule: 512
@@ -93,6 +100,8 @@ PROJ = [("mixer", "wq"), ("mixer", "wk"), ("mixer", "wv"), ("mixer", "wo"),
 # 7 projections in each of 28 layers per forward call; the static path makes
 # 4 prefill-chunk calls and 31 decode calls
 EXPECT_DEQUANT = 7 * 28 * (PROMPT // CHUNK + NEW_TOKENS - 1)  # 6860
+# the projection whose N-contiguous-weight time ``time_dequant`` logs
+NCONTIG_PROJ = ("ffn", "w_down")
 # ResNet-18 convolutions at batch 1, 224 x 224 (the paper's workload):
 # (name, H = W, C in, C out, kernel, stride); their GEMMs are M = HO * WO,
 # K = kernel^2 * C in, N = C out
@@ -487,8 +496,10 @@ def int8_operands(torch, gen, dev, *shape):
 def vta_parity(torch, gen, dev) -> dict:
     """The VTA GEMM against its plain version for all three epilogues, at
     the CPU tests' shapes and qwen3_0p6b's projection shapes at M 4, 8,
-    512 and 2048.  Returns the largest |err| per epilogue."""
+    512 and 2048, with W both K-major (as ``quantize_params`` packs it)
+    and N-contiguous.  Returns the largest |err| per epilogue."""
     from repro_torch.kernels.vta_gemm import vta_gemm, vta_gemm_ref
+    from repro_torch.optim.quant import k_major
 
     shapes = [(16, 16, 16), (128, 128, 128), (100, 200, 300), (1, 2048, 512),
               (384, 64, 640)]
@@ -510,31 +521,35 @@ def vta_parity(torch, gen, dev) -> dict:
                  ("dequant", dict(scale=scale, act="silu")),
                  ("dequant", dict(scale=scale, bias=fbias, act="gelu"))]
         worst = 0.0
-        for epi, kw in cases:
-            got = vta_gemm(a, w, epilogue=epi, **kw)
+        for (epi, kw), (layout, ww) in ((c, lw) for c in cases
+                                        for lw in (("N-contiguous", w), ("K-major", k_major(w)))):
+            got = vta_gemm(a, ww, epilogue=epi, **kw)
             want = vta_gemm_ref(a, w, epilogue=epi, **kw)
             torch.cuda.synchronize()
             check(got.dtype == want.dtype and got.shape == (m, n),
-                  f"vta_gemm {epi} {m}x{k}x{n}: dtype / shape")
+                  f"vta_gemm {epi} {m}x{k}x{n} {layout}: dtype / shape")
             err = (got.double() - want.double()).abs().max().item()
             if kw.get("act") in ("silu", "gelu"):
                 rel = ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
-                check(rel <= ACT_TOL, f"vta_gemm {epi} {kw['act']} {m}x{k}x{n}: "
+                check(rel <= ACT_TOL, f"vta_gemm {epi} {kw['act']} {m}x{k}x{n} {layout}: "
                       f"err {rel} > {ACT_TOL} of max(1, |y|)")
             else:
                 check(torch.equal(got, want), f"vta_gemm {epi} act={kw.get('act')} "
-                      f"{m}x{k}x{n}: not bitwise equal to the plain version (max|err| {err})")
+                      f"{m}x{k}x{n} {layout}: not bitwise equal to the plain version "
+                      f"(max|err| {err})")
             errs[epi] = max(errs[epi], err)
             worst = max(worst, err)
-        log(f"[vta_gemm] M {m} K {k} N {n}: none, requant (shift 8 relu / 0), dequant "
-            f"(none, relu+bias bitwise; silu, gelu+bias max|err| {worst:.3e})")
+        log(f"[vta_gemm] M {m} K {k} N {n}, W K-major and N-contiguous: none, requant "
+            f"(shift 8 relu / 0), dequant (none, relu+bias bitwise; silu, gelu+bias "
+            f"max|err| {worst:.3e})")
     return errs
 
 
 def vta_phase(torch, gen, dev):
     """The VTA path: ResNet-18's convolutions at batch 1, 224 x 224, as int8
     GEMMs — ``ops.vta_conv2d`` (epilogue none) and ``ops.dense_requant_int8``
-    on the same patches (requant) — with the launch counts set to 0 before
+    on the same patches (requant), the conv weights packed K-major by
+    ``ops.pack_conv_weight`` where they are made — with the launch counts set to 0 before
     and read after, then each output held bitwise to its plain version and
     the convolution also to an f64 ``conv2d`` with the reference's SAME
     padding.  Returns (launches none, launches requant, the GEMM operands
@@ -547,7 +562,9 @@ def vta_phase(torch, gen, dev):
     convs = []
     for name, hw, cin, cout, kk, stride in RESNET:
         x = int8_operands(torch, gen, dev, 1, hw, hw, cin)
-        w = int8_operands(torch, gen, dev, kk, kk, cin, cout)
+        w = ops.pack_conv_weight(int8_operands(torch, gen, dev, kk, kk, cin, cout))
+        check(w.reshape(-1, cout).stride() == (1, kk * kk * cin),
+              f"{name}: the packed conv weight reaches the GEMM K-major")
         bias = torch.randint(-(2 ** 16), 2 ** 16, (cout,), generator=gen, device=dev,
                              dtype=torch.int32)
         convs.append((name, x, w, bias, kk, stride))
@@ -788,11 +805,14 @@ def time_dequant(torch, gen, params, qparams, dev):
     projections at M 4 (static decode), 8 (engine decode), 512 (engine
     prefill chunk) and 2048 (static prefill chunk), cycling through the 28
     layers' real weights so that the weights stream from device memory as in
-    a forward pass.  Beside the kernel: the plain version, ``torch._int_mm``
-    plus the same epilogue in PyTorch, the f32 ``torch.matmul`` of the same
-    projection, and the bound (int8 operations at 1,979 TOP/s or bytes at
-    3.35 TB/s).  Every time is device time from CUDA-graph replays.  Returns the decode row (M 4, one layer's seven projections
-    summed) for the kernels line."""
+    a forward pass.  The kernel runs on the K-major weights
+    ``quantize_params`` packs; its slower N-contiguous path is logged once
+    per M, on copies of ``NCONTIG_PROJ``'s weights.  Beside the kernel:
+    the plain version, ``torch._int_mm`` plus the same epilogue in
+    PyTorch, the f32 ``torch.matmul`` of the same projection, and the
+    bound (int8 operations at 1,979 TOP/s or bytes at 3.35 TB/s).  Every
+    time is device time from CUDA-graph replays.  Returns one row per M
+    (one layer's seven projections summed) for the kernels line."""
     from repro_torch.kernels.vta_gemm import vta_gemm, vta_gemm_ref
 
     layers_n = len(qparams["blocks"])
@@ -803,6 +823,7 @@ def time_dequant(torch, gen, params, qparams, dev):
             qws = [qparams["blocks"][li][mod][name]["qw"] for li in range(layers_n)]
             fws = [params["blocks"][li][mod][name]["w"] for li in range(layers_n)]
             k, n = qws[0].shape
+            check(all(w.stride() == (1, k) for w in qws), "quantize_params packs qw K-major")
             a = int8_operands(torch, gen, dev, m, k)
             xf = torch.randn((m, k), generator=gen, device=dev)
             scale = torch.rand((n,), generator=gen, device=dev) * 1e-4 + 1e-6
@@ -810,6 +831,13 @@ def time_dequant(torch, gen, params, qparams, dev):
             reps = layers_n if m <= 512 else 8
             ms = graph_ms(torch, lambda i: vta_gemm(a, qws[i % layers_n], scale=scale,
                                                     epilogue="dequant"), reps=reps)
+            if (mod, name) == NCONTIG_PROJ:
+                nws = [w.contiguous() for w in qws]
+                ncontig = graph_ms(torch, lambda i: vta_gemm(a, nws[i % layers_n], scale=scale,
+                                                             epilogue="dequant"), reps=reps)
+                log(f"[time] dequant {name} M {m}: kernel on N-contiguous W {ncontig:.4f} ms "
+                    f"against {ms:.4f} ms on the K-major W the model packs")
+                del nws
             plain = graph_ms(torch, lambda i: vta_gemm_ref(a, qws[i % layers_n], scale=scale,
                                                            epilogue="dequant"), reps=4)
             lib = graph_ms(torch, lambda i: torch._int_mm(*mm[i % layers_n])[:m].float() * scale,
@@ -817,16 +845,17 @@ def time_dequant(torch, gen, params, qparams, dev):
             f32 = graph_ms(torch, lambda i: torch.matmul(xf, fws[i % layers_n]), reps=reps)
             flops, nbytes = gemm_work(m, k, n, 4, 4 * n)
             bnd, by = bound_ms(flops, nbytes, "int8")
-            log(f"[time] dequant {name} M {m} K {k} N {n}: kernel {ms:.4f} ms, plain "
-                f"{plain:.4f} ms, _int_mm + epilogue {lib:.4f} ms, f32 matmul {f32:.4f} ms, "
-                f"bound {bnd:.4f} ms ({by})")
+            log(f"[time] dequant {name} M {m} K {k} N {n}: kernel {ms:.4f} ms, "
+                f"plain {plain:.4f} ms, _int_mm + epilogue "
+                f"{lib:.4f} ms, f32 matmul {f32:.4f} ms, bound {bnd:.4f} ms ({by})")
             for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                              ("f32_ms", f32), ("flops", flops), ("bytes", nbytes)):
                 tot[key] += val
             del mm
         bnd, by = bound_ms(tot["flops"], tot["bytes"], "int8")
-        log(f"[time] dequant M {m}, one layer's 7 projections: kernel {tot['ms']:.4f} ms, "
-            f"plain {tot['plain_ms']:.4f} ms, _int_mm + epilogue {tot['library_ms']:.4f} ms, "
+        log(f"[time] dequant M {m}, one layer's 7 projections: kernel {tot['ms']:.4f} ms "
+            f"(K-major W), plain {tot['plain_ms']:.4f} ms, "
+            f"_int_mm + epilogue {tot['library_ms']:.4f} ms, "
             f"f32 matmul {tot['f32_ms']:.4f} ms, bound {bnd:.4f} ms ({by}); x {layers_n} "
             f"layers: kernel {tot['ms'] * layers_n:.3f} ms, bound {bnd * layers_n:.3f} ms, "
             f"{tot['bytes'] * layers_n / (tot['ms'] * layers_n * 1e-3) / 1e12:.3f} TB/s, "
@@ -836,11 +865,17 @@ def time_dequant(torch, gen, params, qparams, dev):
 
 
 def time_vta(torch, operands):
-    """The none and requant epilogues at ResNet-18's conv GEMMs: kernel,
-    plain version, ``torch._int_mm`` (plus the requant epilogue in
-    PyTorch) and bound, summed over the four convolutions."""
+    """The none and requant epilogues at ResNet-18's conv GEMMs, on the
+    K-major weights the VTA path packs: kernel, plain version,
+    ``torch._int_mm`` (plus the requant epilogue in PyTorch) and bound,
+    summed over the four convolutions; the kernel's N-contiguous path
+    (a contiguous HWIO weight) logged once, for none over the four."""
     from repro_torch.kernels.vta_gemm import vta_gemm, vta_gemm_ref
 
+    ncontig = 0.0
+    for _, patches, wmat, _, _ in operands:
+        wn = wmat.contiguous()
+        ncontig += graph_ms(torch, lambda _: vta_gemm(patches, wn))
     rows = {}
     for epi in ("none", "requant"):
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0, bytes=0)
@@ -872,9 +907,10 @@ def time_vta(torch, operands):
                              ("flops", flops), ("bytes", nbytes)):
                 tot[key] += val
         bnd, by = bound_ms(tot["flops"], tot["bytes"], "int8")
-        log(f"[time] {epi} over the 4 ResNet-18 convolutions: kernel {tot['ms']:.4f} ms, "
-            f"plain {tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} ms, bound "
-            f"{bnd:.4f} ms ({by})")
+        extra = f" (N-contiguous W: {ncontig:.4f} ms)" if epi == "none" else ""
+        log(f"[time] {epi} over the 4 ResNet-18 convolutions, W K-major as the path packs "
+            f"it: kernel {tot['ms']:.4f} ms{extra}, plain {tot['plain_ms']:.4f} ms, library "
+            f"{tot['library_ms']:.4f} ms, bound {bnd:.4f} ms ({by})")
         rows[epi] = dict(tot, bound_ms=bnd, bound_by=by)
     return rows
 
@@ -1202,6 +1238,10 @@ def planner_phase() -> None:
 
 
 def main() -> int:
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: the repository's sources are missing (no "
+              f"{ROOT / 'src' / 'repro_torch'}); run it from a checkout", file=sys.stderr)
+        return 1
     import torch
 
     if not torch.cuda.is_available():
@@ -1216,7 +1256,7 @@ def main() -> int:
         decode_partition_map, paged_decode_attention, paged_decode_attention_ref,
         paged_partition_counts)
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_ref, flash_tile_counts, flash_tile_map)
+        attention_f64, flash_attention, flash_attention_ref, flash_tile_counts, flash_tile_map)
     from repro_torch.launch.serve import run_static
     from repro_torch.models import layers
     from repro_torch.models import transformer as tf
@@ -1282,6 +1322,25 @@ def main() -> int:
             errs["flash_attention"] = max(errs["flash_attention"], err)
         log(f"[parity] flash {name}: max|err| {err:.3e} (tol {TOL[dt]}), "
             f"map == flash_tile_counts ({executed}/{total} tiles)")
+
+    # f32 accuracy: kernel and plain version against exact f64 attention at
+    # the main path's four chunk offsets and the window case
+    q = randn(b, s, h, d)
+    k = randn(b, t, hkv, d)
+    v = randn(b, t, hkv, d)
+    f64_cases = [dict(q_offset=i * CHUNK, kv_len=(i + 1) * CHUNK) for i in range(PROMPT // CHUNK)]
+    f64_cases.append(dict(q_offset=1536, kv_len=2048, window=256))
+    for opts in f64_cases:
+        exact = attention_f64(q, k, v, **opts)
+        got = flash_attention(q, k, v, **opts)
+        want = flash_attention_ref(q, k, v, **opts)
+        torch.cuda.synchronize()
+        err = (got.double() - exact).abs().max().item()
+        perr = (want.double() - exact).abs().max().item()
+        log(f"[f64] flash {opts} float32: kernel vs exact f64 attention max|err| {err:.3e} "
+            f"(gate {F64_TOL}), plain version {perr:.3e}")
+        check(err <= F64_TOL, f"flash {opts}: {err} from f64 attention > {F64_TOL}")
+    del q, k, v, exact, got, want
 
     decode_cases = [(n, "float32") for n in (1, 511, 512, 513, t)] + [(t, "bfloat16")]
     for kv_len, dt in decode_cases:
@@ -1469,22 +1528,47 @@ def main() -> int:
         lib = cuda_ms(torch, lambda _: F.scaled_dot_product_attention(qt, kt, vt,
                                                                     attn_mask=mask))
         flops, nbytes = flash_work(b, s, h, hkv, d, d, q_off, kv_len, 4)
-        bnd, by = bound_ms(flops, nbytes, "float32")
+        bnd, by = bound_ms(3 * flops, nbytes, "tf32")
+        simt, _ = bound_ms(flops, nbytes, "float32")
         log(f"[time] flash q_offset={q_off} kv_len={kv_len}: kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bnd:.4f} ms ({by}; "
-            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
+            f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bnd:.4f} ms ({by}, 3xTF32 at "
+            f"495 TFLOP/s; SIMT f32 bound {simt:.4f} ms; {flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.2f} MB)")
         for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                          ("bound_ms", bnd), ("flops", flops), ("bytes", nbytes)):
             acc[key] += val / len(offsets)
-    bnd, by = bound_ms(acc["flops"], acc["bytes"], "float32")
+    bnd, by = bound_ms(3 * acc["flops"], acc["bytes"], "tf32")
+    simt, _ = bound_ms(acc["flops"], acc["bytes"], "float32")
     rows["flash_attention"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:196", launches=n_flash,
         max_abs_err=errs["flash_attention"], ms=acc["ms"], plain_ms=acc["plain_ms"],
         bound_ms=bnd, bound_by=by, library_ms=acc["library_ms"])
     log(f"[time] flash mean over the main path's 4 chunk offsets: kernel "
-        f"{acc['ms']:.4f} ms, bound {bnd:.4f} ms ({by}), "
+        f"{acc['ms']:.4f} ms, sdpa {acc['library_ms']:.4f} ms, bound {bnd:.4f} ms ({by}, "
+        f"3xTF32; SIMT f32 bound {simt:.4f} ms), "
         f"{acc['flops'] / (acc['ms'] * 1e-3) / 1e12:.2f} TFLOP/s")
+    # bf16 at the same shapes: one bf16 tensor-core pass, beside SDPA in bf16
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    bacc = {key: 0.0 for key in ("ms", "library_ms", "flops", "bytes")}
+    for q_off in offsets:
+        kv_len = q_off + s
+        mask = (torch.arange(kv_len, device=dev)[None, :]
+                <= q_off + torch.arange(s, device=dev)[:, None])
+        qt = qb.transpose(1, 2)
+        kt = kb[:, :kv_len].repeat_interleave(h // hkv, dim=2).transpose(1, 2)
+        vt = vb[:, :kv_len].repeat_interleave(h // hkv, dim=2).transpose(1, 2)
+        ms = cuda_ms(torch, lambda _: flash_attention(qb, kb, vb, q_offset=q_off, kv_len=kv_len))
+        lib = cuda_ms(torch, lambda _: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                    attn_mask=mask))
+        flops, nbytes = flash_work(b, s, h, hkv, d, d, q_off, kv_len, 2)
+        for key, val in (("ms", ms), ("library_ms", lib), ("flops", flops), ("bytes", nbytes)):
+            bacc[key] += val / len(offsets)
+    bbnd, bby = bound_ms(bacc["flops"], bacc["bytes"], "bfloat16")
+    log(f"[time] flash bf16 mean over the main path's 4 chunk offsets: kernel "
+        f"{bacc['ms']:.4f} ms, sdpa bf16 {bacc['library_ms']:.4f} ms, bound {bbnd:.4f} ms "
+        f"({bby}, 989 TFLOP/s), {bacc['flops'] / (bacc['ms'] * 1e-3) / 1e12:.2f} TFLOP/s")
+    del qb, kb, vb
 
     kv_len = PROMPT + NEW_TOKENS // 2  # the middle decode step of the main path
     qd = randn(b, 1, h, d)

@@ -6,10 +6,11 @@ per-layer dicts.  The caller turns the reference's arrays into numpy
 first (``jax.tree.map(np.asarray, params)``), so this module needs no
 JAX.
 
-Quantized trees (``optim.quant.quantize_params``) carry over as they are:
-integer leaves (``qw``) keep their dtype, and the int8 scale leaves
-(``qscale``, and the KV pools' ``*_scales``) stay f32 whatever ``dtype``
-is, as the reference keeps them.  ``resnet_params_from_numpy`` carries
+Quantized trees (``optim.quant.quantize_params``) carry over with the
+reference's values: integer leaves (``qw``) keep their dtype, ``qw`` is
+packed K-major as the port's own ``quantize_params`` packs it, and the
+int8 scale leaves (``qscale``, and the KV pools' ``*_scales``) stay f32
+whatever ``dtype`` is, as the reference keeps them.  ``resnet_params_from_numpy`` carries
 ResNet-18's nested tree (lists of blocks, no stacked axis), whose batch
 norm statistics stay f32 as well (``keeps_f32`` says which leaves).
 """
@@ -18,6 +19,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.optim.quant import k_major
 
 
 def keeps_f32(key) -> bool:
@@ -38,7 +41,8 @@ def _to_torch(tree, device, dtype, key=None):
         arr = arr.astype(np.float32)
         leaf_dtype = torch.float32 if keeps_f32(key) else dtype
         return torch.from_numpy(arr).to(device=device, dtype=leaf_dtype)
-    return torch.from_numpy(np.array(arr)).to(device=device)
+    out = torch.from_numpy(np.array(arr)).to(device=device)
+    return k_major(out) if key == "qw" else out
 
 
 def _layer(tree, li):

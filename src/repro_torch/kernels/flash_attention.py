@@ -22,11 +22,13 @@ from repro_torch.kernels import _build
 # Finite stand-in for -inf on masked logits, as the TPU kernel uses.
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
-# Hopper tiles: a (G * 64)-row query panel against 32-key K/V tiles keeps
-# Q, K, V, P and the f32 accumulator in shared memory at D = 128, G = 2.
+# Hopper tiles: a (G * 64)-row query panel against 64-key K/V tiles, two
+# K/V stages in flight; at D = 128, G = 2 the f32 panel and stages take
+# 198 KiB of shared memory.
 DEFAULT_BLOCK_Q = 64
-DEFAULT_BLOCK_K = 32
+DEFAULT_BLOCK_K = 64
 SMEM_LIMIT = 232_448  # bytes of shared memory one CTA may use on Hopper
+MAX_DV = 128  # the kernel keeps a 16-row slab's output in registers
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -139,6 +141,26 @@ def flash_attention_ref(q, k, v, *, q_offset: int = 0, window: int = 0,
     return torch.cat(outs, dim=1).reshape(b, s, h, dv).to(q.dtype)
 
 
+def attention_f64(q, k, v, *, q_offset: int = 0, kv_len: int | None = None,
+                  window: int = 0):
+    """Exact causal (optionally windowed) masked-softmax attention in f64
+    over the first ``kv_len`` keys: the yardstick of the kernel's f32
+    accuracy (a single TF32 pass is ~1e-4 to 1e-3 from it, 3xTF32 ~1e-6)."""
+    b, s, h, d = q.shape
+    kv_len = k.shape[1] if kv_len is None else kv_len
+    g = h // k.shape[2]
+    kd = k[:, :kv_len].double().repeat_interleave(g, dim=2)
+    vd = v[:, :kv_len].double().repeat_interleave(g, dim=2)
+    logits = torch.einsum("bshd,bthd->bhst", q.double() * d ** -0.5, kd)
+    pos = q_offset + torch.arange(s, device=q.device)[:, None]
+    key = torch.arange(kv_len, device=q.device)[None, :]
+    mask = key <= pos
+    if window:
+        mask &= key > pos - window
+    p = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
+    return torch.einsum("bhst,bthd->bshd", p, vd)
+
+
 def _check(q, k, v, block_q, block_k):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes float32 or bfloat16 q/k/v of "
@@ -191,8 +213,10 @@ def flash_attention(q, k, v, *, q_offset: int = 0, kv_len: int | None = None,
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
 
     _build.check_rows4("flash_attention", q, k, v)
+    if dv > MAX_DV:
+        raise ValueError(f"flash_attention's kernel takes Dv <= {MAX_DV}, got {dv}")
     lib = _lib()
-    smem = lib.flash_attention_smem_bytes(h // hkv, qc, kc, d, dv)
+    smem = lib.flash_attention_smem_bytes(_DTYPES[q.dtype], h // hkv, qc, kc, d, dv)
     if smem > SMEM_LIMIT:
         raise ValueError(f"a (G*block_q={h // hkv * qc})-row panel at D={d}, "
                          f"Dv={dv}, block_k={kc} needs {smem} B of shared "
@@ -227,7 +251,7 @@ def _lib():
             [P] * 5 + [I] * 8 + [L] * 12 + [I] * 4 + [ctypes.c_float]
             + [I] * 2 + [P])
         lib.flash_attention_fwd.restype = I
-        lib.flash_attention_smem_bytes.argtypes = [I] * 5
+        lib.flash_attention_smem_bytes.argtypes = [I] * 6
         lib.flash_attention_smem_bytes.restype = L
         lib.flash_attention_error_string.argtypes = [I]
         lib.flash_attention_error_string.restype = ctypes.c_char_p

@@ -69,9 +69,20 @@ def _im2col(x, kh: int, kw: int, stride: int):
     return patches.reshape(n * ho * wo, kh * kw * c), ho, wo
 
 
+def pack_conv_weight(w):
+    """An HWIO (KH, KW, C, F) int8 conv weight with the same shape and
+    values, laid out so that :func:`vta_conv2d`'s ``(KH*KW*C, F)`` view
+    of it is K-major (strides (1, K)), the layout the VTA GEMM kernel
+    streams at rate: a permuted view of an (F, KH, KW, C)-contiguous
+    tensor.  Pack a weight once, where it is made."""
+    return w.permute(3, 0, 1, 2).contiguous().permute(1, 2, 3, 0)
+
+
 def vta_conv2d(x, w, *, stride: int = 1, preset: str = "table1"):
     """2D convolution on the VTA GEMM core via im2col (SAME padding).
-    x (N, H, W, C) int8, w (KH, KW, C, F) int8; returns int32 NHWC."""
+    x (N, H, W, C) int8, w (KH, KW, C, F) int8; returns int32 NHWC.
+    A weight from :func:`pack_conv_weight` reaches the kernel K-major; a
+    contiguous HWIO weight takes its slower N-contiguous path."""
     n = x.shape[0]
     kh, kw, c, f = w.shape
     patches, ho, wo = _im2col(x, kh, kw, stride)
@@ -92,6 +103,7 @@ __all__ = [
     "dense_int8",
     "dense_requant_int8",
     "matmul_int8",
+    "pack_conv_weight",
     "quantize",
     "vta_conv2d",
 ]

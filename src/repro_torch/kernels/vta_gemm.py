@@ -11,12 +11,17 @@ three epilogues —
   then ``act`` (None/"none", "relu", "silu", "gelu" — the tanh form, as
   ``jax.nn.gelu``), f32.
 
-On a CUDA tensor it launches ``csrc/vta_gemm.cu`` (int8 tensor-core MMAs,
-the epilogue a template parameter of one kernel) or raises; on a CPU
-tensor it runs the plain version, ``vta_gemm_ref``.  The kernel masks its
-own ragged edges, so M, N and K are arbitrary: ``block_m``/``block_n``/
-``block_k`` are accepted for parity with the reference (whose Pallas grid
-needs block multiples) and change nothing.  Shifts are clamped to
+On a CUDA tensor it launches ``csrc/vta_gemm.cu`` (pipelined int8
+tensor-core MMAs, the epilogue a template parameter of one kernel) or
+raises; on a CPU tensor it runs the plain version, ``vta_gemm_ref``.  ``w``
+may be K-major — a (K, N) view with strides (1, K) of an (N, K)-contiguous
+tensor, as ``optim.quant`` packs the model's weights, the layout the
+kernel streams at rate — or N-contiguous (strides (N, 1), as the reference
+lays it out), which the kernel takes on a slower path that gathers each
+fragment bytewise; the values and results are the same.  The kernel
+masks its own ragged edges, so M, N and K are arbitrary: ``block_m``/
+``block_n``/``block_k`` are accepted for parity with the reference (whose
+Pallas grid needs block multiples) and change nothing.  Shifts are clamped to
 [0, 31], where an arithmetic shift of an int32 is all sign bits — the
 reference's ``shift_right_arithmetic`` there.
 
@@ -34,7 +39,9 @@ from repro_torch.kernels import _build
 
 EPILOGUES = {"none": 0, "requant": 1, "dequant": 2}
 ACTS = {None: 0, "none": 0, "relu": 1, "silu": 2, "gelu": 3}
-_TILE_MN, _TILE_K = 64, 64  # the kernel's output tile and K step
+# the kernel's two CTA tiles (M x N) and its K step
+_LARGE_TILE, _SMALL_TILE, _TILE_K = (128, 128), (64, 64), 64
+_SPLIT_MIN_STEPS = 16  # K steps a tile needs before split-K pays (K >= 1024)
 
 
 def apply_act(y, act):
@@ -111,16 +118,38 @@ def _check(a, w, bias, scale, epilogue, act):
             raise ValueError("vta_gemm's operands must be on one device")
 
 
+def _tile(m: int, n: int, sms: int) -> tuple[int, int]:
+    """The CTA tile: 128 x 128 when those tiles alone fill at least half
+    the SMs (M 2048), else 64 x 64 (M 512, decode rows)."""
+    bm, bn = _LARGE_TILE
+    return _LARGE_TILE if 2 * -(-m // bm) * -(-n // bn) >= sms else _SMALL_TILE
+
+
 def _splits(m: int, n: int, k: int, sms: int) -> tuple[int, int]:
     """K splits per output tile and the K range of one split (a multiple
     of the kernel's K step): split only when the tiles alone would leave
-    more than half the SMs idle (decode's few rows), aiming at two CTAs
-    per SM."""
-    tiles = -(-m // _TILE_MN) * -(-n // _TILE_MN)
+    more than half the SMs idle (decode's few rows) and each tile has at
+    least ``_SPLIT_MIN_STEPS`` K steps to share (a split costs a memset and
+    a second launch), aiming at two CTAs per SM."""
+    bm, bn = _tile(m, n, sms)
+    tiles = -(-m // bm) * -(-n // bn)
     nk = max(1, -(-k // _TILE_K))
-    splits = 1 if 2 * tiles > sms else min(nk, -(-2 * sms // tiles))
+    few = 2 * tiles > sms or nk < _SPLIT_MIN_STEPS
+    splits = 1 if few else min(nk, -(-2 * sms // tiles))
     per = -(-nk // splits)
     return -(-nk // per), per * _TILE_K
+
+
+def w_layout(w) -> tuple[bool, int]:
+    """(K-major, stride): a K-major (K, N) ``w`` (strides (1, ldw)) or an
+    N-contiguous one (strides (ldw, 1)); anything else raises."""
+    k, n = w.shape
+    if k == 1 or w.stride(0) == 1:
+        return True, w.stride(1)
+    if n == 1 or w.stride(1) == 1:
+        return False, w.stride(0)
+    raise ValueError(f"vta_gemm takes w K-major (strides (1, K)) or N-contiguous "
+                     f"(strides (N, 1)), got strides {w.stride()}")
 
 
 def vta_gemm(a, w, bias=None, scale=None, *, block_m: int = 128,
@@ -143,17 +172,18 @@ def vta_gemm(a, w, bias=None, scale=None, *, block_m: int = 128,
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0 or n == 0:
         return out
-    for x in (a, w):
-        if x.stride(1) != 1:
-            raise ValueError(f"vta_gemm takes operands with contiguous rows, got "
-                             f"strides {x.stride()}")
+    if a.stride(1) != 1 and k > 1:
+        raise ValueError(f"vta_gemm takes a with contiguous rows, got strides "
+                         f"{a.stride()}")
+    kmajor, ldw = w_layout(w)
     if epilogue == "requant":
         bias = bias.to(torch.int32).contiguous()
     elif epilogue == "dequant":
         scale = scale.to(torch.float32).contiguous()
         if bias is not None:
             bias = bias.to(torch.float32).contiguous()
-    splits, per = _splits(m, n, k, _build.sm_count(dev))
+    sms = _build.sm_count(dev)
+    splits, per = _splits(m, n, k, sms)
     ws = torch.empty((m, n), dtype=torch.int32, device=dev) if splits > 1 else None
     lib = _lib()
     rc = lib.vta_gemm_fwd(
@@ -161,8 +191,9 @@ def vta_gemm(a, w, bias=None, scale=None, *, block_m: int = 128,
         bias.data_ptr() if bias is not None else None,
         scale.data_ptr() if scale is not None else None,
         out.data_ptr(), ws.data_ptr() if ws is not None else None,
-        m, n, k, a.stride(0), w.stride(0), EPILOGUES[epilogue],
-        _shift(shift), int(bool(relu)), ACTS[act], splits, per,
+        m, n, k, a.stride(0), ldw, int(kmajor), EPILOGUES[epilogue],
+        _shift(shift), int(bool(relu)), ACTS[act],
+        int(_tile(m, n, sms) == _LARGE_TILE), splits, per,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "vta_gemm", lib.vta_gemm_error_string)
     vta_gemm.launches[epilogue] += 1
@@ -176,7 +207,7 @@ def _lib():
     lib = _build.load("vta_gemm")
     if not getattr(lib, "_typed", False):
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.vta_gemm_fwd.argtypes = [P] * 6 + [I] * 3 + [L] * 2 + [I] * 6 + [P]
+        lib.vta_gemm_fwd.argtypes = [P] * 6 + [I] * 3 + [L] * 2 + [I] * 8 + [P]
         lib.vta_gemm_fwd.restype = I
         lib.vta_gemm_error_string.argtypes = [I]
         lib.vta_gemm_error_string.restype = ctypes.c_char_p

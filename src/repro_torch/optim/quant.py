@@ -16,7 +16,7 @@ int8 KV pools of ``serve/kv_cache``).
 :func:`quantize_params` rewrites every dense dict ``{"w"[, "b"]}`` of a
 port param tree into ``{"qw" int8, "qscale" f32[, "b"]}``, the form
 ``models.layers.dense_apply`` sends through the VTA GEMM's dequant
-epilogue.
+epilogue; ``qw`` is packed K-major (:func:`k_major`).
 """
 
 from __future__ import annotations
@@ -69,15 +69,23 @@ def dequant_int8(q, scale):
 # ---------------------------------------------------------------------------
 
 
+def k_major(w: torch.Tensor) -> torch.Tensor:
+    """``w`` (..., K, N) with the same shape and values, laid out K-major:
+    a view with strides (..., 1, K) of an (..., N, K)-contiguous tensor,
+    the layout the VTA GEMM kernel streams at rate."""
+    return w.transpose(-2, -1).contiguous().transpose(-2, -1)
+
+
 def quantize_dense(p: dict) -> dict:
     """One dense-layer dict ``{"w" (..., K, N)[, "b"]}`` -> int8 form.
 
     The scale is per OUTPUT channel: the contraction axis (-2) is
     reduced, so a (K, N) weight gets an (N,) scale and a stacked
-    (E, K, N) weight gets (E, N)."""
+    (E, K, N) weight gets (E, N).  ``qw`` has the reference's shape and
+    values, packed K-major (:func:`k_major`)."""
     w = p["w"].float()
     scale = scale_for(w, axes=(-2,))
-    out = {"qw": quant_with_scale(w, scale.unsqueeze(-2)), "qscale": scale}
+    out = {"qw": k_major(quant_with_scale(w, scale.unsqueeze(-2))), "qscale": scale}
     if "b" in p:
         out["b"] = p["b"]
     return out

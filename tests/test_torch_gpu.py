@@ -18,8 +18,9 @@ torch = pytest.importorskip("torch")
 tdec = importlib.import_module("repro_torch.kernels.decode_attention")
 tfl = importlib.import_module("repro_torch.kernels.flash_attention")
 
-# f32: summation order only (32-key tiles / per-warp partials vs whole
-# chunks); bf16: one output rounding apart plus P rounded to bf16
+# f32: summation order (64-key tiles on the tensor cores vs whole chunks)
+# and the 3xTF32 split's ~2^-22; bf16: one output rounding apart plus P
+# rounded to bf16
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
 
@@ -66,6 +67,47 @@ def test_flash_kernel_matches_plain_on_card(cuda, name, shape, opts, dtype):
     tile_map = tfl.flash_tile_map(shape["s"], shape["t"], **opts)
     np.testing.assert_array_equal(counts.cpu().numpy(),
                                   tile_map.expand_as(counts.cpu()).numpy())
+
+
+FLASH_BLOCKS = [(32, 32), (64, 64), (16, 48)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("blocks", FLASH_BLOCKS, ids=["x".join(map(str, b)) for b in FLASH_BLOCKS])
+@pytest.mark.parametrize("name", ["main_path_q1536", "swa", "nonmult"])
+def test_flash_kernel_at_other_blocks_on_card(cuda, name, blocks, dtype):
+    """Caller blocks that are not the defaults (a 48-key tile is not a
+    multiple of the 64-key sub-step): the kernel computes that tiling,
+    its map equals ``flash_tile_map`` at those blocks, and its output
+    the plain version's."""
+    _, shape, opts = next(c for c in GPU_FLASH if c[0] == name)
+    bq, bk = blocks
+    q, k, v = _qkv(cuda, getattr(torch, dtype), **shape, seed=bq + bk)
+    got, counts = tfl.flash_attention(q, k, v, block_q=bq, block_k=bk, return_counts=True,
+                                      **opts)
+    torch.cuda.synchronize()
+    want = tfl.flash_attention_ref(q, k, v, **opts)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=TOL[dtype])
+    tile_map = tfl.flash_tile_map(shape["s"], shape["t"], block_q=bq, block_k=bk, **opts)
+    np.testing.assert_array_equal(counts.cpu().numpy(),
+                                  tile_map.expand_as(counts.cpu()).numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opts", [dict(q_offset=0, kv_len=512), dict(q_offset=1536, kv_len=2048),
+                                  dict(q_offset=1536, kv_len=2048, window=256)],
+                         ids=["q0", "q1536", "window256"])
+def test_flash_f32_within_1e5_of_f64_on_card(cuda, opts):
+    """f32 on the tensor cores keeps f32 accuracy (3xTF32): within 1e-5 of
+    exact f64 attention at the main path's shapes, where one TF32 pass
+    would be ~1e-4 to 1e-3 off."""
+    q, k, v = _qkv(cuda, torch.float32, 4, 512, 2080, 16, 8, 128, 128, seed=11)
+    got = tfl.flash_attention(q, k, v, **opts)
+    torch.cuda.synchronize()
+    err = (got.double() - tfl.attention_f64(q, k, v, **opts)).abs().max().item()
+    assert err <= 1e-5, err
 
 
 @pytest.mark.gpu
@@ -275,11 +317,74 @@ def test_vta_gemm_kernel_matches_plain_on_card(cuda, m, k, n, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", GEMM_CASES)
+@pytest.mark.parametrize("m,k,n", GPU_GEMM, ids=["x".join(map(str, s)) for s in GPU_GEMM])
+def test_vta_gemm_kernel_k_major_on_card(cuda, m, k, n, case):
+    """W packed K-major (the model's layout) and the same values
+    N-contiguous: both bitwise equal to the plain version (silu / gelu
+    within 1e-5 of max(1, |y|)), and to each other."""
+    from repro_torch.optim.quant import k_major
+
+    rng = np.random.default_rng(m * 7 + k + n)
+    a = torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(np.int8)).to(cuda)
+    w = torch.from_numpy(rng.integers(-128, 128, (k, n)).astype(np.int8)).to(cuda)
+    wk = k_major(w)
+    assert wk.stride() == (1, k)
+    epi = case.split("_")[0]
+    kw = dict(epilogue=epi)
+    if epi == "requant":
+        kw.update(bias=torch.from_numpy(rng.integers(-4096, 4096, n).astype(np.int32)).to(cuda),
+                  shift=9, relu=True)
+    if epi == "dequant":
+        kw["scale"] = torch.from_numpy(rng.uniform(1e-6, 1e-4, n).astype(np.float32)).to(cuda)
+        kw["act"] = None if case == "dequant" else case.split("_")[1]
+        if case.endswith("bias"):
+            kw["bias"] = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda)
+    n0 = tvta.vta_gemm.launches[epi]
+    got = tvta.vta_gemm(a, wk, **kw)
+    got_n = tvta.vta_gemm(a, w, **kw)
+    torch.cuda.synchronize()
+    assert tvta.vta_gemm.launches[epi] == n0 + 2
+    want = tvta.vta_gemm_ref(a, w, **kw)
+    assert torch.equal(got, got_n)
+    if case in ("dequant_silu", "dequant_gelu"):
+        err = ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
+        assert err <= 1e-5
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 8])
+@pytest.mark.parametrize("k,n", [(1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072),
+                                 (3072, 1024)])
+def test_vta_gemm_decode_rows_split_k_on_card(cuda, m, k, n):
+    """Decode rows on qwen3's projections take the split-K path on this
+    card, K-major and N-contiguous, bitwise equal to the plain version."""
+    from repro_torch.kernels import _build
+    from repro_torch.optim.quant import k_major
+
+    splits, _ = tvta._splits(m, n, k, _build.sm_count(cuda))
+    assert splits > 1
+    rng = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(np.int8)).to(cuda)
+    w = torch.from_numpy(rng.integers(-128, 128, (k, n)).astype(np.int8)).to(cuda)
+    scale = torch.from_numpy(rng.uniform(1e-6, 1e-4, n).astype(np.float32)).to(cuda)
+    want = tvta.vta_gemm_ref(a, w, scale=scale, epilogue="dequant")
+    for ww in (k_major(w), w):
+        got = tvta.vta_gemm(a, ww, scale=scale, epilogue="dequant")
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert torch.equal(tvta.vta_gemm(a, ww), tvta.vta_gemm_ref(a, w))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("hw,cin,cout,kk,stride", [(224, 3, 64, 7, 2), (56, 64, 64, 3, 1),
                                                    (14, 256, 512, 3, 2), (16, 8, 8, 3, 2)])
 def test_vta_conv2d_on_card(cuda, hw, cin, cout, kk, stride):
     """ResNet-18-shaped convolutions through im2col and the kernel, bitwise
-    against an f64 convolution with the reference's SAME padding."""
+    against an f64 convolution with the reference's SAME padding, with the
+    weight contiguous HWIO (N-contiguous GEMM path) and packed K-major."""
     rng = np.random.default_rng(hw + cin)
     x = torch.from_numpy(rng.integers(-128, 128, (1, hw, hw, cin)).astype(np.int8)).to(cuda)
     w = torch.from_numpy(rng.integers(-128, 128, (kk, kk, cin, cout)).astype(np.int8)).to(cuda)
@@ -290,6 +395,7 @@ def test_vta_conv2d_on_card(cuda, hw, cin, cout, kk, stride):
                                  (pad // 2, pad - pad // 2, pad // 2, pad - pad // 2))
     want = torch.nn.functional.conv2d(xp, w.permute(3, 2, 0, 1).double(), stride=stride)
     assert torch.equal(got, want.permute(0, 2, 3, 1).to(torch.int32))
+    assert torch.equal(tops.vta_conv2d(x, tops.pack_conv_weight(w), stride=stride), got)
 
 
 def _quantized_model(dev):
@@ -323,6 +429,33 @@ def test_quantized_generate_on_card_goes_through_kernels(cuda):
     finally:
         layers.set_gemm_impl(prev)
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_quantized_model_k_major_weights_on_card(cuda):
+    """``quantize_params`` on the card packs every projection K-major, and
+    a projection launches the dequant kernel on that layout, bitwise equal
+    to its plain version."""
+    from repro_torch.models import layers
+
+    cfg, params = _quantized_model(cuda)
+    blk = params["blocks"][0]
+    for mod, name in [("mixer", "wq"), ("mixer", "wo"), ("ffn", "w_gate"), ("ffn", "w_down")]:
+        qw = blk[mod][name]["qw"]
+        assert qw.is_cuda and qw.stride() == (1, qw.shape[0])
+    x = torch.randn((2, 37, cfg.d_model), generator=torch.Generator(device=cuda).manual_seed(2),
+                    device=cuda)
+    n0 = tvta.vta_gemm.launches["dequant"]
+    got = layers.quant_dense_apply(blk["ffn"]["w_gate"], x, act="silu")
+    torch.cuda.synchronize()
+    assert tvta.vta_gemm.launches["dequant"] == n0 + 1
+    prev = layers.set_gemm_impl("ref")
+    try:
+        want = layers.quant_dense_apply(blk["ffn"]["w_gate"], x, act="silu")
+    finally:
+        layers.set_gemm_impl(prev)
+    err = ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
+    assert err <= 1e-5
 
 
 @pytest.mark.gpu

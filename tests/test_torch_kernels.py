@@ -75,6 +75,19 @@ def test_flash_plain_matches_pallas_and_jnp_ref(name, kw):
     np.testing.assert_allclose(chunked.numpy(), np.asarray(want_ref), atol=ATOL)
 
 
+@pytest.mark.parametrize("name,kw", [c for c in FLASH_CASES if "bidirectional" not in c[1]],
+                         ids=[c[0] for c in FLASH_CASES if "bidirectional" not in c[1]])
+def test_attention_f64_matches_jnp_ref(name, kw):
+    """The exact f64 yardstick of the card's accuracy gate agrees with the
+    reference's f32 attention."""
+    shape, opts = _split(kw)
+    q, k, v = _qkv(**shape, seed=len(name))
+    want = flash_attend_ref(*_j(q, k, v), q_chunk=64, kv_chunk=64, **opts)
+    got = tfl.attention_f64(*_t(q, k, v), **opts)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float64), atol=ATOL)
+
+
 def test_flash_plain_bf16_matches_pallas():
     q, k, v = _qkv(1, 256, 256, 4, 2, 16, 16, seed=3)
     qj, kj, vj = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
@@ -121,6 +134,19 @@ def test_flash_tile_counts_match_reference_oracle(case, blocks):
     want = jfl.flash_tile_counts(block_q=bq, block_k=bk, **case)
     got = tfl.flash_tile_counts(block_q=bq, block_k=bk, **case)
     assert got == tuple(int(x) for x in want)
+
+
+@pytest.mark.parametrize("case", TILE_CASES)
+def test_flash_tile_counts_at_default_blocks_match_reference_oracle(case):
+    """The kernel's default tiles (64-row q-tiles, 64-key K/V tiles): the
+    port's map and counts, called without blocks, equal the reference's
+    oracle at the same blocks."""
+    assert (tfl.DEFAULT_BLOCK_Q, tfl.DEFAULT_BLOCK_K) == (64, 64)
+    want = jfl.flash_tile_counts(block_q=tfl.DEFAULT_BLOCK_Q,
+                                 block_k=tfl.DEFAULT_BLOCK_K, **case)
+    assert tfl.flash_tile_counts(**case) == tuple(int(x) for x in want)
+    tile_map = tfl.flash_tile_map(**case)
+    assert (int(tile_map.sum()), tile_map.numel()) == tuple(int(x) for x in want)
 
 
 @pytest.mark.parametrize("opts", [dict(), dict(window=96), dict(kv_len=128),

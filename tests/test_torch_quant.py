@@ -140,6 +140,41 @@ def test_convert_carries_a_quantized_bf16_tree(model):
         torch.float32, torch.int8, torch.bfloat16)
 
 
+def _k_major_strides(x):
+    """(1, K) for a (K, N) leaf, (K * N, 1, K) for a stacked (E, K, N) one."""
+    k = x.shape[-2]
+    return (1, k) if x.dim() == 2 else (k * x.shape[-1], 1, k)
+
+
+@pytest.mark.parametrize("source", ["quantize_params", "convert"])
+def test_packed_weights_are_k_major_and_bitwise(model, source):
+    """``quantize_params`` and ``convert`` of a quantized tree give every
+    ``qw`` K-major (strides (1, K)), with the reference's shape and
+    values bit for bit."""
+    cfg, jqp, tcfg, _, tqp = model
+    tp = (tqp if source == "quantize_params" else
+          convert.params_from_numpy(jax.tree.map(np.asarray, jqp), tcfg, "cpu"))
+    for li in range(cfg.num_layers):
+        for mod, name in PROJ:
+            qw = tp["blocks"][li][mod][name]["qw"]
+            want = np.asarray(jqp["blocks"][mod][name]["qw"][li])
+            assert qw.stride() == _k_major_strides(qw) and qw.shape == want.shape
+            np.testing.assert_array_equal(qw.numpy(), want)
+            assert torch.equal(qw.contiguous(), torch.from_numpy(want))
+
+
+def test_quantize_dense_stacked_is_k_major_per_expert():
+    """A stacked (E, K, N) weight packs K-major per expert, strides
+    (K * N, 1, K), with the reference's codes and scales."""
+    w = np.random.default_rng(4).standard_normal((3, 40, 24)).astype(np.float32)
+    got = tq.quantize_dense({"w": torch.from_numpy(w)})
+    want = jq.quantize_dense({"w": jnp.asarray(w)})
+    assert got["qw"].stride() == (40 * 24, 1, 40)
+    np.testing.assert_array_equal(got["qw"].numpy(), np.asarray(want["qw"]))
+    np.testing.assert_array_equal(_bits(got["qscale"].numpy()), _bits(want["qscale"]))
+    assert torch.equal(tq.k_major(got["qw"]), got["qw"])
+
+
 # ---------------------------------------------------------------------------
 # quant_dense_apply
 # ---------------------------------------------------------------------------

@@ -35,6 +35,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.optim.quant import k_major  # noqa: E402
 
 # the module (the package exports its function under the same name)
 tvta = importlib.import_module("repro_torch.kernels.vta_gemm")
@@ -146,6 +147,67 @@ def test_vta_gemm_surface_and_presets():
         tops.matmul_int8(ta, tw, preset="table9")
 
 
+LAYOUT_CASES = [("none", {}), ("requant", dict(shift=9, relu=True)),
+                ("dequant", dict(act=None)), ("dequant", dict(act="gelu"))]
+
+
+@pytest.mark.parametrize("epi,kw", LAYOUT_CASES, ids=[f"{e}_{k.get('act')}" for e, k in
+                                                        LAYOUT_CASES])
+@pytest.mark.parametrize("m,k,n", SHAPES, ids=_ids(SHAPES))
+def test_plain_version_equal_on_both_weight_layouts(m, k, n, epi, kw):
+    """A K-major ``w`` (as ``optim.quant`` packs it) and the same values
+    N-contiguous give bitwise equal results, both equal to the Pallas
+    kernel's int32 sums; ``w_layout`` reads each layout's stride."""
+    a, w, rng = _operands(m, k, n, m + k + n)
+    ta, tw = torch.from_numpy(a), torch.from_numpy(w)
+    twk = k_major(tw)
+    assert twk.stride() == (1, k) and torch.equal(twk, tw)
+    assert tvta.w_layout(twk) == (True, k) and tvta.w_layout(tw) == (False, n)
+    kw = dict(kw)
+    if epi == "requant":
+        kw["bias"] = torch.from_numpy(rng.integers(-4096, 4096, n).astype(np.int32))
+    if epi == "dequant":
+        kw["scale"] = torch.from_numpy(rng.uniform(1e-6, 1e-4, n).astype(np.float32))
+    got_k = tvta.vta_gemm(ta, twk, epilogue=epi, **kw)
+    got_n = tvta.vta_gemm(ta, tw, epilogue=epi, **kw)
+    assert torch.equal(got_k, got_n)
+    if epi == "none":
+        want = jops.matmul_int8(jnp.asarray(a), jnp.asarray(w), **I)
+        np.testing.assert_array_equal(got_k.numpy(), np.asarray(want))
+
+
+def test_w_layout_refuses_other_strides():
+    """The kernel reads W K-major or N-contiguous; any other strides are
+    refused before a launch (the plain version on the CPU takes them)."""
+    w = torch.zeros((8, 6, 2), dtype=torch.int8)[:, :, 0]  # strides (12, 2)
+    with pytest.raises(ValueError, match="K-major"):
+        tvta.w_layout(w)
+    assert tvta.w_layout(w[:1]) == (True, 2) and tvta.w_layout(w[:, :1]) == (False, 12)
+
+
+# qwen3_0p6b's projections at the paths' rows on a 132-SM card: decode rows
+# split K, the prefill chunks take no split (512: the 64 x 64 tile where
+# 128 x 128 tiles would leave more than half the SMs idle; 2048: 128 x 128)
+SPLIT_ROWS = [(4, True), (8, True), (512, False), (2048, False)]
+
+
+@pytest.mark.parametrize("m,split", SPLIT_ROWS)
+def test_split_k_choices_at_qwen3_rows(m, split):
+    """Decode rows split K; the prefill chunks do not; nor does a GEMM
+    whose K is too short to share (ResNet-18's 3x3x64 conv, K 576)."""
+    assert tvta._splits(3136, 64, 576, 132)[0] == 1
+    for k, n in QWEN3:
+        splits, per = tvta._splits(m, n, k, 132)
+        assert (splits > 1) == split, (m, k, n, splits)
+        assert per % tvta._TILE_K == 0 and splits * per >= k and (splits - 1) * per < k
+        tile = tvta._tile(m, n, 132)
+        if m == 2048:
+            assert tile == tvta._LARGE_TILE
+        if m <= 8:
+            assert tile == tvta._SMALL_TILE
+            assert splits * -(-n // tile[1]) <= 2 * 132 + -(-n // tile[1])
+
+
 CONV = [(8, 3, 16, 3, 1), (16, 8, 8, 3, 2), (14, 16, 32, 1, 1), (7, 4, 8, 7, 2)]
 
 
@@ -169,6 +231,31 @@ def test_vta_conv2d_bitwise(hw, cin, cout, kk, stride):
     want = np.asarray(jops.dense_requant_int8(jp, jnp.asarray(wm), jnp.asarray(bias),
                                               shift=7, **I))
     got = tops.dense_requant_int8(tp, torch.from_numpy(wm), torch.from_numpy(bias), shift=7)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("hw,cin,cout,kk,stride", CONV)
+def test_packed_conv_weight_is_k_major_and_bitwise(hw, cin, cout, kk, stride):
+    """``pack_conv_weight`` keeps the HWIO shape and values; the GEMM view
+    ``vta_conv2d`` takes of it is K-major, with no copy, and the
+    convolution and the requant pipeline stay bitwise the reference's."""
+    rng = np.random.default_rng(hw * cin + 1)
+    x, w = _int8(rng, (2, hw, hw, cin)), _int8(rng, (kk, kk, cin, cout))
+    wp = tops.pack_conv_weight(torch.from_numpy(w))
+    k = kk * kk * cin
+    assert wp.shape == w.shape and wp.dtype == torch.int8
+    np.testing.assert_array_equal(wp.numpy(), w)
+    wm = wp.reshape(k, cout)
+    assert wm.stride() == (1, k) and wm.data_ptr() == wp.data_ptr()
+    want = np.asarray(jops.vta_conv2d(jnp.asarray(x), jnp.asarray(w), stride=stride, **I))
+    np.testing.assert_array_equal(tops.vta_conv2d(torch.from_numpy(x), wp, stride=stride).numpy(),
+                                  want)
+    jp, _, _ = jops._im2col(jnp.asarray(x), kk, kk, stride)
+    bias = rng.integers(-(2 ** 12), 2 ** 12, cout).astype(np.int32)
+    want = np.asarray(jops.dense_requant_int8(jp, jnp.asarray(w.reshape(k, cout)),
+                                              jnp.asarray(bias), shift=7, **I))
+    got = tops.dense_requant_int8(torch.from_numpy(np.asarray(jp)), wm, torch.from_numpy(bias),
+                                  shift=7)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
