@@ -64,6 +64,11 @@ sys.path.insert(0, str(ROOT / "src"))
 # so its f32 bound is 3 x its operations at the TF32 rate
 PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
+# a timed call held against that HBM rate must not find its operands in the
+# 50 MB L2: its operands are cycled through distinct copies of COLD_BYTES
+# in all (3x the L2), as a decode step streams each layer's own pool
+L2_BYTES = 50 * 2 ** 20
+COLD_BYTES = 3 * L2_BYTES
 
 # kernel vs plain version on the same card and inputs:
 #   f32  — both sum in f32, in another order (64-key tiles on the tensor
@@ -146,13 +151,16 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(torch, fn, reps: int = 20, replays: int = 5) -> float:
+def graph_ms(torch, fn, reps: int = 20, replays: int = 5, keep: bool = False) -> float:
     """Mean device time of ``fn`` over ``reps`` calls captured in one CUDA
     graph, the median over ``replays`` replays: for calls whose host-side
     launch cost exceeds their device time (a decode-row GEMM runs for
     microseconds), this times the device work and not the host's enqueue
     rate, and one slow replay does not move a reading of a few
-    microseconds.  ``fn`` gets the call's index, as in :func:`cuda_ms`."""
+    microseconds.  ``fn`` gets the call's index, as in :func:`cuda_ms`.
+    With ``keep`` the calls' outputs stay allocated while the graph is
+    timed, so each call writes its own output and not the last call's
+    (which the L2 still holds)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -160,9 +168,12 @@ def graph_ms(torch, fn, reps: int = 20, replays: int = 5) -> float:
             fn(i)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
+    outs = []
     with torch.cuda.graph(graph):
         for i in range(reps):
-            fn(i)
+            out = fn(i)
+            if keep:
+                outs.append(out)
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -175,6 +186,13 @@ def graph_ms(torch, fn, reps: int = 20, replays: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return sorted(times)[replays // 2]
+
+
+def cold_copies(nbytes: int, most: int = 200) -> int:
+    """Distinct copies of operands of ``nbytes`` that a timed run cycles
+    through so that a call finds none of them in the L2 (COLD_BYTES in
+    all), at most ``most``."""
+    return max(1, min(most, -(-COLD_BYTES // nbytes)))
 
 
 def bound_ms(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
@@ -199,14 +217,21 @@ def decode_work(b, h, hkv, d, dv, kv_len, esize):
     return flops, nbytes
 
 
-def paged_work(b, s, h, hkv, d, dv, kv_lens, esize, pages_per_seq):
+def paged_work(b, s, h, hkv, d, dv, kv_lens, esize, pages_per_seq, kv_esize=None,
+               shared=False, pg=16):
     """Operations and bytes one paged call needs: each query row scores
     every key of its sequence's live span; q, the live K/V rows, the
-    block table and lengths are read once, the output written once."""
+    block table and lengths are read once, the output written once.
+    ``kv_esize`` is the pages' element size where it is not q's (int8
+    pages also read two f32 scales a live page and head); a ``shared`` pool
+    (MLA's keys and values in one) is read once, D columns a key."""
+    kv_esize = esize if kv_esize is None else kv_esize
     keys = sum(kv_lens)
     flops = s * h * keys * 2 * (d + dv)
-    nbytes = (esize * (b * s * h * d + keys * hkv * (d + dv) + b * s * h * dv)
-              + 4 * (b * pages_per_seq + b))
+    pages = sum(-(-n // pg) for n in kv_lens) if kv_esize == 1 else 0
+    nbytes = (esize * (b * s * h * d + b * s * h * dv)
+              + kv_esize * keys * hkv * (d if shared else d + dv)
+              + 4 * (b * pages_per_seq + b) + 8 * hkv * pages)
     return flops, nbytes
 
 
@@ -217,12 +242,16 @@ def gemm_work(m, k, n, out_bytes, extra_bytes=0):
     return 2 * m * n * k, m * k + k * n + out_bytes * m * n + extra_bytes
 
 
-def paged_inputs(torch, gen, dev, dtype, b, s, h, hkv, d, w, pg, kv_lens, int8=False):
+def paged_inputs(torch, gen, dev, dtype, b, s, h, hkv, d, w, pg, kv_lens, int8=False,
+                 max_pp=None):
     """q and page pools with every sequence's pages at shuffled, non-
-    contiguous pool indices and -1 tails; int8 pools with per-page,
-    per-head scales.  Returns (args, kwargs) of ``paged_decode_attention``."""
+    contiguous pool indices and -1 tails (tables ``max_pp`` wide, by
+    default one entry past the longest sequence); int8 pools with
+    per-page, per-head scales.  Returns (args, kwargs) of
+    ``paged_decode_attention``."""
     pages = [-(-n // pg) for n in kv_lens]
-    max_pp, num_pages = max(pages) + 1, sum(pages) + 3
+    max_pp = max(pages) + 1 if max_pp is None else max_pp
+    num_pages = sum(pages) + 3
     perm = torch.randperm(num_pages, generator=gen, device=dev)
     bt = torch.full((b, max_pp), -1, dtype=torch.int32, device=dev)
     nxt = 0
@@ -441,10 +470,13 @@ def engine_phases(torch, params, cfg, dev, card: str) -> int:
     step_ms = (time.perf_counter() - t0) / 8 * 1e3
     log(f"[time] engine decode-only steps at 8 slots: {step_ms:.2f} ms/step "
         f"({8 * 1e3 / step_ms:.1f} tok/s) on {card}")
-    wall, busy, top = device_breakdown(torch, engine_steps)
+    wall, busy, rows = device_breakdown(torch, engine_steps, top=10 ** 6)
+    paged_us = sum(us for name, us, _ in rows if "paged_" in name)
+    paged_calls = sum(calls for name, _, calls in rows if "paged_" in name)
     log(f"[profile] engine decode 8 steps at 8 slots: wall {wall * 1e3:.2f} ms (profiled), "
-        f"device kernels {busy * 1e3:.2f} ms, device idle {100 * (1 - busy / wall):.1f} %")
-    for name, us, calls in top:
+        f"device kernels {busy * 1e3:.2f} ms, device idle {100 * (1 - busy / wall):.1f} %; "
+        f"paged attention kernels {paged_us / 1e3:.3f} ms in {paged_calls} launches")
+    for name, us, calls in rows[:6]:
         log(f"[profile]   {us / 1e3:9.3f} ms {calls:5d}x {name[:90]}")
     del eng
     return n_paged
@@ -995,9 +1027,13 @@ def time_alu(torch, pairs):
     kernel, plain version, the one-call PyTorch counterpart and the byte
     bound (each operand read once, the int32 output written once: 12 bytes
     per element binary and 8 unary on int32 operands), device time of
-    CUDA-graph replays.  Returns
-    the binary and unary rows at the stem accumulator (M 12544, N 64), each
-    the mean over its ops."""
+    CUDA-graph replays.  Each is timed on operands cycled past the L2
+    (``cold_copies``, each call's output kept), the reading the byte bound
+    at the HBM rate applies to; kernel and torch also on one pair of
+    operands reused call after call, which the L2 holds, as on the VTA path
+    where the GEMM has just written them.  Returns the binary and unary
+    rows at the stem accumulator (M 12544, N 64), each the mean over its
+    ops of the cycled readings."""
     from repro_torch.kernels.vta_alu import _BINARY, vta_alu, vta_alu_ref
 
     library = {"add": lambda x, y, kw: torch.add(x, y),
@@ -1012,29 +1048,215 @@ def time_alu(torch, pairs):
     for pi, (name, x, y) in enumerate(timed):
         for op, kw in ALU_TIMED.items():
             yy = y if op in _BINARY else None
-            ms = graph_ms(torch, lambda _: vta_alu(x, yy, op=op, **kw))
-            plain = graph_ms(torch, lambda _: vta_alu_ref(x, yy, op, **kw))
-            lib = graph_ms(torch, lambda _: library[op](x, yy, kw))
             nbytes = (x.element_size() + 4 + (yy.element_size() if yy is not None else 0)
                       ) * x.numel()
+            n = cold_copies(nbytes)
+            xs = [x.clone() for _ in range(n)]
+            ys = [yy.clone() if yy is not None else None for _ in range(n)]
+            reps = max(20, n)
+            ms, plain, lib = (
+                graph_ms(torch, lambda i, f=f: f(xs[i % n], ys[i % n]), reps=reps, keep=True)
+                for f in (lambda a, b: vta_alu(a, b, op=op, **kw),
+                          lambda a, b: vta_alu_ref(a, b, op, **kw),
+                          lambda a, b: library[op](a, b, kw)))
+            del xs, ys
+            warm = graph_ms(torch, lambda _: vta_alu(x, yy, op=op, **kw))
+            warm_lib = graph_ms(torch, lambda _: library[op](x, yy, kw))
             bnd, by = bound_ms(0, nbytes, "int8")
-            log(f"[time] vta_alu {op} {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            where = "past the L2" if n * nbytes >= COLD_BYTES else "(all in the L2)"
+            log(f"[time] vta_alu {op} {name}: operands cycled {where} ({n} copies, "
+                f"{n * nbytes / 1e6:.1f} MB): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
                 f"torch {lib:.4f} ms, bound {bnd:.4f} ms ({by}), "
-                f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s")
+                f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s; operands in the L2: kernel "
+                f"{warm:.4f} ms, torch {warm_lib:.4f} ms")
             if pi == 0:
                 kind = "binary" if op in _BINARY else "unary"
                 acc = rows.setdefault(kind, dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
+                                                 warm_ms=0.0, warm_library_ms=0.0,
                                                  bound_ms=bnd, bound_by=by, ops=0))
-                for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib)):
+                for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                                 ("warm_ms", warm), ("warm_library_ms", warm_lib)):
                     acc[key] += val
                 acc["ops"] += 1
+    # the kernels' own device durations at the stem accumulator, ours
+    # against torch's op, from the profiler (graph replays also count the
+    # gaps between launches)
+    name0, x, y = timed[0]
+    for op, kw in ALU_TIMED.items():
+        yy = y if op in _BINARY else None
+        for who, fn in (("kernel", lambda: vta_alu(x, yy, op=op, **kw)),
+                        ("torch", lambda: library[op](x, yy, kw))):
+            fn()
+            _, _, prof = device_breakdown(torch, lambda: [fn() for _ in range(20)], top=10 ** 6)
+            log(f"[profile] vta_alu {op} {who} at {name0}: " + "; ".join(
+                f"{us / calls:.2f} us/call x {calls} {name[:70]}" for name, us, calls in prof))
     for kind, acc in rows.items():
-        for key in ("ms", "plain_ms", "library_ms"):
+        for key in ("ms", "plain_ms", "library_ms", "warm_ms", "warm_library_ms"):
             acc[key] /= acc["ops"]
-        log(f"[time] vta_alu {kind} mean over {acc['ops']} ops at {pairs[0][0]}: kernel "
-            f"{acc['ms']:.4f} ms, plain {acc['plain_ms']:.4f} ms, torch "
-            f"{acc['library_ms']:.4f} ms, bound {acc['bound_ms']:.4f} ms ({acc['bound_by']})")
+        log(f"[time] vta_alu {kind} mean over {acc['ops']} ops at {pairs[0][0]}, operands "
+            f"cycled past the L2: kernel {acc['ms']:.4f} ms, plain {acc['plain_ms']:.4f} ms, "
+            f"torch {acc['library_ms']:.4f} ms, bound {acc['bound_ms']:.4f} ms "
+            f"({acc['bound_by']}); in the L2: kernel {acc['warm_ms']:.4f} ms, torch "
+            f"{acc['warm_library_ms']:.4f} ms")
     return rows
+
+
+# the decode kernels' timed shapes.  Dense: the main path's middle decode
+# step.  Paged: (label, q / page dtype, int8 pages, B, S, kv_lens, table
+# width); the first is the kernels line's row (the dense row's shape at
+# shuffled pages of 16), then S 5 verify, bf16 and int8 pages, and the
+# engine's 8 slots at lengths 512-2112 in 132-page tables
+DECODE_KV = PROMPT + NEW_TOKENS // 2  # 2064
+ENGINE_LENS = [512, 740, 968, 1196, 1424, 1652, 1880, 2112]
+PAGED_TIMED = [
+    ("B 4 kv 2064 f32", "float32", False, BATCH, 1, [DECODE_KV] * BATCH, None),
+    ("verify S 5 B 4 kv 2064 f32", "float32", False, BATCH, 5, [DECODE_KV] * BATCH, None),
+    ("B 4 kv 2064 bf16", "bfloat16", False, BATCH, 1, [DECODE_KV] * BATCH, None),
+    ("B 4 kv 2064 int8 pages", "float32", True, BATCH, 1, [DECODE_KV] * BATCH, None),
+    ("B 8 engine lengths 512-2112 f32", "float32", False, 8, 1, ENGINE_LENS, 132),
+]
+# MLA's absorbed decode at full width (deepseek_v2_236b: 128 heads on one
+# latent head, D = r + dr = 576, Dv = r = 512, one pool for keys and values)
+MLA_SHAPE = dict(b=2, h=128, hkv=1, d=576, dv=512, kv=DECODE_KV)
+
+
+def time_decode(torch, gen, dev):
+    """The dense decode kernel at the main path's middle decode step: the
+    device time of CUDA-graph replays (the kernels line's ``ms``) beside
+    the eager CUDA-event mean, the plain version and SDPA the same two
+    ways.  The kernel cycles through ``cold_copies`` of its K/V; SDPA's
+    dense copy, its heads repeated, is over twice the L2 already.  Returns
+    the row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+
+    b, h, hkv, d, t = BATCH, 16, 8, 128, PROMPT + NEW_TOKENS
+    kv_len = DECODE_KV
+    n = cold_copies(2 * b * t * hkv * d * 4)
+    sets = [tuple(torch.randn(shape, generator=gen, device=dev)
+                  for shape in ((b, 1, h, d), (b, t, hkv, d), (b, t, hkv, d)))
+            for _ in range(n)]
+    q, k, v = sets[0]
+    qt = q.transpose(1, 2)
+    kt = k[:, :kv_len].repeat_interleave(h // hkv, dim=2).transpose(1, 2)
+    vt = v[:, :kv_len].repeat_interleave(h // hkv, dim=2).transpose(1, 2)
+
+    def kernel(i):
+        return decode_attention(*sets[i % n], kv_len=kv_len)
+
+    def sdpa(_):
+        return F.scaled_dot_product_attention(qt, kt, vt)
+
+    ms, eager = graph_ms(torch, kernel, reps=50), cuda_ms(torch, kernel, reps=50)
+    lib, lib_eager = graph_ms(torch, sdpa, reps=50), cuda_ms(torch, sdpa, reps=50)
+    plain = cuda_ms(torch, lambda i: decode_attention_ref(*sets[i % n], kv_len=kv_len))
+    flops, nbytes = decode_work(b, h, hkv, d, d, kv_len, 4)
+    bnd, by = bound_ms(flops, nbytes, "float32")
+    log(f"[time] decode kv_len={kv_len}, {n} copies cycled: kernel {ms:.4f} ms (graph replay; "
+        f"eager {eager:.4f}), "
+        f"plain {plain:.4f} ms, sdpa {lib:.4f} ms (graph; eager {lib_eager:.4f}), bound "
+        f"{bnd:.4f} ms ({by}; {nbytes / 1e6:.2f} MB), {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by)
+
+
+def time_paged(torch, gen, dev):
+    """The paged kernel at PAGED_TIMED's shapes: graph-replay device time
+    (``ms``) beside the eager mean, the plain version, the byte bound, and
+    at the first shape SDPA on a dense copy gathered beforehand (no single
+    PyTorch call reads a paged pool; the gather is not timed; the copy,
+    its heads repeated, is over twice the L2).  The kernel and the plain
+    version cycle through ``cold_copies`` of the inputs, pools and tables,
+    as a decode step reads each layer's own pool.  Returns the rows by
+    label."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import (
+        paged_decode_attention, paged_decode_attention_ref)
+
+    h, hkv, d, pg = 16, 8, 128, 16
+    rows = {}
+    for label, dt, int8, b, sq, kv_lens, width in PAGED_TIMED:
+        dtype = getattr(torch, dt)
+        sets = [paged_inputs(torch, gen, dev, dtype, b, sq, h, hkv, d, d, pg, kv_lens,
+                             int8=int8, max_pp=width)]
+        n = cold_copies(sum(x.numel() * x.element_size() for x in sets[0][0][1:3]))
+        sets += [paged_inputs(torch, gen, dev, dtype, b, sq, h, hkv, d, d, pg, kv_lens,
+                              int8=int8, max_pp=width) for _ in range(n - 1)]
+        args, kw = sets[0]
+
+        def kernel(i, sets=sets, n=n):
+            return paged_decode_attention(*sets[i % n][0], **sets[i % n][1])
+
+        ms, eager = graph_ms(torch, kernel, reps=50), cuda_ms(torch, kernel, reps=50)
+        plain = cuda_ms(torch, lambda i: paged_decode_attention_ref(*sets[i % n][0],
+                                                                    **sets[i % n][1]), reps=5)
+        esize = dtype.itemsize
+        flops, nbytes = paged_work(b, sq, h, hkv, d, d, kv_lens, esize, args[3].shape[1],
+                                   kv_esize=1 if int8 else esize, pg=pg)
+        bnd, by = bound_ms(flops, nbytes, "float32")
+        row = dict(ms=ms, eager_ms=eager, plain_ms=plain, library_ms=None, bound_ms=bnd,
+                   bound_by=by)
+        lib_note = ""
+        if not rows:
+            qp, kp, vp, bt, _ = args
+            live = bt[:, :-(-kv_lens[0] // pg)].long()
+            kdt, vdt = ((x[:, live].permute(1, 0, 2, 3, 4).reshape(b, hkv, -1, d)
+                         [:, :, :kv_lens[0]].repeat_interleave(h // hkv, dim=1))
+                        for x in (kp, vp))
+            qpt = qp.transpose(1, 2)
+
+            def sdpa(_):
+                return F.scaled_dot_product_attention(qpt, kdt, vdt)
+
+            row["library_ms"] = graph_ms(torch, sdpa, reps=50)
+            lib_note = (f", sdpa on a pre-gathered dense copy {row['library_ms']:.4f} ms "
+                        f"(graph; eager {cuda_ms(torch, sdpa, reps=50):.4f})")
+        log(f"[time] paged {label} page={pg} shuffled, {n} pools cycled: kernel {ms:.4f} ms "
+            f"(graph replay; eager "
+            f"{eager:.4f}), plain {plain:.4f} ms{lib_note}, bound {bnd:.4f} ms ({by}; "
+            f"{nbytes / 1e6:.2f} MB), {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s, "
+            f"{100 * bnd / ms:.1f} % of the bound")
+        rows[label] = row
+    return rows
+
+
+def paged_mla_phase(torch, gen, dev, tol):
+    """MLA's absorbed decode at full width through the paged kernel: 128
+    query heads on one latent head, D 576, Dv 512 read from one shared
+    pool (keys ``[c_kv | k_rope]``, values its first 512 columns), rows
+    in eight tiles of 16.  Held against the plain version, then timed
+    against its byte bound, cycling through ``cold_copies`` of the pool.
+    Returns max|err|."""
+    from repro_torch.kernels.decode_attention import (
+        paged_decode_attention, paged_decode_attention_ref)
+
+    m = MLA_SHAPE
+    b, h, d, dv = m["b"], m["h"], m["d"], m["dv"]
+    args, _ = paged_inputs(torch, gen, dev, torch.float32, b, 1, h, m["hkv"], d, d, 16,
+                           [m["kv"]] * b)
+    q, kp, _, bt, lens = args
+    args = (q, kp, kp, bt, lens)  # one pool for keys and values
+    got, counts = paged_decode_attention(*args, dv=dv, return_counts=True)
+    want, want_map = paged_decode_attention_ref(*args, dv=dv, return_counts=True)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    check(got.shape == (b, 1, h, dv) and torch.isfinite(got).all(), "paged MLA: shape, finite")
+    check(err <= tol, f"paged MLA full width: max|err| {err} > {tol}")
+    check(torch.equal(counts, want_map), "paged MLA: map vs the plain version's")
+    n = cold_copies(kp.numel() * kp.element_size())
+    sets = [args] + [(x[0], x[1], x[1], x[3], x[4]) for x in (
+        paged_inputs(torch, gen, dev, torch.float32, b, 1, h, m["hkv"], d, d, 16,
+                     [m["kv"]] * b)[0] for _ in range(n - 1))]
+    ms = graph_ms(torch, lambda i: paged_decode_attention(*sets[i % n], dv=dv), reps=20)
+    flops, nbytes = paged_work(b, 1, h, m["hkv"], d, dv, [m["kv"]] * b, 4, bt.shape[1],
+                               shared=True)
+    bnd, by = bound_ms(flops, nbytes, "float32")
+    log(f"[time] paged MLA full width B {b} H {h} Hkv 1 D {d} W {d} dv {dv} kv {m['kv']} f32 "
+        f"(one shared pool): max|err| {err:.3e} (tol {tol}) vs the plain version, map equal; "
+        f"kernel {ms:.4f} ms (graph replay, {n} pools cycled), bound {bnd:.4f} ms ({by}; "
+        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
+    return err
 
 
 # ResNet-18 (the paper's workload, resnet18_vta) at full width: 224 x 224
@@ -1237,6 +1459,37 @@ def planner_phase() -> None:
         + "; ".join(picks))
 
 
+def build_kernels(names=None) -> None:
+    """Build the kernels (all of them by default), one nvcc each, all at
+    once, and log the build time and ptxas' register and spill report."""
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    reports = _build.build_all(*(() if names is None else (names,)))
+    log(f"[build] {len(reports)} kernels with nvcc in {time.perf_counter() - t0:.2f} s")
+    for name, rep in reports.items():
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+
+def timings_main(torch, dev) -> int:
+    """``--timings``: build the decode, paged and ALU kernels and time them
+    as the full run does (``time_decode``, ``time_paged``, ``time_alu`` on
+    random int32 accumulators of the four ResNet-18 conv GEMMs' shapes),
+    nothing else.  Run from two checkouts in one call, it compares their
+    kernels on one card."""
+    build_kernels(("decode_attention", "paged_decode_attention", "vta_alu"))
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    time_decode(torch, gen, dev)
+    time_paged(torch, gen, dev)
+    accs = [(name, torch.randint(-(2 ** 20), 2 ** 20, (hw_o * hw_o, cout), generator=gen,
+                                 device=dev, dtype=torch.int32))
+            for name, hw, _, cout, _, stride in RESNET for hw_o in (hw // stride,)]
+    time_alu(torch, alu_operands(torch, gen, dev, accs))
+    return 0
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print(f"chip_smoke: the repository's sources are missing (no "
@@ -1250,7 +1503,6 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import (
         decode_attention, decode_attention_ref, decode_partition_counts,
         decode_partition_map, paged_decode_attention, paged_decode_attention_ref,
@@ -1272,15 +1524,12 @@ def main() -> int:
     smi = nvidia_smi()
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; {kind}; "
         f"nvidia-smi: {smi}; devices {torch.cuda.device_count()}")
+    if sys.argv[1:] == ["--timings"]:
+        return timings_main(torch, dev)
+    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]} (only --timings)")
 
     # ---- build -----------------------------------------------------------
-    t0 = time.perf_counter()
-    reports = _build.build_all()
-    log(f"[build] {len(reports)} kernels with nvcc in {time.perf_counter() - t0:.2f} s")
-    for name, rep in reports.items():
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+    build_kernels()
 
     gen = torch.Generator(device=dev).manual_seed(1234)
 
@@ -1364,6 +1613,19 @@ def main() -> int:
         log(f"[parity] decode kv_len={kv_len} {dt}: max|err| {err:.3e} "
             f"(tol {TOL[dt]}), map == decode_partition_counts "
             f"({executed}/{total} partitions)")
+
+    # a partition past the 227 KiB a CTA may opt in to (MLA's absorbed
+    # decode at full width) is refused before any launch
+    n0 = decode_attention.launches
+    try:
+        decode_attention(randn(1, 1, 128, 576), randn(1, 512, 1, 576), randn(1, 512, 1, 512),
+                         kv_len=512)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    check("227 KiB" in refused and decode_attention.launches == n0,
+          "decode_attention refuses an oversized partition with a ValueError, unlaunched")
+    log(f"[parity] decode G 128 D 576 Dv 512 kc 512: refused before launch ({refused})")
 
     # paged: S 1 (decode) and 5 (verify), window 0 / 100, pages of 16 / 64,
     # kv_lens 0, 1, page-1, page, page+1, 2064 at shuffled pages with -1
@@ -1570,51 +1832,18 @@ def main() -> int:
         f"({bby}, 989 TFLOP/s), {bacc['flops'] / (bacc['ms'] * 1e-3) / 1e12:.2f} TFLOP/s")
     del qb, kb, vb
 
-    kv_len = PROMPT + NEW_TOKENS // 2  # the middle decode step of the main path
-    qd = randn(b, 1, h, d)
-    qdt = qd.transpose(1, 2)
-    kdt = k[:, :kv_len].repeat_interleave(h // hkv, dim=2).transpose(1, 2)
-    vdt = v[:, :kv_len].repeat_interleave(h // hkv, dim=2).transpose(1, 2)
-    ms = cuda_ms(torch, lambda _: decode_attention(qd, k, v, kv_len=kv_len), reps=50)
-    plain = cuda_ms(torch, lambda _: decode_attention_ref(qd, k, v, kv_len=kv_len))
-    lib = cuda_ms(torch, lambda _: F.scaled_dot_product_attention(qdt, kdt, vdt), reps=50)
-    flops, nbytes = decode_work(b, h, hkv, d, d, kv_len, 4)
-    bnd, by = bound_ms(flops, nbytes, "float32")
-    log(f"[time] decode kv_len={kv_len}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"sdpa {lib:.4f} ms, bound {bnd:.4f} ms ({by}; {nbytes / 1e6:.2f} MB), "
-        f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s")
+    row = time_decode(torch, gen, dev)
     rows["decode_attention"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:215", launches=n_decode,
-        max_abs_err=errs["decode_attention"], ms=ms, plain_ms=plain,
-        bound_ms=bnd, bound_by=by, library_ms=lib)
-
-    # paged at the dense decode row's shape: B 4, kv_len 2064, pages of 16
-    # at shuffled pool indices, S 1
-    kv_lens = [PROMPT + NEW_TOKENS // 2] * b
-    args, _ = paged_inputs(torch, gen, dev, torch.float32, b, 1, h, hkv, d, d, 16, kv_lens)
-    qp, kp, vp, bt, lens = args
-    live = bt[:, :-(-kv_lens[0] // 16)].long()
-    # no single PyTorch call reads a paged pool: SDPA runs on a dense copy
-    # gathered beforehand (the gather is not timed)
-    kdt = (kp[:, live].permute(1, 0, 2, 3, 4).reshape(b, hkv, -1, d)[:, :, :kv_lens[0]]
-           .repeat_interleave(h // hkv, dim=1))
-    vdt = (vp[:, live].permute(1, 0, 2, 3, 4).reshape(b, hkv, -1, d)[:, :, :kv_lens[0]]
-           .repeat_interleave(h // hkv, dim=1))
-    qpt = qp.transpose(1, 2)
-    ms = cuda_ms(torch, lambda _: paged_decode_attention(*args), reps=50)
-    plain = cuda_ms(torch, lambda _: paged_decode_attention_ref(*args))
-    lib = cuda_ms(torch, lambda _: F.scaled_dot_product_attention(qpt, kdt, vdt), reps=50)
-    flops, nbytes = paged_work(b, 1, h, hkv, d, d, kv_lens, 4, bt.shape[1])
-    bnd, by = bound_ms(flops, nbytes, "float32")
-    log(f"[time] paged kv_len={kv_lens[0]} page=16 shuffled: kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, sdpa on a pre-gathered dense copy {lib:.4f} ms, bound {bnd:.4f} ms "
-        f"({by}; {nbytes / 1e6:.2f} MB), {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s")
+        max_abs_err=errs["decode_attention"], **row)
+    row = time_paged(torch, gen, dev)[PAGED_TIMED[0][0]]
+    del row["eager_ms"]
     rows["paged_decode_attention"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/paged_decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:402", launches=n_paged,
-        max_abs_err=errs["paged_decode_attention"], ms=ms, plain_ms=plain,
-        bound_ms=bnd, bound_by=by, library_ms=lib)
+        max_abs_err=errs["paged_decode_attention"], **row)
+    paged_mla_phase(torch, gen, dev, TOL["float32"])
 
     deq = time_dequant(torch, gen, params, qparams, dev)
     vta = time_vta(torch, vta_operands)

@@ -305,6 +305,12 @@ int decode_attention_fwd(const void* q, const void* k, const void* v, void* out,
   return (int)cudaErrorInvalidValue;
 }
 
+// Shared memory one partition CTA needs: the wrapper refuses a shape past
+// the 227 KiB a CTA may opt in to before it launches.
+size_t decode_attention_smem_bytes(int G, int D, int Dv, int kc) {
+  return partition_smem_bytes(G, D, Dv, kc);
+}
+
 const char* decode_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

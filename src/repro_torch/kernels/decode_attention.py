@@ -30,6 +30,9 @@ from repro_torch.kernels.flash_attention import MASK_VALUE
 DEFAULT_BLOCK_K = 512
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_THREADS = 256  # threads of a dense decode CTA
+# shared memory a CTA may opt in to on Hopper (232,448 bytes)
+_MAX_SMEM = 227 * 1024
 
 
 def _partition_live(k_lo: int, kc: int, kvlen: int, window: int) -> bool:
@@ -134,6 +137,31 @@ def _check(q, k, v):
         raise ValueError(f"H={h} is not a multiple of Hkv={k.shape[2]}")
 
 
+def _round4(x: int) -> int:
+    return (x + 3) // 4 * 4
+
+
+def decode_smem_bytes(g: int, d: int, dv: int, kc: int) -> int:
+    """Shared memory one partition CTA of ``csrc/decode_attention.cu``
+    needs (its ``partition_smem_bytes``): the (G, D) query panel, the
+    (G, kc) logits, the key splits' (G, Dv) PV partials and one float a
+    warp for block reductions, all f32."""
+    combos = g * (dv // 4)
+    splits = 1 if combos >= _THREADS else _THREADS // combos
+    return 4 * (_round4(g * d) + _round4(g * kc) + splits * g * dv + _THREADS // 32)
+
+
+def check_decode_smem(g: int, d: int, dv: int, kc: int) -> None:
+    """Raise ``ValueError`` when a decode partition of ``g`` query heads,
+    head dims ``d`` / ``dv`` and ``kc`` keys needs more shared memory than
+    a CTA may opt in to on Hopper."""
+    need = decode_smem_bytes(g, d, dv, kc)
+    if need > _MAX_SMEM:
+        raise ValueError(f"decode_attention: a partition of G={g} query heads x {kc} keys at "
+                         f"D={d}, Dv={dv} needs {need} B of shared memory, over the 227 KiB "
+                         f"({_MAX_SMEM} B) a CTA may opt in to on Hopper")
+
+
 def decode_attention(q, k, v, *, kv_len: int, window: int = 0,
                      scale: float | None = None,
                      block_k: int = DEFAULT_BLOCK_K,
@@ -156,6 +184,7 @@ def decode_attention(q, k, v, *, kv_len: int, window: int = 0,
     kvlen = min(int(kv_len), t)
 
     _build.check_rows4("decode_attention", q, k, v)
+    check_decode_smem(g, d, dv, kc)
     lib = _lib()
     dev = q.device
     out = torch.empty((b, 1, h, dv), dtype=q.dtype, device=dev)
@@ -192,6 +221,8 @@ def _lib():
             [P] * 8 + [I] * 7 + [L] * 10 + [I] * 2 + [ctypes.c_float]
             + [I] + [P])
         lib.decode_attention_fwd.restype = I
+        lib.decode_attention_smem_bytes.argtypes = [I] * 4
+        lib.decode_attention_smem_bytes.restype = ctypes.c_size_t
         lib.decode_attention_error_string.argtypes = [I]
         lib.decode_attention_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -203,8 +234,13 @@ def _lib():
 # ---------------------------------------------------------------------------
 
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# shared memory a CTA may opt in to on Hopper (232,448 bytes)
-_MAX_SMEM = 227 * 1024
+PAGED_WARPS = 4     # pages one CTA computes at once, a warp each
+ROW_TILE = 16       # query rows of one CTA at most
+SPAN_KEYS = (128, 256)  # keys of one CTA's span: the span the plan shrinks to, the most
+MAX_CTAS_PER_SM = 8     # CTAs an SM is counted to hold at most (registers)
+_SM_SMEM = 228 * 1024   # shared memory of an SM; a CTA also reserves 1 KiB
+_PLANS: dict[tuple, dict] = {}
+_ARRIVE: dict[tuple, torch.Tensor] = {}
 
 
 def paged_partition_counts(pages_per_seq: int, kv_lens, *, page_size: int,
@@ -316,6 +352,129 @@ def _check_paged(q, k_pages, v_pages, block_tables, kv_lens, dv, k_scales, v_sca
         raise ValueError(f"scales are (Hkv, num_pages) = {tuple(k_pages.shape[:2])}")
 
 
+def _round16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def paged_smem_bytes(rows_tile: int, d: int, dv: int, pg: int, span_pages: int,
+                     kv_esize: int, warps: int) -> int:
+    """Shared memory one CTA of ``csrc/paged_decode_attention.cu`` needs
+    (its ``layout``) with ``warps`` page warps: 128 bytes of mbarriers; a
+    page slot a warp, its K rows then its V rows (16-byte multiples), at
+    least the warps' (o, m, l) for their merge; the f32 query tile; a warp's
+    page of logits and its rows' (m, l, factor); the span's page ids and
+    scales; the last-CTA flag."""
+    krow = _round16(d * kv_esize)
+    vrow = _round16(dv * kv_esize)
+    slots = warps * pg * (krow + vrow)
+    merge = warps * rows_tile * (dv + 2) * 4
+    return (128 + _round16(max(slots, merge)) + _round16(rows_tile * d * 4)
+            + _round16(warps * rows_tile * pg * 4)
+            + _round16(warps * rows_tile * 3 * 4) + 3 * _round16(span_pages * 4) + 16)
+
+
+def _row_cap(dv: int) -> int:
+    """Rows of a CTA's tile at most: a lane holds rows x (dv / 128 passes)
+    float4 accumulators, in the kernel's shapes 16 x 1, 4 x 4 or 2 x 8."""
+    passes = -(-dv // 128)
+    for rows, most in ((16, 1), (4, 4), (2, 8)):
+        if passes <= most:
+            return rows
+    raise ValueError(f"paged_decode_attention: dv={dv} exceeds the 1024 value columns "
+                     f"a CTA accumulates")
+
+
+def paged_plan(b: int, s: int, h: int, hkv: int, d: int, dv: int, pg: int, max_pp: int,
+               kv_esize: int, sms: int) -> dict:
+    """The grid of one paged call, from host-known shapes only (the lengths
+    stay on the device):
+
+    * ``rows_tile``: the S x G rows split into ``tiles`` of at most
+      ``ROW_TILE`` (fewer at wide Dv, ``_row_cap``), so shared memory and
+      registers do not grow with the rows;
+    * ``warps``: pages a CTA computes at once, a warp each taking every
+      ``warps``-th live page of the span: ``PAGED_WARPS``, fewer where their
+      slots would not fit in the 227 KiB a CTA may opt in to;
+    * ``span_pages``: from ``SPAN_KEYS[1]`` keys of pages a CTA, halved
+      while the grid of B x Hkv x tiles x spans CTAs still fits in one wave
+      (the CTAs the SMs hold at once, by shared memory) and the span keeps
+      ``SPAN_KEYS[0]`` keys, or the grid has fewer than two CTAs an SM.
+
+    Returns the plan with its shared-memory bytes and grid size.  Raises
+    ``ValueError`` when one page of K and V does not fit."""
+    rows = s * (h // hkv)
+    cap = min(ROW_TILE, _row_cap(dv))
+    tiles = -(-rows // cap)
+    rows_tile = -(-rows // tiles)
+
+    def plan(span):
+        warps = min(PAGED_WARPS, span)
+        while warps > 1 and paged_smem_bytes(rows_tile, d, dv, pg, span, kv_esize,
+                                             warps) > _MAX_SMEM:
+            warps -= 1
+        smem = paged_smem_bytes(rows_tile, d, dv, pg, span, kv_esize, warps)
+        nspan = -(-max_pp // span)
+        ctas = b * hkv * tiles * nspan
+        wave = sms * max(1, min(MAX_CTAS_PER_SM, _SM_SMEM // (smem + 1024)))
+        return dict(rows_tile=rows_tile, tiles=tiles, span_pages=span, nspan=nspan,
+                    warps=warps, smem=smem, ctas=ctas, wave=wave)
+
+    cur = plan(max(1, min(max_pp, SPAN_KEYS[1] // pg)))
+    while cur["span_pages"] > 1:
+        nxt = plan(cur["span_pages"] // 2)
+        if nxt["ctas"] > nxt["wave"] or (nxt["span_pages"] * pg < SPAN_KEYS[0]
+                                         and cur["ctas"] >= 2 * sms):
+            break
+        cur = nxt
+    if cur["smem"] > _MAX_SMEM:
+        raise ValueError(f"paged_decode_attention: one page of {pg} keys at D={d}, Dv={dv} "
+                         f"for {rows_tile} rows needs {cur['smem']} B of shared memory, over "
+                         f"the 227 KiB ({_MAX_SMEM} B) a CTA may opt in to on Hopper")
+    return cur
+
+
+def _arrive(lib, dev, stream: int, n: int) -> torch.Tensor:
+    """The kernel's arrival counters for a launch on ``stream``: at least
+    ``n`` int32 zeros.  Each launch leaves them zero, and the launches that
+    share a buffer never run at once:
+
+    * eager calls share one buffer per (device, stream), and the launches
+      of a stream run one after another;
+    * the calls captured in one graph on one stream share a buffer of that
+      capture, zeroed by a memset the graph replays before them, so two
+      graphs replayed at once on two streams each count in their own.
+
+    A launch that faults leaves the context unusable (CUDA's kernel errors
+    are sticky), so no later call sees its counters.  The buffers of
+    captures that have ended are dropped: the graph's pool keeps the
+    memory for its replays."""
+    cap = lib.paged_decode_attention_capture_id(stream) if (
+        torch.cuda.is_current_stream_capturing()) else 0
+    if cap == 0 and len(_ARRIVE) > 1:
+        for key in [k for k in _ARRIVE if k[2] and lib.paged_decode_attention_capture_id(
+                k[1]) != k[2]]:
+            del _ARRIVE[key]
+    key = (dev, stream, cap)
+    buf = _ARRIVE.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _ARRIVE[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+    return buf
+
+
+def _check_pages16(k_pages, v_pages, d: int, dv: int) -> None:
+    """The kernel copies each K row of D and V row of Dv elements with
+    16-byte copies: those rows must be 16-byte multiples at 16-byte aligned
+    addresses."""
+    for name, x, n in (("k_pages", k_pages, d), ("v_pages", v_pages, dv)):
+        e = x.element_size()
+        if (x.stride(-1) != 1 or (n * e) % 16 or x.data_ptr() % 16
+                or any((st * e) % 16 for st, sz in zip(x.stride()[:-1], x.shape[:-1])
+                       if sz > 1)):
+            raise ValueError(f"paged_decode_attention: the kernel copies {name} rows of {n} "
+                             f"elements as 16-byte multiples from 16-byte aligned addresses; "
+                             f"got {x.dtype} shape {tuple(x.shape)}, strides {x.stride()}")
+
+
 def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens, *,
                            window: int = 0, scale: float | None = None,
                            dv: int | None = None, k_scales=None, v_scales=None,
@@ -332,7 +491,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens, *,
     pass (Hkv, num_pages) f32 ``k_scales``/``v_scales``.  Returns
     (B, S, H, dv) in q's dtype, plus the (B, Hkv, pages_per_seq) int32
     per-page execution map with ``return_counts``.  Nothing here reads
-    the device back: the lengths stay on the device."""
+    the device back: the lengths stay on the device.  Calls may run on
+    several streams and inside CUDA graphs (``_arrive``)."""
     dv = v_pages.shape[-1] if dv is None else dv
     _check_paged(q, k_pages, v_pages, block_tables, kv_lens, dv, k_scales, v_scales)
     if q.device.type == "cpu":
@@ -343,24 +503,24 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens, *,
         raise ValueError(f"paged_decode_attention runs on cuda or cpu, not {q.device}")
     b, s, h, d = q.shape
     hkv, num_pages, pg, _ = k_pages.shape
-    g, rows = h // hkv, s * (h // hkv)
+    rows = s * (h // hkv)
     max_pp = block_tables.shape[1]
     if dv % 4:
         raise ValueError(f"paged_decode_attention: dv={dv} must be a multiple of 4")
-    _build.check_rows4("paged_decode_attention", q, k_pages, v_pages)
+    _build.check_rows4("paged_decode_attention", q)
+    _check_pages16(k_pages, v_pages, d, dv)
+    dev = q.device
+    key = (dev, b, s, h, hkv, d, dv, pg, max_pp, k_pages.element_size())
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _PLANS[key] = paged_plan(b, s, h, hkv, d, dv, pg, max_pp,
+                                        k_pages.element_size(), _build.sm_count(dev))
     bt = block_tables.to(torch.int32).contiguous()
     lens = kv_lens.to(torch.int32).contiguous()
     scales = [x.float().contiguous() if x is not None else None
               for x in (k_scales, v_scales)]
     lib = _paged_lib()
-    span = max(1, DEFAULT_BLOCK_K // pg)
-    while span > 1 and lib.paged_decode_attention_smem_bytes(rows, d, dv, pg, span) > _MAX_SMEM:
-        span //= 2
-    if lib.paged_decode_attention_smem_bytes(rows, d, dv, pg, span) > _MAX_SMEM:
-        raise ValueError(f"paged_decode_attention: {rows} rows of one page of {pg} keys "
-                         f"exceed shared memory")
-    nspan = -(-max_pp // span)
-    dev = q.device
+    nspan = plan["nspan"]
     out = torch.empty((b, s, h, dv), dtype=q.dtype, device=dev)
     o_part = torch.empty((b, hkv, nspan, rows, dv), dtype=torch.float32, device=dev)
     m_part = torch.empty((b, hkv, nspan, rows), dtype=torch.float32, device=dev)
@@ -368,13 +528,14 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens, *,
     counts = (torch.empty((b, hkv, max_pp), dtype=torch.int32, device=dev)
               if return_counts else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    arrive = _arrive(lib, dev, stream, b * hkv * plan["tiles"])
     rc = lib.paged_decode_attention_fwd(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
         lens.data_ptr(), *(x.data_ptr() if x is not None else None for x in scales),
         out.data_ptr(), o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
-        counts.data_ptr() if counts is not None else None,
+        counts.data_ptr() if counts is not None else None, arrive.data_ptr(),
         _DTYPES[q.dtype], _KV_DTYPES[k_pages.dtype], b, s, h, hkv, d, dv, pg,
-        num_pages, max_pp, span,
+        num_pages, max_pp, plan["span_pages"], plan["rows_tile"], plan["warps"],
         q.stride(0), q.stride(1), q.stride(2),
         k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
         v_pages.stride(0), v_pages.stride(1), v_pages.stride(2), bt.stride(0),
@@ -393,10 +554,12 @@ def _paged_lib():
     if not getattr(lib, "_typed", False):
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.paged_decode_attention_fwd.argtypes = (
-            [P] * 12 + [I] * 12 + [L] * 13 + [I, ctypes.c_float, P])
+            [P] * 13 + [I] * 14 + [L] * 13 + [I, ctypes.c_float, P])
         lib.paged_decode_attention_fwd.restype = I
-        lib.paged_decode_attention_smem_bytes.argtypes = [I] * 5
+        lib.paged_decode_attention_smem_bytes.argtypes = [I] * 7
         lib.paged_decode_attention_smem_bytes.restype = ctypes.c_size_t
+        lib.paged_decode_attention_capture_id.argtypes = [P]
+        lib.paged_decode_attention_capture_id.restype = ctypes.c_ulonglong
         lib.paged_decode_attention_error_string.argtypes = [I]
         lib.paged_decode_attention_error_string.restype = ctypes.c_char_p
         lib._typed = True

@@ -17,11 +17,12 @@ raises and a shift past 31 is clamped to 31, where an arithmetic shift of
 an int32 is all sign bits (the reference's ``shift_right_arithmetic``
 there); an ``imm`` outside the int32 range raises.
 
-On a CUDA tensor it launches ``csrc/vta_alu.cu`` (one flat grid-stride
-pass, the op a template parameter) or raises; on a CPU tensor it runs the
-plain version, ``vta_alu_ref``.  The kernel covers any shape, so
-``block`` is accepted for parity with the reference (whose Pallas grid
-needs M a block multiple) and changes nothing.
+On a CUDA tensor it launches ``csrc/vta_alu.cu`` (one flat pass, two
+int4 vectors a thread, no loop, the tail in the last CTA, the op a
+template parameter) or raises; on a CPU tensor it runs the plain
+version, ``vta_alu_ref``.  The kernel covers any shape, so ``block`` is
+accepted for parity with the reference (whose Pallas grid needs M a
+block multiple) and changes nothing.
 
 Each op counts its own launches in ``vta_alu.launches`` (a dict keyed by
 op): they replace the two ``pl.pallas_call``s (binary and unary).
@@ -101,13 +102,11 @@ def vta_alu(x, y=None, *, op: str = "add", imm: int = 0, shift: int = 0,
     n = out.numel()
     if n == 0:
         return out
-    # a 256-thread CTA per 1024 elements (four a thread), at most 16 a SM
-    blocks = min(-(-n // 1024), 16 * _build.sm_count(x.device))
     lib = _lib()
     rc = lib.vta_alu_fwd(x.data_ptr(), y.data_ptr() if y is not None else None,
                          out.data_ptr(), n, OPS[op], x.element_size(),
                          y.element_size() if y is not None else 0, int(imm), _shift(shift),
-                         blocks, torch.cuda.current_stream(x.device).cuda_stream)
+                         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "vta_alu", lib.vta_alu_error_string)
     vta_alu.launches[op] += 1
     return out
@@ -120,7 +119,7 @@ def _lib():
     lib = _build.load("vta_alu")
     if not getattr(lib, "_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.vta_alu_fwd.argtypes = [P, P, P, ctypes.c_longlong, I, I, I, I, I, I, P]
+        lib.vta_alu_fwd.argtypes = [P, P, P, ctypes.c_longlong, I, I, I, I, I, P]
         lib.vta_alu_fwd.restype = I
         lib.vta_alu_error_string.argtypes = [I]
         lib.vta_alu_error_string.restype = ctypes.c_char_p

@@ -234,6 +234,191 @@ def test_paged_kernel_dv_and_int8_on_card(cuda, case):
 
 
 @pytest.mark.gpu
+def test_decode_smem_bytes_match_the_kernel_on_card(cuda):
+    """The wrapper's pure-Python size check is the kernel's own formula."""
+    lib = tdec._lib()
+    for g in (1, 2, 7, 8, 12, 16, 64, 128):
+        for d, dv in ((32, 32), (128, 128), (128, 8), (192, 128), (576, 512)):
+            for kc in (1, 16, 130, 512):
+                assert tdec.decode_smem_bytes(g, d, dv, kc) == \
+                    lib.decode_attention_smem_bytes(g, d, dv, kc)
+
+
+@pytest.mark.gpu
+def test_decode_attention_refuses_oversized_partition_on_card(cuda):
+    """MLA's absorbed decode at full width needs more shared memory than a
+    CTA may opt in to: a ValueError naming the limit, and no launch."""
+    q, k, v = _qkv(cuda, torch.float32, 1, 1, 512, 128, 1, 576, 512)
+    n0 = tdec.decode_attention.launches
+    with pytest.raises(ValueError, match="227 KiB"):
+        tdec.decode_attention(q, k, v, kv_len=512)
+    assert tdec.decode_attention.launches == n0
+
+
+@pytest.mark.gpu
+def test_paged_smem_bytes_match_the_kernel_on_card(cuda):
+    """The wrapper's plan sizes shared memory with the kernel's layout."""
+    lib = tdec._paged_lib()
+    for rows in (1, 2, 10, 16):
+        for d, dv in ((32, 32), (128, 128), (128, 96), (576, 512)):
+            for pg in (1, 16, 64):
+                for span in (1, 8):
+                    for esize in (1, 2, 4):
+                        for warps in (1, 3, 4):
+                            args = (rows, d, dv, pg, span, esize, warps)
+                            assert tdec.paged_smem_bytes(*args) == \
+                                lib.paged_decode_attention_smem_bytes(*args)
+
+
+ENGINE_LENS = [512, 740, 968, 1196, 1424, 1652, 1880, 2112]
+
+
+def _paged_engine(dev, dtype, s, int8, seed):
+    """The engine's 8 slots at lengths 512-2112 in 132-page tables of
+    16-token pages at shuffled pool indices; slots 0 and 1 share their
+    first 32 pages (a 512-token prefix)."""
+    rng = np.random.default_rng(seed)
+    pg, width, shared = 16, 132, 32
+    pages = [-(-n // pg) for n in ENGINE_LENS]
+    num_pages = sum(pages) - shared + 3
+    perm = rng.permutation(num_pages)
+    bt = -np.ones((8, width), np.int32)
+    nxt = 0
+    for i, n in enumerate(pages):
+        own = 0 if i != 1 else shared
+        bt[i, :own] = bt[0, :own]
+        bt[i, own:n] = perm[nxt:nxt + n - own]
+        nxt += n - own
+    q = torch.from_numpy(rng.standard_normal((8, s, 16, 128)).astype(np.float32))
+    shape = (8, num_pages, pg, 128)
+    if int8:
+        kp, vp = (torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
+                  for _ in range(2))
+        extra = {name: torch.from_numpy((rng.random(shape[:2]) * 0.02 + 1e-3)
+                                        .astype(np.float32)).to(dev)
+                 for name in ("k_scales", "v_scales")}
+    else:
+        kp, vp = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dtype)
+                  for _ in range(2))
+        extra = {}
+    return (q.to(dev, dtype), kp.to(dev), vp.to(dev), torch.from_numpy(bt).to(dev),
+            torch.tensor(ENGINE_LENS, dtype=torch.int32, device=dev)), extra
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pages", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("s", [1, 5])
+def test_paged_kernel_at_engine_lengths_on_card(cuda, pages, s):
+    """B 8 at the engine's lengths with a shared prefix, decode and S 5
+    verify, f32 / bf16 / int8 pages: equal to the plain version, and the
+    map to ``paged_partition_counts``."""
+    dtype = torch.bfloat16 if pages == "bfloat16" else torch.float32
+    args, extra = _paged_engine(cuda, dtype, s, pages == "int8", seed=s)
+    got, counts = tdec.paged_decode_attention(*args, return_counts=True, **extra)
+    torch.cuda.synchronize()
+    want, want_map = tdec.paged_decode_attention_ref(*args, return_counts=True, **extra)
+    tol = TOL["bfloat16" if pages == "bfloat16" else "float32"]
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), atol=tol)
+    np.testing.assert_array_equal(counts.cpu().numpy(), want_map.cpu().numpy())
+    if s == 1:
+        executed, total = tdec.paged_partition_counts(132, ENGINE_LENS, page_size=16)
+        assert counts.shape[2] == total and counts[:, 0].sum(1).tolist() == executed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [16, 128])
+def test_paged_kernel_mla_shaped_on_card(cuda, h):
+    """MLA's absorbed decode: H query heads on one latent head, D 576, the
+    values the first 512 columns of the same pool; 128 heads take eight
+    row tiles of 16."""
+    args, _ = _paged(cuda, torch.float32, 2, 1, h, 1, 576, 576, 16, [0, 1100], seed=h)
+    q, kp, _, bt, lens = args
+    args = (q, kp, kp, bt, lens)
+    got, counts = tdec.paged_decode_attention(*args, dv=512, return_counts=True)
+    torch.cuda.synchronize()
+    want, want_map = tdec.paged_decode_attention_ref(*args, dv=512, return_counts=True)
+    assert got.shape == (2, 1, h, 512)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=TOL["float32"])
+    np.testing.assert_array_equal(counts.cpu().numpy(), want_map.cpu().numpy())
+    assert not got[0].any()
+
+
+@pytest.mark.gpu
+def test_paged_kernel_graph_replay_on_new_lengths(cuda):
+    """One call captured in a CUDA graph and replayed after the lengths
+    (on the device) change equals an eager call at those lengths: the
+    plan depends on host shapes only, and nothing is read back."""
+    args, _ = _paged(cuda, torch.float32, 4, 1, 16, 8, 128, 128, 16, [2064, 1500, 700, 40],
+                     seed=3)
+    q, kp, vp, bt, lens = args
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tdec.paged_decode_attention(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tdec.paged_decode_attention(*args)
+    for new in ([2064, 1500, 700, 40], [17, 0, 699, 33], [1, 1499, 16, 2]):
+        lens.copy_(torch.tensor(new, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = tdec.paged_decode_attention(q, kp, vp, bt, lens)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), new
+        np.testing.assert_allclose(
+            out.cpu().numpy(),
+            tdec.paged_decode_attention_ref(q, kp, vp, bt, lens).cpu().numpy(),
+            atol=TOL["float32"])
+
+
+@pytest.mark.gpu
+def test_paged_kernel_on_two_streams_on_card(cuda):
+    """Paged calls issued on two streams with no synchronisation between
+    them, eager and as two captured graphs replayed at once, each equal to
+    the plain version: the span-merge counters of launches that may
+    overlap are never shared."""
+    lens_a, lens_b = [2064, 1500, 700, 40], [33, 2064, 1, 1100]
+    (qa, kpa, vpa, bta, la), _ = _paged(cuda, torch.float32, 4, 1, 16, 8, 128, 128, 16,
+                                        lens_a, seed=11)
+    (qb, kpb, vpb, btb, lb), _ = _paged(cuda, torch.float32, 4, 1, 16, 8, 128, 128, 16,
+                                        lens_b, seed=12)
+    calls = [(qa, kpa, vpa, bta, la), (qb, kpb, vpb, btb, lb)]
+    want = [tdec.paged_decode_attention_ref(*c) for c in calls]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(20):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(tdec.paged_decode_attention(*calls[i]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for got in outs[i]:
+            np.testing.assert_allclose(got.cpu().numpy(), want[i].cpu().numpy(),
+                                       atol=TOL["float32"])
+    graphs, gouts = [], []
+    for c in calls:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            gouts.append([tdec.paged_decode_attention(*c) for _ in range(10)])
+        graphs.append(graph)
+    torch.cuda.synchronize()
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    for _ in range(5):
+        for graph, st in zip(graphs, streams):
+            with torch.cuda.stream(st):
+                graph.replay()
+    torch.cuda.synchronize()
+    for i in range(2):
+        for got in gouts[i]:
+            np.testing.assert_allclose(got.cpu().numpy(), want[i].cpu().numpy(),
+                                       atol=TOL["float32"])
+
+
+@pytest.mark.gpu
 def test_paged_engine_on_card_goes_through_kernels(cuda):
     """A reduced qwen3 ServingEngine trace on the card: every decode step
     launches the paged kernel once per layer, and the tokens equal a run
@@ -517,6 +702,8 @@ ALU_OPS += [("shr", {"shift": s}) for s in (0, 7, 31, 40)]
 # pointer 4 bytes off 16-byte alignment (the scalar path), an int8 x, an
 # int8 x and y, an int8 x 1 byte off 4-byte alignment (its scalar path)
 ALU_SHAPES = ["12544x64", "100x64", "misaligned", "int8", "int8xy", "int8misaligned"]
+# flat lengths: one element, a tail alone, and 2^20 + 5 (many CTAs and a tail)
+ALU_SHAPES += ["n1", "n3", "n1048581"]
 
 
 @pytest.mark.gpu
@@ -540,6 +727,8 @@ def test_vta_alu_kernel_matches_plain_on_card(cuda, op, kw, shape):
         x, y = draw(12544 * 64, np.int8).view(12544, 64), draw(12544 * 64, np.int8).view(12544, 64)
     elif shape == "int8misaligned":
         x, y = draw(10001, np.int8)[1:], draw(10000)
+    elif shape.startswith("n"):
+        x, y = draw(int(shape[1:])), draw(int(shape[1:]))
     else:
         m, n = map(int, shape.split("x"))
         x, y = draw(m * n).view(m, n), draw(m * n).view(m, n)

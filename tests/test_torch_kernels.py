@@ -214,6 +214,34 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                               torch.zeros(1, 8, 2, 16), kv_len=2)
 
 
+@pytest.mark.parametrize("g,d,dv,kc", [(1, 16, 16, 16), (2, 128, 128, 512), (8, 64, 8, 130),
+                                       (12, 128, 128, 512), (16, 576, 512, 1),
+                                       (64, 256, 256, 512)])
+def test_decode_smem_bytes_is_the_kernels_formula(g, d, dv, kc):
+    """``decode_smem_bytes`` is ``partition_smem_bytes`` of
+    ``csrc/decode_attention.cu``: f32 (G, D) queries and (G, kc) logits,
+    each rounded up to 4 floats, ``256 / (G * Dv / 4)`` key splits (1 from
+    256 combos up) of (G, Dv) partials, and 8 floats for the warps'
+    reductions.  The card test holds it to the exported C function."""
+    round4 = lambda x: -(-x // 4) * 4  # noqa: E731
+    combos = g * dv // 4
+    splits = 1 if combos >= 256 else 256 // combos
+    want = 4 * (round4(g * d) + round4(g * kc) + splits * g * dv + 8)
+    assert tdec.decode_smem_bytes(g, d, dv, kc) == want
+
+
+def test_decode_smem_check_refuses_full_width_mla():
+    """MLA's absorbed decode at full width (128 heads on one latent head,
+    D 576, Dv 512, 512-key partitions) needs more shared memory than a CTA
+    may opt in to: the wrapper's check raises before any launch, naming
+    the limit, the shape and the bytes; the main path's shape passes."""
+    need = tdec.decode_smem_bytes(128, 576, 512, 512)
+    with pytest.raises(ValueError, match=rf"227 KiB.*") as err:
+        tdec.check_decode_smem(128, 576, 512, 512)
+    assert f"G=128" in str(err.value) and f"{need} B" in str(err.value)
+    tdec.check_decode_smem(2, 128, 128, 512)  # qwen3_0p6b's decode partition
+
+
 def test_cpu_tensors_never_count_a_launch():
     before = (tfl.flash_attention.launches, tdec.decode_attention.launches)
     q, k, v = _qkv(1, 32, 32, 2, 1, 8, 8)

@@ -146,6 +146,73 @@ def test_paged_dispatcher_matches_reference_ref(s, window):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL["float32"])
 
 
+# the kernel's timed shape (B 4, 2064 keys in 129 pages of 16 and one -1
+# entry) and the engine's (8 slots, 2112-token tables of 132 pages)
+PLAN_GRIDS = [(4, 130), (8, 132)]
+
+
+@pytest.mark.parametrize("b,max_pp", PLAN_GRIDS)
+@pytest.mark.parametrize("s", [1, 5])
+def test_paged_plan_fills_the_card(b, max_pp, s):
+    """qwen3_0p6b's decode (S 1) and verify (S 5) rows on 16-token pages:
+    the span chooser gives at least two CTAs per SM of a 132-SM card (it
+    aims at one wave of CTAs the SMs hold at once), spans of at most 256
+    keys, and four pages in work at once, a warp each."""
+    plan = tdec.paged_plan(b, s, 16, 8, 128, 128, 16, max_pp, 4, 132)
+    assert plan["ctas"] >= 2 * 132
+    assert plan["ctas"] == b * 8 * plan["tiles"] * plan["nspan"]
+    assert plan["span_pages"] * 16 <= tdec.SPAN_KEYS[1]
+    assert plan["warps"] == tdec.PAGED_WARPS
+    assert plan["nspan"] == -(-max_pp // plan["span_pages"])
+    assert plan["tiles"] == 1 and plan["rows_tile"] == 2 * s
+
+
+@pytest.mark.parametrize("esize", [1, 2, 4])
+@pytest.mark.parametrize("d,dv", [(32, 32), (128, 128), (128, 96), (256, 256), (576, 512),
+                                  (576, 576)])
+def test_paged_plan_fits_shared_memory_at_any_rows(d, dv, esize):
+    """Rows come in tiles of at most 16 (fewer at wide Dv), so shared
+    memory does not grow with S x G: for every R up to 128 and D up to 576
+    on 16-token pages (and D 128 on 64-token pages) the plan fits the
+    227 KiB a CTA may opt in to and its tiles cover the rows."""
+    pages = [16] + ([64] if d <= 128 else [])
+    for pg in pages:
+        for rows in range(1, 129):
+            for b in (1, 8):
+                plan = tdec.paged_plan(b, 1, rows, 1, d, dv, pg, 130, esize, 132)
+                assert plan["smem"] <= 227 * 1024
+                assert plan["smem"] == tdec.paged_smem_bytes(
+                    plan["rows_tile"], d, dv, pg, plan["span_pages"], esize, plan["warps"])
+                assert plan["rows_tile"] <= min(tdec.ROW_TILE, tdec._row_cap(dv))
+                assert plan["tiles"] * plan["rows_tile"] >= rows
+                assert (plan["tiles"] - 1) * plan["rows_tile"] < rows
+                assert 1 <= plan["warps"] <= tdec.PAGED_WARPS
+
+
+def test_paged_smem_bytes_layout():
+    """A CTA's shared memory, term by term, at the timed shape (2 rows,
+    D = Dv = 128 f32, pages of 16, four warps with a page slot each, spans
+    of 8 pages): 128 B of mbarriers; four slots of 16 K rows and 16 V rows of
+    512 B; the f32 query tile; each warp's page of logits and its rows'
+    (m, l, factor); the span's page ids and two scales; the flag."""
+    ring = 4 * 16 * (512 + 512)
+    want = 128 + ring + 2 * 128 * 4 + 4 * 2 * 16 * 4 + 4 * 2 * 3 * 4 + 3 * 32 + 16
+    assert tdec.paged_smem_bytes(2, 128, 128, 16, 8, 4, 4) == want
+    # at small pages the warps' merge buffer (o, m, l a row) sets the ring
+    assert tdec.paged_smem_bytes(2, 4, 128, 1, 8, 1, 4) == \
+        128 + 4 * 2 * 130 * 4 + 32 + 32 + 96 + 3 * 32 + 16
+
+
+def test_paged_plan_refuses_what_does_not_fit():
+    """One page of 64 f32 keys at D 576 does not fit: the plan raises a
+    ValueError naming the limit before any launch; so does a dv past the
+    1024 value columns a CTA accumulates."""
+    with pytest.raises(ValueError, match="227 KiB"):
+        tdec.paged_plan(1, 1, 16, 1, 576, 576, 64, 40, 4, 132)
+    with pytest.raises(ValueError, match="1024 value columns"):
+        tdec.paged_plan(1, 1, 16, 1, 64, 1028, 16, 40, 4, 132)
+
+
 # ---------------------------------------------------------------------------
 # allocator and radix prefix cache
 # ---------------------------------------------------------------------------
