@@ -36,7 +36,12 @@ qwen3_0p6b (f32, random weights from seed 0):
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after, and the counts must be exactly those the path's own
 counters imply.  Each kernel is then timed beside its plain version, a
-PyTorch library call computing the same function, and its bound.
+PyTorch library call computing the same function, and its bound.  The
+dense decode kernel is also held and timed at one full-width layer of the
+other dense configs (yi_34b's G 7, qwen2_72b's G 8, starcoder2_15b's G 12)
+and at MLA's absorbed decode at full width (128 heads on one latent head,
+D 576, V the leading 512 columns of K).  ``--timings`` times only the
+decode, paged and ALU kernels.
 
 It imports no JAX and nothing of the JAX package.  It exits non-zero
 without a result when torch sees no CUDA device, when the repository's
@@ -49,6 +54,7 @@ JSON record.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import json
 import subprocess
 import sys
@@ -211,9 +217,13 @@ def flash_work(b, s, h, hkv, d, dv, q_offset, kv_len, esize):
     return flops, nbytes
 
 
-def decode_work(b, h, hkv, d, dv, kv_len, esize):
+def decode_work(b, h, hkv, d, dv, kv_len, esize, shared=False):
+    """Operations and bytes one dense decode call needs: each query head
+    scores the live keys (2*D + 2*Dv a key); q and the live K/V rows are
+    read once (a ``shared`` cache, V the leading columns of K's rows, once:
+    D columns a key), the output written once."""
     flops = b * h * kv_len * 2 * (d + dv)
-    nbytes = esize * (b * h * d + b * kv_len * hkv * (d + dv) + b * h * dv)
+    nbytes = esize * (b * h * d + b * kv_len * hkv * (d if shared else d + dv) + b * h * dv)
     return flops, nbytes
 
 
@@ -1120,44 +1130,98 @@ PAGED_TIMED = [
 MLA_SHAPE = dict(b=2, h=128, hkv=1, d=576, dv=512, kv=DECODE_KV)
 
 
+# the dense kernel's timed shapes: one full-width layer of each dense
+# config at the main path's middle decode step (B 4, T 2080, kv 2064, D 128):
+# (label, dtype, Hkv, G); the first is the kernels line's row
+DECODE_TIMED = [
+    ("qwen3_0p6b G 2 f32", "float32", 8, 2),
+    ("qwen3_0p6b G 2 bf16", "bfloat16", 8, 2),
+    ("yi_34b G 7 f32", "float32", 8, 7),
+    ("qwen2_72b G 8 f32", "float32", 8, 8),
+    ("starcoder2_15b G 12 f32", "float32", 4, 12),
+]
+
+
 def time_decode(torch, gen, dev):
-    """The dense decode kernel at the main path's middle decode step: the
-    device time of CUDA-graph replays (the kernels line's ``ms``) beside
-    the eager CUDA-event mean, the plain version and SDPA the same two
-    ways.  The kernel cycles through ``cold_copies`` of its K/V; SDPA's
-    dense copy, its heads repeated, is over twice the L2 already.  Returns
-    the row."""
+    """The dense decode kernel at DECODE_TIMED's shapes and at MLA_SHAPE:
+    the device time of CUDA-graph replays (the kernels line's ``ms``)
+    beside the eager CUDA-event mean, the plain version and SDPA (on K/V
+    with their heads repeated, over twice the L2), each against its bound;
+    each shape's output held to the plain version first.  The kernel
+    cycles through ``cold_copies`` of its K/V.  MLA reads V as the leading
+    512 columns of K's rows and is bound by its operations (SIMT f32); a
+    checkout whose kernel refuses it logs the refusal.  Returns the rows by
+    label."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+    dmod = importlib.import_module("repro_torch.kernels.decode_attention")
+    decode_attention, decode_attention_ref = dmod.decode_attention, dmod.decode_attention_ref
+    b, d, t, kv_len = BATCH, 128, PROMPT + NEW_TOKENS, DECODE_KV
+    rows = {}
+    for label, dt, hkv, g in DECODE_TIMED:
+        dtype, h = getattr(torch, dt), hkv * g
+        n = cold_copies(2 * b * t * hkv * d * dtype.itemsize)
+        sets = [tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                      for shape in ((b, 1, h, d), (b, t, hkv, d), (b, t, hkv, d)))
+                for _ in range(n)]
+        q, k, v = sets[0]
+        err = (decode_attention(q, k, v, kv_len=kv_len).float()
+               - decode_attention_ref(q, k, v, kv_len=kv_len).float()).abs().max().item()
+        check(err <= TOL[dt], f"decode {label}: max|err| {err} > {TOL[dt]}")
+        qt = q.transpose(1, 2)
+        kt = k[:, :kv_len].repeat_interleave(g, dim=2).transpose(1, 2)
+        vt = v[:, :kv_len].repeat_interleave(g, dim=2).transpose(1, 2)
 
-    b, h, hkv, d, t = BATCH, 16, 8, 128, PROMPT + NEW_TOKENS
-    kv_len = DECODE_KV
-    n = cold_copies(2 * b * t * hkv * d * 4)
-    sets = [tuple(torch.randn(shape, generator=gen, device=dev)
-                  for shape in ((b, 1, h, d), (b, t, hkv, d), (b, t, hkv, d)))
-            for _ in range(n)]
-    q, k, v = sets[0]
-    qt = q.transpose(1, 2)
-    kt = k[:, :kv_len].repeat_interleave(h // hkv, dim=2).transpose(1, 2)
-    vt = v[:, :kv_len].repeat_interleave(h // hkv, dim=2).transpose(1, 2)
+        def kernel(i, sets=sets, n=n):
+            return decode_attention(*sets[i % n], kv_len=kv_len)
 
-    def kernel(i):
-        return decode_attention(*sets[i % n], kv_len=kv_len)
+        def sdpa(_, qt=qt, kt=kt, vt=vt):
+            return F.scaled_dot_product_attention(qt, kt, vt)
 
-    def sdpa(_):
-        return F.scaled_dot_product_attention(qt, kt, vt)
+        ms, eager = graph_ms(torch, kernel, reps=50), cuda_ms(torch, kernel, reps=50)
+        lib, lib_eager = graph_ms(torch, sdpa, reps=50), cuda_ms(torch, sdpa, reps=50)
+        plain = cuda_ms(torch, lambda i: decode_attention_ref(*sets[i % n], kv_len=kv_len),
+                        reps=5)
+        flops, nbytes = decode_work(b, h, hkv, d, d, kv_len, dtype.itemsize)
+        bnd, by = bound_ms(flops, nbytes, "float32")
+        plan = ""
+        if hasattr(dmod, "decode_plan"):
+            pl = dmod.decode_plan(b, h, hkv, t, d, d, dtype.itemsize, False,
+                                  torch.cuda.get_device_properties(dev).multi_processor_count)
+            plan = (f"; plan span {pl['span']} chunk {pl['chunk']} {pl['ctas']} CTAs "
+                    f"x {pl['threads']} threads, {pl['smem']} B")
+        log(f"[time] decode {label} B {b} Hkv {hkv} kv_len={kv_len}, {n} copies cycled: "
+            f"kernel {ms:.4f} ms (graph replay; eager {eager:.4f}), plain {plain:.4f} ms, "
+            f"sdpa {lib:.4f} ms (graph; eager {lib_eager:.4f}), bound {bnd:.4f} ms ({by}; "
+            f"{nbytes / 1e6:.2f} MB), {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s, "
+            f"{100 * bnd / ms:.1f} % of the bound; max|err| {err:.3e} vs plain{plan}")
+        rows[label] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by)
+        del sets, q, k, v, qt, kt, vt
 
-    ms, eager = graph_ms(torch, kernel, reps=50), cuda_ms(torch, kernel, reps=50)
-    lib, lib_eager = graph_ms(torch, sdpa, reps=50), cuda_ms(torch, sdpa, reps=50)
-    plain = cuda_ms(torch, lambda i: decode_attention_ref(*sets[i % n], kv_len=kv_len))
-    flops, nbytes = decode_work(b, h, hkv, d, d, kv_len, 4)
+    m = MLA_SHAPE
+    h, dm, dv = m["h"], m["d"], m["dv"]
+    caches = [torch.randn((m["b"], t, m["hkv"], dm), generator=gen, device=dev)
+              for _ in range(cold_copies(m["b"] * t * m["hkv"] * dm * 4))]
+    q = torch.randn((m["b"], 1, h, dm), generator=gen, device=dev)
+    n = len(caches)
+    try:
+        got = decode_attention(q, caches[0], caches[0][..., :dv], kv_len=m["kv"])
+    except ValueError as e:
+        log(f"[time] decode MLA full width: refused ({e})")
+        return rows
+    err = (got - decode_attention_ref(q, caches[0], caches[0][..., :dv],
+                                      kv_len=m["kv"])).abs().max().item()
+    check(err <= TOL["float32"], f"decode MLA full width: max|err| {err}")
+    ms = graph_ms(torch, lambda i: decode_attention(q, caches[i % n], caches[i % n][..., :dv],
+                                                    kv_len=m["kv"]), reps=20)
+    flops, nbytes = decode_work(m["b"], h, m["hkv"], dm, dv, m["kv"], 4, shared=True)
     bnd, by = bound_ms(flops, nbytes, "float32")
-    log(f"[time] decode kv_len={kv_len}, {n} copies cycled: kernel {ms:.4f} ms (graph replay; "
-        f"eager {eager:.4f}), "
-        f"plain {plain:.4f} ms, sdpa {lib:.4f} ms (graph; eager {lib_eager:.4f}), bound "
-        f"{bnd:.4f} ms ({by}; {nbytes / 1e6:.2f} MB), {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s")
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by)
+    log(f"[time] decode MLA full width B {m['b']} H {h} Hkv 1 D {dm} Dv {dv} kv {m['kv']} f32 "
+        f"(V the leading columns of K's rows): kernel {ms:.4f} ms (graph replay, {n} caches "
+        f"cycled), bound {bnd:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), "
+        f"{100 * bnd / ms:.1f} % of the bound; max|err| {err:.3e} vs plain")
+    rows["MLA full width"] = dict(ms=ms, bound_ms=bnd, bound_by=by)
+    return rows
 
 
 def time_paged(torch, gen, dev):
@@ -1614,18 +1678,30 @@ def main() -> int:
             f"(tol {TOL[dt]}), map == decode_partition_counts "
             f"({executed}/{total} partitions)")
 
-    # a partition past the 227 KiB a CTA may opt in to (MLA's absorbed
-    # decode at full width) is refused before any launch
+    # MLA's absorbed decode at full width (128 heads on one latent head, D 576,
+    # v a view of the leading 512 columns of k, as the absorbed cache is)
+    m = MLA_SHAPE
+    q = randn(m["b"], 1, m["h"], m["d"])
+    k = randn(m["b"], t, m["hkv"], m["d"])
+    v = k[..., :m["dv"]]
     n0 = decode_attention.launches
-    try:
-        decode_attention(randn(1, 1, 128, 576), randn(1, 512, 1, 576), randn(1, 512, 1, 512),
-                         kv_len=512)
-        refused = ""
-    except ValueError as e:
-        refused = str(e)
-    check("227 KiB" in refused and decode_attention.launches == n0,
-          "decode_attention refuses an oversized partition with a ValueError, unlaunched")
-    log(f"[parity] decode G 128 D 576 Dv 512 kc 512: refused before launch ({refused})")
+    got, counts = decode_attention(q, k, v, kv_len=m["kv"], return_counts=True)
+    want = decode_attention_ref(q, k, v, kv_len=m["kv"])
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    check(decode_attention.launches == n0 + 1, "decode MLA: one launch")
+    check(got.shape == (m["b"], 1, m["h"], m["dv"]) and torch.isfinite(got).all(),
+          "decode MLA: shape, finite")
+    check(err <= TOL["float32"], f"decode MLA full width: max|err| {err}")
+    pmap = decode_partition_map(t, m["kv"]).to(dev)
+    executed, total = decode_partition_counts(t, m["kv"])
+    check(torch.equal(counts, pmap.expand_as(counts)) and int(counts[0, 0].sum()) == executed
+          and counts[0, 0].numel() == total, "decode MLA: map vs decode_partition_counts")
+    errs["decode_attention"] = max(errs["decode_attention"], err)
+    log(f"[parity] decode MLA full width B {m['b']} H {m['h']} D {m['d']} Dv {m['dv']} "
+        f"kv_len={m['kv']} float32: max|err| {err:.3e} (tol {TOL['float32']}), one launch, "
+        f"map == decode_partition_counts ({executed}/{total} partitions)")
+    del q, k, v, got, want
 
     # paged: S 1 (decode) and 5 (verify), window 0 / 100, pages of 16 / 64,
     # kv_lens 0, 1, page-1, page, page+1, 2064 at shuffled pages with -1
@@ -1832,7 +1908,7 @@ def main() -> int:
         f"({bby}, 989 TFLOP/s), {bacc['flops'] / (bacc['ms'] * 1e-3) / 1e12:.2f} TFLOP/s")
     del qb, kb, vb
 
-    row = time_decode(torch, gen, dev)
+    row = time_decode(torch, gen, dev)[DECODE_TIMED[0][0]]
     rows["decode_attention"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:215", launches=n_decode,

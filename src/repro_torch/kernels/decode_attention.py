@@ -5,9 +5,9 @@ their plain versions and their partition-accounting oracles.
 ``repro.kernels.decode_attention.decode_attention``: q (B, 1, H, D) is the
 new token's queries, k/v (B, T, Hkv, D[v]) the padded cache after the new
 K/V were written, so the query sits at position ``kv_len - 1``.  On a CUDA
-tensor it launches ``csrc/decode_attention.cu`` (partitions, then the
-max / logsumexp combine) or raises; on a CPU tensor it runs the plain
-version, ``decode_attention_ref``.
+tensor it launches ``csrc/decode_attention.cu`` (spans of keys chosen by
+``decode_plan``, merged in the same launch) or raises; on a CPU tensor it
+runs the plain version, ``decode_attention_ref``.
 
 ``paged_decode_attention`` takes the contract of the reference's
 ``paged_decode_attention``: K/V in shared page pools addressed through
@@ -30,9 +30,11 @@ from repro_torch.kernels.flash_attention import MASK_VALUE
 DEFAULT_BLOCK_K = 512
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_THREADS = 256  # threads of a dense decode CTA
 # shared memory a CTA may opt in to on Hopper (232,448 bytes)
 _MAX_SMEM = 227 * 1024
+_SM_SMEM = 228 * 1024   # shared memory of an SM; a CTA also reserves 1 KiB
+ROW_TILE = 16           # query rows of a warp's tile at most
+_ARRIVE: dict[tuple, torch.Tensor] = {}
 
 
 def _partition_live(k_lo: int, kc: int, kvlen: int, window: int) -> bool:
@@ -137,29 +139,165 @@ def _check(q, k, v):
         raise ValueError(f"H={h} is not a multiple of Hkv={k.shape[2]}")
 
 
-def _round4(x: int) -> int:
-    return (x + 3) // 4 * 4
+def _round16(x: int) -> int:
+    return (x + 15) // 16 * 16
 
 
-def decode_smem_bytes(g: int, d: int, dv: int, kc: int) -> int:
-    """Shared memory one partition CTA of ``csrc/decode_attention.cu``
-    needs (its ``partition_smem_bytes``): the (G, D) query panel, the
-    (G, kc) logits, the key splits' (G, Dv) PV partials and one float a
-    warp for block reductions, all f32."""
-    combos = g * (dv // 4)
-    splits = 1 if combos >= _THREADS else _THREADS // combos
-    return 4 * (_round4(g * d) + _round4(g * kc) + splits * g * dv + _THREADS // 32)
+def _row_cap(dv: int) -> int:
+    """Rows of a warp's tile at most: a lane holds rows x (dv / 128 passes)
+    float4 accumulators, in the kernels' shapes 16 x 1, 4 x 4 or 2 x 8."""
+    passes = -(-dv // 128)
+    for rows, most in ((16, 1), (4, 4), (2, 8)):
+        if passes <= most:
+            return rows
+    raise ValueError(f"decode attention: dv={dv} exceeds the 1024 value columns "
+                     f"a warp accumulates")
 
 
-def check_decode_smem(g: int, d: int, dv: int, kc: int) -> None:
-    """Raise ``ValueError`` when a decode partition of ``g`` query heads,
-    head dims ``d`` / ``dv`` and ``kc`` keys needs more shared memory than
-    a CTA may opt in to on Hopper."""
-    need = decode_smem_bytes(g, d, dv, kc)
+def _arrive(capture_id, dev, stream: int, n: int) -> torch.Tensor:
+    """A decode kernel's arrival counters for a launch on ``stream``: at
+    least ``n`` int32 zeros (``capture_id`` is the kernel library's id of
+    the graph capture in progress on a stream, 0 when none is).  Each
+    launch leaves them zero, and the launches that share a buffer never
+    run at once (the dense and paged kernels share them too):
+
+    * eager calls share one buffer per (device, stream), and the launches
+      of a stream run one after another;
+    * the calls captured in one graph on one stream share a buffer of that
+      capture, zeroed by a memset the graph replays before them, so two
+      graphs replayed at once on two streams each count in their own.
+
+    A launch that faults leaves the context unusable (CUDA's kernel errors
+    are sticky), so no later call sees its counters.  The buffers of
+    captures that have ended are dropped: the graph's pool keeps the
+    memory for its replays."""
+    cap = capture_id(stream) if torch.cuda.is_current_stream_capturing() else 0
+    if cap == 0 and len(_ARRIVE) > 1:
+        for key in [k for k in _ARRIVE if k[2] and capture_id(k[1]) != k[2]]:
+            del _ARRIVE[key]
+    key = (dev, stream, cap)
+    buf = _ARRIVE.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _ARRIVE[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+    return buf
+
+
+def _check_rows16(what: str, rows) -> None:
+    """The kernels copy each K row of D and V row of Dv elements with
+    16-byte bulk copies: those rows (``rows``: (name, tensor, elements))
+    must be 16-byte multiples at 16-byte aligned addresses."""
+    for name, x, n in rows:
+        e = x.element_size()
+        if (x.stride(-1) != 1 or (n * e) % 16 or x.data_ptr() % 16
+                or any((st * e) % 16 for st, sz in zip(x.stride()[:-1], x.shape[:-1])
+                       if sz > 1)):
+            raise ValueError(f"{what}: the kernel copies {name} rows of {n} "
+                             f"elements as 16-byte multiples from 16-byte aligned addresses; "
+                             f"got {x.dtype} shape {tuple(x.shape)}, strides {x.stride()}")
+
+
+DECODE_WARPS = 4        # key warps of a CTA whose rows fit in one warp's tile
+DECODE_ROW_WARPS = 8    # row warps of a CTA, at most, where they do not
+CHUNK_KEYS = 16         # keys of a chunk, at most
+CHUNK_BYTES = 40 * 1024  # a key group's slots, at most, before the chunk halves
+DECODE_CTAS_PER_SM = 3   # CTAs an SM is planned to hold, at most
+_DECODE_PLANS: dict[tuple, dict] = {}
+
+
+def _key_lanes(chunk: int) -> int:
+    """QK lanes a key of a chunk (a power of two): T with T * chunk <= 32."""
+    lanes = 1
+    while lanes * 2 * chunk <= 32:
+        lanes *= 2
+    return lanes
+
+
+def decode_smem_bytes(rows_tile: int, d: int, dv: int, chunk: int, esize: int,
+                      key_warps: int, row_warps: int, shared_kv: bool) -> int:
+    """Shared memory one CTA of ``csrc/decode_attention.cu`` needs (its
+    ``layout``): 128 bytes of mbarriers; a key group's slots (a chunk's K
+    rows then its V rows, or two chunks of K rows where V is K's leading
+    columns; rows 16-byte multiples, K rows skewed by 16 bytes a QK lane
+    where fewer than 8 lanes take a key), at least the key groups' (o, m,
+    l) for their merge (more than one group) and the spans' per-row max and
+    denominator; the CTA's f32 query rows; a warp's chunk of logits and its
+    rows' (m, l, factor); the last-CTA flag."""
+    lanes = _key_lanes(chunk)
+    krow = _round16(d * esize) + (16 * lanes if lanes < 8 else 0)
+    vrow = _round16(dv * esize)
+    stage = 2 * chunk * krow if shared_kv else chunk * (krow + vrow)
+    rows_cta, warps = row_warps * rows_tile, key_warps * row_warps
+    merge = key_warps * rows_cta * (dv + 2) * 4 if key_warps > 1 else 0
+    return (128 + _round16(max(key_warps * stage, merge, rows_cta * 2 * 4))
+            + _round16(rows_cta * d * 4) + _round16(warps * rows_tile * chunk * 4)
+            + _round16(warps * rows_tile * 3 * 4) + 16)
+
+
+def decode_plan(b: int, h: int, hkv: int, t: int, d: int, dv: int, esize: int,
+                shared_kv: bool, sms: int) -> dict:
+    """The grid of one dense decode call, from host-known shapes only
+    (``kv_len`` does not size it):
+
+    * rows: the G query heads of a kv-head in warp tiles of ``rows_tile``
+      (at most ``ROW_TILE``, fewer at wide Dv, ``_row_cap``).  G in one tile
+      takes ``DECODE_WARPS`` key warps, each computing every n-th chunk; more
+      tiles take up to ``DECODE_ROW_WARPS`` row warps over one key group's
+      chunks, in ``groups`` row groups of CTAs;
+    * ``chunk``: ``CHUNK_KEYS`` keys, halved while a key group's slots pass
+      ``CHUNK_BYTES``; key warps, row warps, then the chunk shrink further
+      while the CTA does not fit in the 227 KiB it may opt in to;
+    * ``span``: the keys of T split evenly (in whole chunks) so that the
+      grid of B x Hkv x groups x spans CTAs is about one wave: the CTAs an SM
+      holds by shared memory, at most ``DECODE_CTAS_PER_SM``, on every SM.
+      On the card an even wave beat power-of-two spans (a CTA more on some
+      SMs) and more, shorter spans (each CTA's prologue and merge).
+
+    Returns the plan with its shared-memory bytes and grid size.  Raises
+    ``ValueError`` when one key's rows do not fit."""
+    g = h // hkv
+    cap = min(ROW_TILE, _row_cap(dv))
+    if g <= cap:
+        rows_tile, row_warps, key_warps = g, 1, DECODE_WARPS
+    else:
+        tiles = -(-g // cap)
+        rows_tile, row_warps, key_warps = -(-g // tiles), min(DECODE_ROW_WARPS, tiles), 1
+    chunk = CHUNK_KEYS
+    while chunk > 1 and decode_smem_bytes(1, d, dv, chunk, esize, 1, 1,
+                                          shared_kv) > CHUNK_BYTES:
+        chunk //= 2
+
+    def smem():
+        return decode_smem_bytes(rows_tile, d, dv, chunk, esize, key_warps, row_warps,
+                                 shared_kv)
+
+    while smem() > _MAX_SMEM and key_warps > 1:
+        key_warps -= 1
+    while smem() > _MAX_SMEM and row_warps > 1:
+        row_warps -= 1
+    while smem() > _MAX_SMEM and chunk > 1:
+        chunk //= 2
+    need = smem()
     if need > _MAX_SMEM:
-        raise ValueError(f"decode_attention: a partition of G={g} query heads x {kc} keys at "
-                         f"D={d}, Dv={dv} needs {need} B of shared memory, over the 227 KiB "
-                         f"({_MAX_SMEM} B) a CTA may opt in to on Hopper")
+        raise ValueError(f"decode_attention: one key of G={g} query heads at D={d}, Dv={dv} "
+                         f"needs {need} B of shared memory, over the 227 KiB ({_MAX_SMEM} B) "
+                         f"a CTA may opt in to on Hopper")
+    groups = -(-g // (row_warps * rows_tile))
+    wave = sms * max(1, min(DECODE_CTAS_PER_SM, _SM_SMEM // (need + 1024)))
+    spans = max(1, wave // (b * hkv * groups))
+    span = -(-t // spans)
+    span = -(-span // chunk) * chunk
+    nspan = -(-t // span)
+    return dict(rows_tile=rows_tile, row_warps=row_warps, key_warps=key_warps,
+                groups=groups, chunk=chunk, span=span, nspan=nspan, smem=need,
+                threads=32 * key_warps * row_warps, ctas=b * hkv * groups * nspan,
+                wave=wave)
+
+
+def _shares_rows(k, v) -> bool:
+    """v is the leading columns of k's own rows (MLA's one latent cache):
+    the kernel reads the values from the copied K rows."""
+    return (v.data_ptr() == k.data_ptr() and v.stride() == k.stride()
+            and v.shape[-1] <= k.shape[-1])
 
 
 def decode_attention(q, k, v, *, kv_len: int, window: int = 0,
@@ -167,8 +305,10 @@ def decode_attention(q, k, v, *, kv_len: int, window: int = 0,
                      block_k: int = DEFAULT_BLOCK_K,
                      return_counts: bool = False):
     """Split-KV decode attention.  Returns (B, 1, H, Dv) in q's dtype,
-    plus the (B, Hkv, P) int32 partition execution map with
-    ``return_counts``."""
+    plus the (B, Hkv, P) int32 partition execution map over ``block_k``
+    partitions with ``return_counts``.  The kernel's own spans are
+    ``decode_plan``'s; one launch a call, which may run on several streams
+    and inside CUDA graphs (``_arrive``)."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, kv_len=kv_len, window=window,
@@ -183,28 +323,30 @@ def decode_attention(q, k, v, *, kv_len: int, window: int = 0,
     np_ = -(-t // kc)
     kvlen = min(int(kv_len), t)
 
-    _build.check_rows4("decode_attention", q, k, v)
-    check_decode_smem(g, d, dv, kc)
-    lib = _lib()
+    _build.check_rows4("decode_attention", q)
+    _check_rows16("decode_attention", (("k", k, d), ("v", v, dv)))
+    shared = _shares_rows(k, v)
     dev = q.device
+    key = (dev, b, h, hkv, t, d, dv, q.element_size(), shared)
+    plan = _DECODE_PLANS.get(key)
+    if plan is None:
+        plan = _DECODE_PLANS[key] = decode_plan(b, h, hkv, t, d, dv, q.element_size(),
+                                                shared, _build.sm_count(dev))
+    lib = _lib()
     out = torch.empty((b, 1, h, dv), dtype=q.dtype, device=dev)
-    o_part = torch.empty((b, hkv, np_, g, dv), dtype=torch.float32, device=dev)
-    m_part = torch.empty((b, hkv, np_, g), dtype=torch.float32, device=dev)
-    l_part = torch.empty((b, hkv, np_, g), dtype=torch.float32, device=dev)
-    counts = (torch.zeros((b, hkv, np_), dtype=torch.int32, device=dev)
+    part = torch.empty(b * hkv * plan["nspan"] * g * (dv + 2), dtype=torch.float32, device=dev)
+    counts = (torch.empty((b, hkv, np_), dtype=torch.int32, device=dev)
               if return_counts else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    arrive = _arrive(lib.decode_attention_capture_id, dev, stream, b * hkv * plan["groups"])
     rc = lib.decode_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
-        counts.data_ptr() if counts is not None else None,
-        _DTYPES[q.dtype], b, h, t, hkv, d, dv,
-        q.stride(0), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        out.stride(0), out.stride(2),
-        kvlen, int(window), float(scale if scale is not None else d ** -0.5),
-        kc, stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), part.data_ptr(),
+        counts.data_ptr() if counts is not None else None, arrive.data_ptr(),
+        _DTYPES[q.dtype], b, h, t, hkv, d, dv, plan["span"], plan["chunk"],
+        plan["rows_tile"], plan["row_warps"], plan["key_warps"], int(shared),
+        q.stride(0), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2), out.stride(0), out.stride(2),
+        kvlen, int(window), kc, float(scale if scale is not None else d ** -0.5), stream)
     _build.check(rc, "decode_attention", lib.decode_attention_error_string)
     decode_attention.launches += 1
     return (out, counts) if return_counts else out
@@ -218,11 +360,12 @@ def _lib():
     if not getattr(lib, "_typed", False):
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.decode_attention_fwd.argtypes = (
-            [P] * 8 + [I] * 7 + [L] * 10 + [I] * 2 + [ctypes.c_float]
-            + [I] + [P])
+            [P] * 7 + [I] * 13 + [L] * 10 + [I] * 3 + [ctypes.c_float, P])
         lib.decode_attention_fwd.restype = I
-        lib.decode_attention_smem_bytes.argtypes = [I] * 4
+        lib.decode_attention_smem_bytes.argtypes = [I] * 8
         lib.decode_attention_smem_bytes.restype = ctypes.c_size_t
+        lib.decode_attention_capture_id.argtypes = [P]
+        lib.decode_attention_capture_id.restype = ctypes.c_ulonglong
         lib.decode_attention_error_string.argtypes = [I]
         lib.decode_attention_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -235,12 +378,9 @@ def _lib():
 
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 PAGED_WARPS = 4     # pages one CTA computes at once, a warp each
-ROW_TILE = 16       # query rows of one CTA at most
 SPAN_KEYS = (128, 256)  # keys of one CTA's span: the span the plan shrinks to, the most
 MAX_CTAS_PER_SM = 8     # CTAs an SM is counted to hold at most (registers)
-_SM_SMEM = 228 * 1024   # shared memory of an SM; a CTA also reserves 1 KiB
 _PLANS: dict[tuple, dict] = {}
-_ARRIVE: dict[tuple, torch.Tensor] = {}
 
 
 def paged_partition_counts(pages_per_seq: int, kv_lens, *, page_size: int,
@@ -352,10 +492,6 @@ def _check_paged(q, k_pages, v_pages, block_tables, kv_lens, dv, k_scales, v_sca
         raise ValueError(f"scales are (Hkv, num_pages) = {tuple(k_pages.shape[:2])}")
 
 
-def _round16(x: int) -> int:
-    return (x + 15) // 16 * 16
-
-
 def paged_smem_bytes(rows_tile: int, d: int, dv: int, pg: int, span_pages: int,
                      kv_esize: int, warps: int) -> int:
     """Shared memory one CTA of ``csrc/paged_decode_attention.cu`` needs
@@ -371,17 +507,6 @@ def paged_smem_bytes(rows_tile: int, d: int, dv: int, pg: int, span_pages: int,
     return (128 + _round16(max(slots, merge)) + _round16(rows_tile * d * 4)
             + _round16(warps * rows_tile * pg * 4)
             + _round16(warps * rows_tile * 3 * 4) + 3 * _round16(span_pages * 4) + 16)
-
-
-def _row_cap(dv: int) -> int:
-    """Rows of a CTA's tile at most: a lane holds rows x (dv / 128 passes)
-    float4 accumulators, in the kernel's shapes 16 x 1, 4 x 4 or 2 x 8."""
-    passes = -(-dv // 128)
-    for rows, most in ((16, 1), (4, 4), (2, 8)):
-        if passes <= most:
-            return rows
-    raise ValueError(f"paged_decode_attention: dv={dv} exceeds the 1024 value columns "
-                     f"a CTA accumulates")
 
 
 def paged_plan(b: int, s: int, h: int, hkv: int, d: int, dv: int, pg: int, max_pp: int,
@@ -433,48 +558,6 @@ def paged_plan(b: int, s: int, h: int, hkv: int, d: int, dv: int, pg: int, max_p
     return cur
 
 
-def _arrive(lib, dev, stream: int, n: int) -> torch.Tensor:
-    """The kernel's arrival counters for a launch on ``stream``: at least
-    ``n`` int32 zeros.  Each launch leaves them zero, and the launches that
-    share a buffer never run at once:
-
-    * eager calls share one buffer per (device, stream), and the launches
-      of a stream run one after another;
-    * the calls captured in one graph on one stream share a buffer of that
-      capture, zeroed by a memset the graph replays before them, so two
-      graphs replayed at once on two streams each count in their own.
-
-    A launch that faults leaves the context unusable (CUDA's kernel errors
-    are sticky), so no later call sees its counters.  The buffers of
-    captures that have ended are dropped: the graph's pool keeps the
-    memory for its replays."""
-    cap = lib.paged_decode_attention_capture_id(stream) if (
-        torch.cuda.is_current_stream_capturing()) else 0
-    if cap == 0 and len(_ARRIVE) > 1:
-        for key in [k for k in _ARRIVE if k[2] and lib.paged_decode_attention_capture_id(
-                k[1]) != k[2]]:
-            del _ARRIVE[key]
-    key = (dev, stream, cap)
-    buf = _ARRIVE.get(key)
-    if buf is None or buf.numel() < n:
-        buf = _ARRIVE[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
-    return buf
-
-
-def _check_pages16(k_pages, v_pages, d: int, dv: int) -> None:
-    """The kernel copies each K row of D and V row of Dv elements with
-    16-byte copies: those rows must be 16-byte multiples at 16-byte aligned
-    addresses."""
-    for name, x, n in (("k_pages", k_pages, d), ("v_pages", v_pages, dv)):
-        e = x.element_size()
-        if (x.stride(-1) != 1 or (n * e) % 16 or x.data_ptr() % 16
-                or any((st * e) % 16 for st, sz in zip(x.stride()[:-1], x.shape[:-1])
-                       if sz > 1)):
-            raise ValueError(f"paged_decode_attention: the kernel copies {name} rows of {n} "
-                             f"elements as 16-byte multiples from 16-byte aligned addresses; "
-                             f"got {x.dtype} shape {tuple(x.shape)}, strides {x.stride()}")
-
-
 def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens, *,
                            window: int = 0, scale: float | None = None,
                            dv: int | None = None, k_scales=None, v_scales=None,
@@ -508,7 +591,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens, *,
     if dv % 4:
         raise ValueError(f"paged_decode_attention: dv={dv} must be a multiple of 4")
     _build.check_rows4("paged_decode_attention", q)
-    _check_pages16(k_pages, v_pages, d, dv)
+    _check_rows16("paged_decode_attention", (("k_pages", k_pages, d),
+                                             ("v_pages", v_pages, dv)))
     dev = q.device
     key = (dev, b, s, h, hkv, d, dv, pg, max_pp, k_pages.element_size())
     plan = _PLANS.get(key)
@@ -528,7 +612,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens, *,
     counts = (torch.empty((b, hkv, max_pp), dtype=torch.int32, device=dev)
               if return_counts else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    arrive = _arrive(lib, dev, stream, b * hkv * plan["tiles"])
+    arrive = _arrive(lib.paged_decode_attention_capture_id, dev, stream,
+                     b * hkv * plan["tiles"])
     rc = lib.paged_decode_attention_fwd(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
         lens.data_ptr(), *(x.data_ptr() if x is not None else None for x in scales),

@@ -235,24 +235,143 @@ def test_paged_kernel_dv_and_int8_on_card(cuda, case):
 
 @pytest.mark.gpu
 def test_decode_smem_bytes_match_the_kernel_on_card(cuda):
-    """The wrapper's pure-Python size check is the kernel's own formula."""
+    """The wrapper's plan sizes shared memory with the kernel's layout."""
     lib = tdec._lib()
-    for g in (1, 2, 7, 8, 12, 16, 64, 128):
+    for rows in (1, 2, 7, 12, 16):
         for d, dv in ((32, 32), (128, 128), (128, 8), (192, 128), (576, 512)):
-            for kc in (1, 16, 130, 512):
-                assert tdec.decode_smem_bytes(g, d, dv, kc) == \
-                    lib.decode_attention_smem_bytes(g, d, dv, kc)
+            for chunk in (1, 8, 16):
+                for esize in (2, 4):
+                    for kw, rw in ((4, 1), (3, 1), (1, 1), (1, 8), (2, 2)):
+                        for shared in (0, 1):
+                            args = (rows, d, dv, chunk, esize, kw, rw, shared)
+                            assert tdec.decode_smem_bytes(*args) == \
+                                lib.decode_attention_smem_bytes(*args)
 
 
 @pytest.mark.gpu
-def test_decode_attention_refuses_oversized_partition_on_card(cuda):
-    """MLA's absorbed decode at full width needs more shared memory than a
-    CTA may opt in to: a ValueError naming the limit, and no launch."""
-    q, k, v = _qkv(cuda, torch.float32, 1, 1, 512, 128, 1, 576, 512)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_refuses_oversized_partition_on_card(cuda, dtype):
+    """MLA's absorbed decode at full width (128 heads on one latent head,
+    D 576, v a view of the leading 512 columns of k) no longer needs more
+    shared memory than a CTA may opt in to: it runs in one launch and equals
+    the plain version, its map ``decode_partition_map``.  A key that still
+    does not fit (D 8192) raises a ValueError naming the limit, unlaunched."""
+    q, k, _ = _qkv(cuda, getattr(torch, dtype), 2, 1, 2080, 128, 1, 576, 576, seed=9)
+    v = k[..., :512]
     n0 = tdec.decode_attention.launches
+    got, counts = tdec.decode_attention(q, k, v, kv_len=2064, return_counts=True)
+    torch.cuda.synchronize()
+    assert tdec.decode_attention.launches == n0 + 1 and got.shape == (2, 1, 128, 512)
+    want = tdec.decode_attention_ref(q, k, v, kv_len=2064)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=TOL[dtype])
+    want_map = tdec.decode_partition_map(2080, 2064)
+    np.testing.assert_array_equal(counts.cpu().numpy(), want_map.expand_as(counts.cpu()).numpy())
+    q, k, v = _qkv(cuda, torch.float32, 1, 1, 64, 16, 1, 8192, 128)
     with pytest.raises(ValueError, match="227 KiB"):
-        tdec.decode_attention(q, k, v, kv_len=512)
-    assert tdec.decode_attention.launches == n0
+        tdec.decode_attention(q, k, v, kv_len=64)
+    assert tdec.decode_attention.launches == n0 + 1
+
+
+DECODE_G = [(8, 7, 0), (8, 8, 0), (4, 12, 0), (8, 7, 600), (4, 12, 600)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hkv,g,window", DECODE_G,
+                         ids=[f"g{g}_hkv{h}_w{w}" for h, g, w in DECODE_G])
+def test_decode_kernel_at_wide_groups_on_card(cuda, hkv, g, window, dtype):
+    """One full-width layer of yi_34b (G 7), qwen2_72b (G 8) and
+    starcoder2_15b (G 12, Hkv 4) at D 128, B 4, T 2080, kv_len 2064, with
+    and without a window: the rows masked inside one tile equal the plain
+    version, the map ``decode_partition_map``; a second call at kv_len 0
+    gives an exactly zero output."""
+    q, k, v = _qkv(cuda, getattr(torch, dtype), 4, 1, 2080, hkv * g, hkv, 128, 128, seed=g)
+    got, counts = tdec.decode_attention(q, k, v, kv_len=2064, window=window,
+                                        return_counts=True)
+    torch.cuda.synchronize()
+    want = tdec.decode_attention_ref(q, k, v, kv_len=2064, window=window)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=TOL[dtype])
+    want_map = tdec.decode_partition_map(2080, 2064, window=window)
+    np.testing.assert_array_equal(counts.cpu().numpy(), want_map.expand_as(counts.cpu()).numpy())
+    zero = tdec.decode_attention(q, k, v, kv_len=0, window=window)
+    torch.cuda.synchronize()
+    assert not zero.any()
+
+
+@pytest.mark.gpu
+def test_decode_kernel_graph_replay_equals_eager(cuda):
+    """Dense decode calls captured in one CUDA graph (the span-merge
+    counters of the capture zeroed by a memset the graph replays) and
+    replayed after the cache and queries change in place equal eager calls
+    on the same inputs, bitwise, at several lengths and both layouts."""
+    q, k, v = _qkv(cuda, torch.float32, 4, 1, 2080, 16, 8, 128, 128, seed=21)
+    mq, mk, _ = _qkv(cuda, torch.float32, 2, 1, 2080, 128, 1, 576, 576, seed=22)
+    calls = [lambda n=n: tdec.decode_attention(q, k, v, kv_len=n) for n in (2064, 513, 1)]
+    calls.append(lambda: tdec.decode_attention(q, k, v, kv_len=1700, window=600))
+    calls.append(lambda: tdec.decode_attention(mq, mk, mk[..., :512], kv_len=2064))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for c in calls:
+            c()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [c() for c in calls]
+    for seed in (1, 2):
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        for x in (q, k, v, mq, mk):
+            x.copy_(torch.randn(x.shape, generator=gen, device=cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, c in zip(outs, calls):
+            want = c()
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), seed
+
+
+@pytest.mark.gpu
+def test_decode_kernel_on_two_streams_on_card(cuda):
+    """Dense decode calls issued on two streams with no synchronisation
+    between them, eager and as two captured graphs replayed at once, each
+    equal to the plain version: launches that may overlap never share
+    span-merge counters."""
+    ins = [_qkv(cuda, torch.float32, 4, 1, 2080, 16, 8, 128, 128, seed=s) for s in (31, 32)]
+    lens = (2064, 1100)
+    want = [tdec.decode_attention_ref(*x, kv_len=n) for x, n in zip(ins, lens)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(20):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(tdec.decode_attention(*ins[i], kv_len=lens[i]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for got in outs[i]:
+            np.testing.assert_allclose(got.cpu().numpy(), want[i].cpu().numpy(),
+                                       atol=TOL["float32"])
+    graphs, gouts = [], []
+    for i in range(2):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            gouts.append([tdec.decode_attention(*ins[i], kv_len=lens[i]) for _ in range(10)])
+        graphs.append(graph)
+    torch.cuda.synchronize()
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    for _ in range(5):
+        for graph, st in zip(graphs, streams):
+            with torch.cuda.stream(st):
+                graph.replay()
+    torch.cuda.synchronize()
+    for i in range(2):
+        for got in gouts[i]:
+            np.testing.assert_allclose(got.cpu().numpy(), want[i].cpu().numpy(),
+                                       atol=TOL["float32"])
 
 
 @pytest.mark.gpu

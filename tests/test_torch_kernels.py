@@ -214,32 +214,105 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                               torch.zeros(1, 8, 2, 16), kv_len=2)
 
 
-@pytest.mark.parametrize("g,d,dv,kc", [(1, 16, 16, 16), (2, 128, 128, 512), (8, 64, 8, 130),
-                                       (12, 128, 128, 512), (16, 576, 512, 1),
-                                       (64, 256, 256, 512)])
-def test_decode_smem_bytes_is_the_kernels_formula(g, d, dv, kc):
-    """``decode_smem_bytes`` is ``partition_smem_bytes`` of
-    ``csrc/decode_attention.cu``: f32 (G, D) queries and (G, kc) logits,
-    each rounded up to 4 floats, ``256 / (G * Dv / 4)`` key splits (1 from
-    256 combos up) of (G, Dv) partials, and 8 floats for the warps'
-    reductions.  The card test holds it to the exported C function."""
-    round4 = lambda x: -(-x // 4) * 4  # noqa: E731
-    combos = g * dv // 4
-    splits = 1 if combos >= 256 else 256 // combos
-    want = 4 * (round4(g * d) + round4(g * kc) + splits * g * dv + 8)
-    assert tdec.decode_smem_bytes(g, d, dv, kc) == want
+DECODE_SMEM_CASES = [
+    (2, 128, 128, 16, 4, 4, 1, False),   # qwen3_0p6b f32: G 2, four key warps
+    (2, 128, 128, 16, 2, 4, 1, False),   # bf16
+    (2, 128, 128, 8, 4, 4, 1, False),    # 8-key chunks: K rows skewed 64 bytes
+    (7, 128, 128, 16, 4, 4, 1, False),   # yi_34b's G 7 in one masked tile
+    (12, 128, 128, 16, 4, 4, 1, False),  # starcoder2_15b's G 12
+    (4, 576, 512, 8, 4, 1, 8, True),     # MLA at full width: 8 row warps, V in K's rows
+    (16, 24, 8, 1, 2, 3, 2, False),      # a 48-byte K row, 16-byte V row
+    (1, 4, 4, 2, 4, 1, 1, False),
+]
+
+
+@pytest.mark.parametrize("rows,d,dv,chunk,esize,kw,rw,shared", DECODE_SMEM_CASES)
+def test_decode_smem_bytes_is_the_kernels_formula(rows, d, dv, chunk, esize, kw, rw, shared):
+    """``decode_smem_bytes`` is ``layout`` of ``csrc/decode_attention.cu``:
+    128 bytes of mbarriers; a key group's slots (a chunk's K rows then V
+    rows, or two chunks of K rows where V is K's leading columns; K rows
+    skewed 16 bytes a QK lane below 8), at least the key groups' (o, m, l)
+    merge and the spans' per-row (max, 1 / den); the CTA's f32 query rows;
+    a warp's chunk of logits; a warp's (m, l, alpha) a row; a 16-byte flag,
+    each rounded up to 16 bytes.  The card test holds it to the exported C
+    function."""
+    r16 = lambda x: -(-x // 16) * 16  # noqa: E731
+    lanes = 32 // chunk  # QK lanes a key: K rows skewed 16 bytes a lane under 8
+    krow, vrow = r16(d * esize) + (16 * lanes if lanes < 8 else 0), r16(dv * esize)
+    stage = 2 * chunk * krow if shared else chunk * (krow + vrow)
+    rows_cta, warps = rw * rows, kw * rw
+    merge = kw * rows_cta * (dv + 2) * 4 if kw > 1 else 0
+    want = (128 + r16(max(kw * stage, merge, rows_cta * 2 * 4)) + r16(rows_cta * d * 4)
+            + r16(warps * rows * chunk * 4) + r16(warps * rows * 3 * 4) + 16)
+    assert tdec.decode_smem_bytes(rows, d, dv, chunk, esize, kw, rw, shared) == want
 
 
 def test_decode_smem_check_refuses_full_width_mla():
     """MLA's absorbed decode at full width (128 heads on one latent head,
-    D 576, Dv 512, 512-key partitions) needs more shared memory than a CTA
-    may opt in to: the wrapper's check raises before any launch, naming
-    the limit, the shape and the bytes; the main path's shape passes."""
-    need = tdec.decode_smem_bytes(128, 576, 512, 512)
-    with pytest.raises(ValueError, match=rf"227 KiB.*") as err:
-        tdec.check_decode_smem(128, 576, 512, 512)
-    assert f"G=128" in str(err.value) and f"{need} B" in str(err.value)
-    tdec.check_decode_smem(2, 128, 128, 512)  # qwen3_0p6b's decode partition
+    D 576, Dv 512, V the leading columns of K's rows) is no longer refused:
+    the plan fits it in 227 KiB (four groups of eight row warps, 4 rows a
+    warp).  What the kernel still cannot take raises ``ValueError`` before
+    any launch: K/V rows that are not 16-byte multiples, and a key whose
+    rows and query panel pass 227 KiB, naming the limit, shape and bytes."""
+    for esize in (4, 2):
+        for shared in (True, False):
+            plan = tdec.decode_plan(2, 128, 1, 2080, 576, 512, esize, shared, 132)
+            assert plan["smem"] <= 227 * 1024
+            assert plan["rows_tile"] * plan["row_warps"] * plan["groups"] >= 128
+    x = torch.zeros(1, 8, 1, 4, dtype=torch.bfloat16)  # 8-byte rows
+    with pytest.raises(ValueError, match="16-byte multiples"):
+        tdec._check_rows16("decode_attention", (("k", x, 4),))
+    tdec._check_rows16("decode_attention", (("k", torch.zeros(1, 8, 1, 8,
+                                                              dtype=torch.bfloat16), 8),))
+    with pytest.raises(ValueError, match=r"227 KiB") as err:
+        tdec.decode_plan(1, 16, 1, 512, 8192, 128, 4, False, 132)
+    assert "G=16" in str(err.value) and "D=8192" in str(err.value)
+
+
+@pytest.mark.parametrize("dtype,esize", [("float32", 4), ("bfloat16", 2)])
+def test_decode_plan_fills_the_card(dtype, esize):
+    """The main path's decode shape (B 4, T 2080, Hkv 8, G 2, D 128) gets
+    one even wave of CTAs, at least two an SM of 132: T split into 12 spans
+    of 176 keys (11 whole 16-key chunks), four key warps; one sequence the
+    same wave in 44 spans of 48 keys."""
+    plan = tdec.decode_plan(4, 16, 8, 2080, 128, 128, esize, False, 132)
+    assert 2 * 132 <= plan["ctas"] <= plan["wave"] == 3 * 132
+    assert (plan["span"], plan["nspan"], plan["chunk"]) == (176, 12, 16)
+    assert plan["span"] % plan["chunk"] == 0 and plan["nspan"] * plan["span"] >= 2080
+    one = tdec.decode_plan(1, 16, 8, 2080, 128, 128, esize, False, 132)
+    assert (one["span"], one["nspan"]) == (48, 44) and 2 * 132 <= one["ctas"] <= one["wave"]
+    assert (plan["key_warps"], plan["row_warps"], plan["groups"]) == (4, 1, 1)
+    assert plan["ctas"] == 4 * 8 * plan["nspan"] and plan["nspan"] * plan["span"] >= 2080
+
+
+@pytest.mark.parametrize("esize", [4, 2])
+@pytest.mark.parametrize("d", [32, 64, 128, 192, 256, 576])
+def test_decode_plan_fits_shared_memory_at_any_g(d, esize):
+    """Every G up to 128 and D up to 576 (Dv = D, or 512 under MLA's 576,
+    V in K's rows or not) fits in 227 KiB: shared memory does not grow
+    with G, whose rows go to warp tiles of at most 16 (4 at Dv 512), and
+    the plan's bytes are ``decode_smem_bytes`` of its fields."""
+    for dv in sorted({d, min(d, 512)}):
+        for g in range(1, 129):
+            for shared in (False, True):
+                plan = tdec.decode_plan(4, g, 1, 2080, d, dv, esize, shared, 132)
+                assert plan["smem"] <= 227 * 1024
+                assert plan["smem"] == tdec.decode_smem_bytes(
+                    plan["rows_tile"], d, dv, plan["chunk"], esize, plan["key_warps"],
+                    plan["row_warps"], shared)
+                assert plan["rows_tile"] <= min(tdec.ROW_TILE, tdec._row_cap(dv))
+                assert plan["rows_tile"] * plan["row_warps"] * plan["groups"] >= g
+                assert plan["key_warps"] * plan["row_warps"] <= 8
+
+
+@pytest.mark.parametrize("hkv,g", [(8, 7), (8, 8), (4, 12)])
+def test_decode_plan_takes_g_in_one_masked_tile(hkv, g):
+    """yi_34b's G 7, qwen2_72b's G 8 and starcoder2_15b's G 12 (not all
+    powers of two) are one tile of G rows, masked inside the kernel's
+    accumulator shapes: one row group, four key warps."""
+    plan = tdec.decode_plan(4, hkv * g, hkv, 2080, 128, 128, 4, False, 132)
+    assert (plan["rows_tile"], plan["row_warps"], plan["groups"]) == (g, 1, 1)
+    assert plan["key_warps"] == 4 and 132 <= plan["ctas"] <= plan["wave"]
 
 
 def test_cpu_tensors_never_count_a_launch():
