@@ -31,7 +31,21 @@ qwen3_0p6b (f32, random weights from seed 0):
   TF32), bf16, and the int8 fc head on the dequant kernel, with its MACs
   held to the planner's ``resnet18_graph``, timed at batch 1 and 32;
 * the cluster planner: ``auto_schedule`` of ResNet-18's graph on 1-12
-  simulated Zynq-7020 boards.
+  simulated Zynq-7020 boards;
+* the MoE family at full width with depth cut to 2 layers, random weights
+  from the port's ``init`` (seed 0), each model freed before the next:
+  deepseek_v2_236b (MLA, 160 routed + 2 shared experts, top-6) through the
+  static path (batch 2, prompt 1024 in two 512-token chunks — flash at
+  MLA's G 1, D 192, Dv 128 — and 16 new tokens on the absorbed dense
+  decode kernel) with its logits held to a teacher-forced run on the plain
+  versions, and through the engine (8 requests of 512-1024 tokens, half
+  sharing a 512-token prefix, prefix cache, MLA's one-pool pages) with its
+  tokens held to a plain-version run; then the same two on int8 weights
+  (every expert's GEMM one VTA GEMM launch) and int8 pools, held bitwise
+  to runs with the GEMMs on their plain version; mixtral_8x22b (8 experts
+  top-2, SWA 4096) through the static path (batch 2, prompt 4608: the
+  rolling buffer wraps) and the engine (4 requests of 4200-4608 tokens:
+  the paged kernel's window bites).
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after, and the counts must be exactly those the path's own
@@ -40,8 +54,10 @@ PyTorch library call computing the same function, and its bound.  The
 dense decode kernel is also held and timed at one full-width layer of the
 other dense configs (yi_34b's G 7, qwen2_72b's G 8, starcoder2_15b's G 12)
 and at MLA's absorbed decode at full width (128 heads on one latent head,
-D 576, V the leading 512 columns of K).  ``--timings`` times only the
-decode, paged and ALU kernels.
+D 576, V the leading 512 columns of K); flash at one full-width layer of
+yi_34b, qwen2_72b and starcoder2_15b (G 7 / 8 / 12), mixtral_8x22b (G 6,
+window 4096) and MLA's prefill (G 1, D 192, Dv 128).  ``--timings`` times
+only the decode, paged and ALU kernels.
 
 It imports no JAX and nothing of the JAX package.  It exits non-zero
 without a result when torch sees no CUDA device, when the repository's
@@ -207,13 +223,15 @@ def bound_ms(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def flash_work(b, s, h, hkv, d, dv, q_offset, kv_len, esize):
+def flash_work(b, s, h, hkv, d, dv, q_offset, kv_len, esize, window=0):
     """Operations and bytes one causal flash call needs: every visible
-    (query, key) pair costs 2*D + 2*Dv; q and the live K/V are read once,
-    the output written once."""
-    pairs = sum(min(q_offset + i + 1, kv_len) for i in range(s))
+    (query, key) pair costs 2*D + 2*Dv; q and the live K/V (of a window:
+    the keys some query sees) are read once, the output written once."""
+    lo = (lambda p: max(0, p - window + 1)) if window else (lambda p: 0)
+    pairs = sum(min(q_offset + i + 1, kv_len) - lo(q_offset + i) for i in range(s))
+    keys = kv_len - lo(q_offset)
     flops = b * h * pairs * 2 * (d + dv)
-    nbytes = esize * (b * s * h * d + b * kv_len * hkv * (d + dv) + b * s * h * dv)
+    nbytes = esize * (b * s * h * d + b * keys * hkv * (d + dv) + b * s * h * dv)
     return flops, nbytes
 
 
@@ -339,11 +357,14 @@ def plain_versions():
 
 def margin_check(torch, params, cfg, dev, reqs, got, ref, what, tol):
     """Tokens of ``got`` equal ``ref`` request by request, except from a
-    position where a teacher-forced forward of ref's sequence (plain
-    versions) shows a top-2 logit margin <= ``tol``.  Returns the number
-    of requests that diverge."""
+    position where a teacher-forced prefill of ref's sequence (plain
+    versions, in the engine's ``chunk``-token pieces, so that an MoE routes
+    with the serving capacity as the engine did) shows a top-2 logit margin
+    <= ``tol``.  Returns the number of requests that diverge."""
     from repro_torch.models import transformer as tf
+    from repro_torch.serve.step import make_prefill_step
 
+    chunk = ENGINE["prefill_chunk"]
     diverged = 0
     for rid, want in ref.items():
         have = got[rid]
@@ -353,7 +374,9 @@ def margin_check(torch, params, cfg, dev, reqs, got, ref, what, tol):
         j = next(i for i, (a, b_) in enumerate(zip(have, want)) if a != b_)
         seq = torch.tensor([list(reqs[rid][0]) + want[:j]], device=dev)
         with plain_versions(), torch.inference_mode():
-            lg = tf.forward(params, cfg, seq)[0][0, -1]
+            caches = tf.init_caches(cfg, 1, -(-seq.shape[1] // chunk) * chunk,
+                                    torch.float32, dev)
+            lg = make_prefill_step(cfg, chunk, return_logits=True)(params, seq, caches)[1][0, -1]
         top2 = lg.topk(2).values
         margin = (top2[0] - top2[1]).item()
         check(margin <= tol, f"{what}: request {rid} diverges at token {j} where "
@@ -1523,6 +1546,465 @@ def planner_phase() -> None:
         + "; ".join(picks))
 
 
+# flash at the other configs' full-width layer shapes, f32: a 512-row
+# prefill chunk at q_offset 512 over 1024 live keys (mixtral's at q_offset
+# 4096 over 4608, its 4096-key window biting), and MLA's prefill (G 1,
+# D = dn + dr = 192, Dv 128, scale 192^-0.5)
+FLASH_FAMILY = [
+    ("yi_34b G 7", dict(h=56, hkv=8, d=128, dv=128), dict(q_offset=512, kv_len=1024)),
+    ("qwen2_72b G 8", dict(h=64, hkv=8, d=128, dv=128), dict(q_offset=512, kv_len=1024)),
+    ("starcoder2_15b G 12", dict(h=48, hkv=4, d=128, dv=128), dict(q_offset=512, kv_len=1024)),
+    ("mixtral_8x22b G 6 window 4096", dict(h=48, hkv=8, d=128, dv=128),
+     dict(q_offset=4096, kv_len=4608, window=4096)),
+    ("deepseek_v2_236b MLA G 1 D 192 Dv 128", dict(h=128, hkv=128, d=192, dv=128),
+     dict(q_offset=512, kv_len=1024, scale=192 ** -0.5)),
+]
+
+
+def flash_family_phase(torch, gen, dev, card: str) -> float:
+    """Flash at FLASH_FAMILY's shapes (batch 2): one launch each, within
+    TOL of its plain version, then timed beside the plain version, SDPA on
+    the same inputs (K/V repeated to H heads, the same mask and scale) and
+    its bound.  Returns the largest error."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    b, s = 2, CHUNK
+    worst = 0.0
+    for name, sh, opts in FLASH_FAMILY:
+        h, hkv, d, dv = sh["h"], sh["hkv"], sh["d"], sh["dv"]
+        t, q_off, window = opts["kv_len"], opts["q_offset"], opts.get("window", 0)
+        q = torch.randn((b, s, h, d), generator=gen, device=dev)
+        k = torch.randn((b, t, hkv, d), generator=gen, device=dev)
+        v = torch.randn((b, t, hkv, dv), generator=gen, device=dev)
+        n0 = flash_attention.launches
+        got = flash_attention(q, k, v, **opts)
+        want = flash_attention_ref(q, k, v, **opts)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(flash_attention.launches == n0 + 1 and bool(torch.isfinite(got).all()),
+              f"flash {name}: one launch, finite")
+        check(err <= TOL["float32"], f"flash {name}: max|err| {err} > {TOL['float32']}")
+        worst = max(worst, err)
+        kv_pos = torch.arange(t, device=dev)[None, :]
+        q_pos = q_off + torch.arange(s, device=dev)[:, None]
+        mask = (kv_pos <= q_pos) & ((kv_pos > q_pos - window) if window else True)
+        qt = q.transpose(1, 2)
+        kt = k.repeat_interleave(h // hkv, dim=2).transpose(1, 2)
+        vt = v.repeat_interleave(h // hkv, dim=2).transpose(1, 2)
+        ms = cuda_ms(torch, lambda _: flash_attention(q, k, v, **opts))
+        plain = cuda_ms(torch, lambda _: flash_attention_ref(q, k, v, **opts), reps=3)
+        lib = cuda_ms(torch, lambda _: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=opts.get("scale")))
+        flops, nbytes = flash_work(b, s, h, hkv, d, dv, q_off, t, 4, window=window)
+        bnd, by = bound_ms(3 * flops, nbytes, "tf32")
+        log(f"[time] flash {name} (B {b}, S {s}, H {h}, Hkv {hkv}, q_offset {q_off}, kv_len "
+            f"{t}) f32: max|err| vs plain {err:.3e} (tol {TOL['float32']}); kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bnd:.4f} ms ({by}, 3xTF32); "
+            f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s; on {card}")
+        del q, k, v, qt, kt, vt, got, want
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# the MoE family: deepseek_v2_236b and mixtral_8x22b at full width
+# ---------------------------------------------------------------------------
+
+# every width is the published config's; the one cut is depth, to 2 layers
+MOE_LAYERS = 2
+# static path: (batch, prompt, prefill chunk, new tokens).  deepseek's two
+# 512-token chunks run flash at MLA's shape (G 1, D 192, Dv 128) and its
+# decode the absorbed dense kernel (G 128, D 576, Dv 512); mixtral's
+# 4608-token prompt passes its 4096-token window, so its rolling buffer
+# wraps (that branch runs no kernel, in the reference either)
+MOE_STATIC = {"deepseek_v2_236b": (2, 1024, 512, 16), "mixtral_8x22b": (2, 4608, 512, 16)}
+# engine traces: (requests, shortest and longest prompt, shared prefix):
+# deepseek's prompts share a 512-token prefix every other request (prefix
+# cache on); mixtral's pass the window, so the paged kernel's window bites
+MOE_ENGINE = {"deepseek_v2_236b": (8, 512, 1024, 512), "mixtral_8x22b": (4, 4200, 4608, 0)}
+MOE_ENGINE_KW = dict(max_slots=4, page_size=16, prefill_chunk=ENGINE["prefill_chunk"])
+# a router choice may differ between two runs only where the reference's
+# k-th and (k+1)-th probabilities are this close (a near tie the ~1e-6
+# attention differences can cross)
+ROUTE_TIE = 1e-5
+
+
+@contextlib.contextmanager
+def routing_record(calls: list):
+    """Record every MoE router's choice while the block runs: per call, the
+    chosen experts (N, k) and the gap between the k-th and (k+1)-th
+    probability (N,)."""
+    from repro_torch.models import moe
+
+    top_k = moe.top_k
+
+    def recording(probs, k):
+        vals, idx = top_k(probs, k + 1)
+        calls.append((idx[:, :k].clone(), (vals[:, k - 1] - vals[:, k]).clone()))
+        return vals[:, :k], idx[:, :k]
+
+    moe.top_k = recording
+    try:
+        yield calls
+    finally:
+        moe.top_k = top_k
+
+
+def routing_flips(got: list, ref: list):
+    """Per router call, the token rows whose chosen experts differ, and the
+    reference's gap at each; the two runs must make the same calls."""
+    check(len(got) == len(ref) and all(a[0].shape == b[0].shape for a, b in zip(got, ref)),
+          "the two runs route the same calls")
+    flips = []
+    for ci, ((gi, _), (ri, rgap)) in enumerate(zip(got, ref)):
+        rows = (gi != ri).any(dim=1).nonzero().flatten()
+        flips += [(ci, int(r), rgap[r].item()) for r in rows]
+    return flips
+
+
+def kernel_counts() -> dict:
+    from repro_torch.kernels.decode_attention import decode_attention, paged_decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.vta_gemm import vta_gemm
+
+    return {"flash_attention": flash_attention.launches,
+            "decode_attention": decode_attention.launches,
+            "paged_decode_attention": paged_decode_attention.launches,
+            "vta_gemm_none": vta_gemm.launches["none"],
+            "vta_gemm_dequant": vta_gemm.launches["dequant"]}
+
+
+def moe_gemms(cfg) -> int:
+    """VTA GEMM launches (epilogue none) of one int8 forward call: the
+    three projections of every routed and shared expert, one launch each."""
+    return 3 * (cfg.moe_experts + cfg.moe_shared_experts) * cfg.num_layers
+
+
+def dequants(cfg, absorbed: bool) -> int:
+    """Dequant GEMM launches of one int8 forward call: each quantized
+    projection (an absorbed MLA step folds wuk / wuv into einsums on their
+    dequantized weights), the router and an untied head."""
+    attn = ((3 if absorbed else 5) + bool(cfg.q_lora_rank)) if cfg.uses_mla else 4
+    ffn = 1 if cfg.moe_experts else 3
+    return cfg.num_layers * (attn + ffn) + (0 if cfg.tie_embeddings else 1)
+
+
+def moe_static_phase(torch, params, cfg, dev, card: str, int8: bool = False) -> dict:
+    """The static path at full width: launches exact, finite logits of the
+    right shape; f32 teacher-forced logits within LOGIT_TOL of a run on
+    the plain versions with the same routing (a choice that differs must
+    sit at a near tie, and its sequence is held by its tokens' margins
+    instead), int8 logits bitwise equal to a run with the GEMMs on their
+    plain version; then a warm timed run and a profile of the prefill and
+    of 8 decode steps.  Returns the launch counts."""
+    from repro_torch.launch.serve import run_static
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.attention import FLASH_MIN_SEQ
+    from repro_torch.serve.step import make_prefill_step, make_serve_step
+
+    batch, prompt, chunk, new = MOE_STATIC[cfg.name]
+    tag = f"[moe {cfg.name} {'int8' if int8 else 'f32'} static]"
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen, device=dev)
+    n_chunks, steps, nl = -(-prompt // chunk), new - 1, cfg.num_layers
+    # the dense SWA cache is a rolling buffer, whose branch runs no kernel
+    rolling = bool(cfg.sliding_window)
+    expect = {"flash_attention": 0 if rolling or chunk < FLASH_MIN_SEQ else nl * n_chunks,
+              "decode_attention": 0 if rolling else nl * steps,
+              "paged_decode_attention": 0,
+              "vta_gemm_none": moe_gemms(cfg) * (n_chunks + steps) if int8 else 0,
+              "vta_gemm_dequant": (n_chunks * dequants(cfg, False)
+                                   + steps * dequants(cfg, True)) if int8 else 0}
+    check(layers.attention_impl() == "auto" and layers.gemm_impl() == "auto",
+          f"{tag} runs with attention and gemm impl auto")
+    routes = []
+    reset_counts()
+    with routing_record(routes):
+        res = run_static(params, cfg, prompts, new_tokens=new, chunk=chunk, return_logits=True)
+    counts = kernel_counts()
+    log(f"{tag} batch {batch}, prompt {prompt} in {n_chunks} chunks of {chunk}, {new} new "
+        f"tokens; launches {counts} (expect {expect}); MoE GEMM launches per forward call "
+        f"{moe_gemms(cfg) if int8 else 0}")
+    check(counts == expect, f"{tag} every kernel of the path launched as expected")
+    tokens = res["tokens"]
+    logits = torch.stack(res["logits"], dim=1)
+    check(tokens.shape == (batch, new) and int(tokens.min()) >= 0
+          and int(tokens.max()) < cfg.vocab, f"{tag} tokens of shape (B, new) in the vocabulary")
+    check(logits.shape == (batch, new, cfg.vocab) and bool(torch.isfinite(logits).all()),
+          f"{tag} finite logits of shape (B, new, vocab)")
+
+    def teacher_forced(record):
+        """(B, new, vocab) logits of the path fed the run's tokens."""
+        with torch.inference_mode(), routing_record(record):
+            caches = tf.init_caches(cfg, batch, n_chunks * chunk + new, torch.float32, dev)
+            _, lg, caches = make_prefill_step(cfg, chunk, return_logits=True)(
+                params, prompts, caches)
+            out = [lg[:, -1]]
+            step = make_serve_step(cfg, return_logits=True)
+            for i in range(steps):
+                _, lg, caches = step(params, tokens[:, i:i + 1], caches)
+                out.append(lg[:, -1])
+        return torch.stack(out, dim=1)
+
+    ref_routes = []
+    if int8:
+        prev = layers.set_gemm_impl("ref")
+        try:
+            ref = teacher_forced(ref_routes)
+        finally:
+            layers.set_gemm_impl(prev)
+        check(kernel_counts()["vta_gemm_none"] == counts["vta_gemm_none"],
+              f"{tag} the plain-GEMM run launched no GEMM kernel")
+        err = (logits - ref).abs().max().item()
+        log(f"{tag} teacher-forced logits vs the run with the GEMMs on their plain version: "
+            f"max|err| {err:.3e} (bitwise expected), routing equal: "
+            f"{not routing_flips(routes, ref_routes)}")
+        check(torch.equal(logits, ref) and not routing_flips(routes, ref_routes),
+              f"{tag} logits and routing equal to the plain-GEMM run")
+    else:
+        with plain_versions():
+            ref = teacher_forced(ref_routes)
+        check(kernel_counts() == counts, f"{tag} the reference run launched no kernel")
+        flips = routing_flips(routes, ref_routes)
+        check(all(gap <= ROUTE_TIE for _, _, gap in flips),
+              f"{tag} a router choice differs from the reference's away from a tie: {flips}")
+        # a flipped token's row: prefill calls route (B * chunk) tokens, decode calls B
+        n_pre = len(routes) - nl * steps
+        bad = {(r // chunk if ci < n_pre else r) for ci, r, _ in flips}
+        ok = [i for i in range(batch) if i not in bad]
+        err = (logits[ok] - ref[ok]).abs().max().item() if ok else 0.0
+        log(f"{tag} teacher-forced logits vs the plain-version run: max|err| {err:.3e} "
+            f"(tol {LOGIT_TOL}) over rows {ok}; |logits| max {logits.abs().max().item():.3f}; "
+            f"router choices equal but {len(flips)} near ties {flips[:4]}")
+        check(err <= LOGIT_TOL, f"{tag} logits vs the plain-version run: {err} > {LOGIT_TOL}")
+        top2 = ref.topk(2, dim=-1).values
+        decided = (top2[..., 0] - top2[..., 1]) > LOGIT_TOL
+        agree = tokens == ref.argmax(-1)
+        check(bool(agree[ok][decided[ok]].all()), f"{tag} greedy token differs at a clear margin")
+
+    warm = run_static(params, cfg, prompts, new_tokens=new, chunk=chunk)
+    log(f"[time] {tag[1:-1]}: prefill {batch}x{prompt} {warm['prefill_s'] * 1e3:.2f} ms "
+        f"({warm['prefill_s'] * 1e3 / n_chunks:.2f} ms per {chunk}-token chunk); decode "
+        f"{steps} steps {warm['decode_s'] / steps * 1e3:.2f} ms/step "
+        f"({batch * steps / warm['decode_s']:.1f} tok/s); on {card}")
+    caches = tf.init_caches(cfg, batch, n_chunks * chunk + 8, torch.float32, dev)
+    prefill_step, serve_step = make_prefill_step(cfg, chunk), make_serve_step(cfg)
+    state = {}
+
+    @torch.inference_mode()
+    def run_prefill():
+        state["tok"], state["caches"] = prefill_step(params, prompts, caches)
+
+    @torch.inference_mode()
+    def run_decode(n=8):
+        tok, c = state["tok"][:, None], state["caches"]
+        for _ in range(n):
+            tok, c = serve_step(params, tok, c)
+
+    for phase, fn in ((f"prefill {n_chunks} chunks", run_prefill), ("decode 8 steps", run_decode)):
+        wall, busy, top = device_breakdown(torch, fn)
+        log(f"[profile] {tag[1:-1]} {phase}: wall {wall * 1e3:.2f} ms (profiled), device "
+            f"kernels {busy * 1e3:.2f} ms, device idle {100 * (1 - busy / wall):.1f} %")
+        for name, us, calls in top:
+            log(f"[profile]   {us / 1e3:9.3f} ms {calls:5d}x {name[:90]}")
+    return counts
+
+
+def moe_trace(vocab: int, n: int, lo: int, hi: int, shared: int, seed: int = 3):
+    """An MoE engine trace: (prompt, max_new, priority, arrival step).
+    Prompts of lo-hi tokens, 8-16 new tokens, one arrival every 2 steps;
+    with ``shared``, every other prompt starts with one shared prefix."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pre = rng.integers(0, vocab, shared)
+    reqs = []
+    for i in range(n):
+        share = shared and i % 2
+        prompt = rng.integers(0, vocab, int(rng.integers(shared + 64 if share else lo, hi + 1)))
+        if share:
+            prompt[:shared] = pre
+        reqs.append((prompt.astype(np.int32), int(rng.integers(8, 17)), 0, 2 * i))
+    return reqs
+
+
+def moe_engine_phase(torch, params, cfg, dev, card: str, int8: bool = False) -> dict:
+    """The paged ``ServingEngine`` at full width (int8: int8 weights on
+    int8 pools): launches exact against ``engine.stats()``, the audit green
+    on every step, no page leaked, prefix hits where prompts share a
+    prefix; tokens equal to a run on the plain versions under the margin
+    rule (int8: tokens and counters equal to a run with the GEMMs on their
+    plain version); the timing line and a profile of decode-only steps.
+    Returns the launch counts."""
+    from repro_torch.models import layers
+    from repro_torch.models.attention import FLASH_MIN_SEQ
+    from repro_torch.serve.engine import ServingEngine, latency_stats
+    from repro_torch.serve.kv_cache import pages_for
+
+    n, lo, hi, shared = MOE_ENGINE[cfg.name]
+    tag = f"[moe {cfg.name} {'int8' if int8 else 'f32'} engine]"
+    reqs = moe_trace(cfg.vocab, n, lo, hi, shared)
+    max_len = hi + 17
+    kw = dict(MOE_ENGINE_KW, max_len=max_len, aging_s=None, prefix_cache=bool(shared),
+              kv_dtype="int8" if int8 else "f32")
+    if shared:  # room for retired prefixes in the tree
+        kw["num_pages"] = 2 * kw["max_slots"] * pages_for(max_len, kw["page_size"])
+    log(f"{tag} trace: {len(reqs)} requests, prompts {[len(r[0]) for r in reqs]}, max_new "
+        f"{[r[1] for r in reqs]}, one arrival every 2 steps; {kw}")
+
+    def engine():
+        return ServingEngine(params, cfg, **kw)
+
+    reset_counts()
+    eng = engine()
+    toks, done, secs = drive_engine(eng, reqs)
+    counts = kernel_counts()
+    est = eng.stats()
+    nl, steps, chunks = cfg.num_layers, est["steps"], est["prefill_chunk_calls"]
+    flash = not cfg.sliding_window and kw["prefill_chunk"] >= FLASH_MIN_SEQ
+    expect = {"flash_attention": nl * chunks if flash else 0,
+              "decode_attention": 0, "paged_decode_attention": nl * steps,
+              "vta_gemm_none": moe_gemms(cfg) * (chunks + steps) if int8 else 0,
+              "vta_gemm_dequant": (chunks * dequants(cfg, False)
+                                   + steps * dequants(cfg, True)) if int8 else 0}
+    log(f"{tag} stats: {est}")
+    log(f"{tag} launches {counts} (expect {expect} from {steps} decode steps and {chunks} "
+        f"prefill calls); MoE GEMM launches per decode step {moe_gemms(cfg) if int8 else 0}")
+    check(counts == expect, f"{tag} every kernel of the path launched as expected")
+    pools = {"kv_pages"} if cfg.uses_mla else {"k_pages", "v_pages"}
+    if int8:
+        pools |= {k.replace("pages", "scales") for k in pools}
+    check(set(eng.blocks[0]) == pools, f"{tag} pools {sorted(eng.blocks[0])}")
+    check(len(done) == len(reqs) and all(len(r.tokens) == r.max_new for r in done),
+          f"{tag} every request finished with its max_new tokens")
+    check(all(0 <= t < cfg.vocab for ts in toks.values() for t in ts), f"{tag} token ids in vocab")
+    check(not shared or est["prefix_hits"] >= 1, f"{tag} the trace hits the prefix cache")
+    audit = eng.audit()
+    held = len(eng.prefix.pages()) if eng.prefix is not None else 0
+    check(eng.allocator.num_free + held == eng.num_pages and (eng.block_tables == -1).all(),
+          f"{tag} every page not held by the radix tree is free")
+    log(f"{tag} audit after run: {audit}, {eng.allocator.num_free} free + {held} held by the "
+        f"radix tree = {eng.num_pages} pages")
+    lat = latency_stats(done)
+    del eng
+    if int8:
+        prev = layers.set_gemm_impl("ref")
+        try:
+            eng = engine()
+            ref_toks, _, ref_s = drive_engine(eng, reqs)
+            ref_stats = eng.stats()
+            del eng
+        finally:
+            layers.set_gemm_impl(prev)
+        same = sum(ref_toks[rid] == toks[rid] for rid in toks)
+        log(f"{tag} tokens vs the same trace with the GEMMs on their plain version "
+            f"({ref_s:.2f} s): {same}/{len(toks)} requests equal, stats equal: "
+            f"{_counters(ref_stats) == _counters(est)}")
+        check(same == len(toks) and _counters(ref_stats) == _counters(est),
+              f"{tag} tokens and counters equal to the plain-GEMM run")
+    else:
+        with plain_versions():
+            eng = engine()
+            ref_toks, _, ref_s = drive_engine(eng, reqs)
+            del eng
+        check(kernel_counts() == counts, f"{tag} the reference run launched no kernel")
+        diverged = margin_check(torch, params, cfg, dev, reqs, toks, ref_toks, tag[1:-1],
+                                LOGIT_TOL)
+        log(f"{tag} tokens vs a run on the plain versions ({ref_s:.2f} s): "
+            f"{len(ref_toks) - diverged}/{len(ref_toks)} requests equal, {diverged} diverge "
+            f"where the reference's margin <= {LOGIT_TOL}")
+    log(f"[time] {tag[1:-1]}: {len(reqs)} requests, {lat['tokens']} tokens in {secs:.3f} s "
+        f"({lat['tokens'] / secs:.1f} tok/s) over {steps} decode steps, {chunks} prefill "
+        f"calls; TTFT p50 {lat['ttft_p50_s'] * 1e3:.1f} ms, p99 {lat['ttft_p99_s'] * 1e3:.1f} ms; "
+        f"token latency p50 {lat['token_p50_s'] * 1e3:.1f} ms, p99 "
+        f"{lat['token_p99_s'] * 1e3:.1f} ms; on {card}")
+
+    # a decoding step's time: every slot decoding (1 + 16 steps of 32 tokens)
+    eng = ServingEngine(params, cfg, max_len=hi + 40, kv_dtype=kw["kv_dtype"], **MOE_ENGINE_KW)
+    for prompt, _, _, _ in reqs[:MOE_ENGINE_KW["max_slots"]]:
+        eng.submit(prompt, 32)
+    eng.step()  # admits and prefills every slot, then one decode step
+    check(all(sl.decoding for sl in eng.slots), f"{tag} the profiled steps decode every slot")
+
+    def engine_steps(k=8):
+        for _ in range(k):
+            eng.step()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine_steps()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 8 * 1e3
+    wall, busy, top = device_breakdown(torch, engine_steps)
+    log(f"[time] {tag[1:-1]} decode-only steps at {len(eng.slots)} slots: {step_ms:.2f} ms/step; "
+        f"[profile] 8 steps: wall {wall * 1e3:.2f} ms (profiled), device kernels "
+        f"{busy * 1e3:.2f} ms, device idle {100 * (1 - busy / wall):.1f} %; on {card}")
+    for name, us, calls in top:
+        log(f"[profile]   {us / 1e3:9.3f} ms {calls:5d}x {name[:90]}")
+    del eng
+    return counts
+
+
+def moe_phases(torch, dev, card: str) -> dict:
+    """deepseek_v2_236b (f32 static and engine, then int8 weights on int8
+    pools) and mixtral_8x22b (f32 static and engine) at full width, depth
+    cut to MOE_LAYERS, random weights from the port's ``init`` on a seeded
+    generator on the card; each model is freed before the next.  Returns
+    {path: launch counts}."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.quant import quantize_params
+
+    out = {}
+    for name in ("deepseek_v2_236b", "mixtral_8x22b"):
+        full = get_config(name)
+        cfg = dataclasses.replace(full, num_layers=MOE_LAYERS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = tf.init(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.float32, device=dev)
+        torch.cuda.synchronize()
+        n_params = sum(x.numel() for x in leaves(params))
+        log(f"[moe] {name} full width, {cfg.num_layers} layers (cut from "
+            f"{full.num_layers}): d_model {cfg.d_model}, heads {cfg.num_heads}/{cfg.kv_heads}, "
+            f"experts {cfg.moe_experts} top-{cfg.moe_top_k} + {cfg.moe_shared_experts} shared, "
+            f"d_ff {cfg.d_ff}, vocab {cfg.vocab}: {n_params / 1e9:.3f} B f32 params made in "
+            f"{time.perf_counter() - t0:.2f} s; device memory "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB")
+        out[f"{name} f32 static"] = moe_static_phase(torch, params, cfg, dev, card)
+        out[f"{name} f32 engine"] = moe_engine_phase(torch, params, cfg, dev, card)
+        if cfg.uses_mla:
+            qparams = quantize_params(params)
+            del params
+            torch.cuda.empty_cache()
+            out[f"{name} int8 static"] = moe_static_phase(torch, qparams, cfg, dev, card, int8=True)
+            out[f"{name} int8 engine"] = moe_engine_phase(torch, qparams, cfg, dev, card, int8=True)
+            del qparams
+        else:
+            del params
+        torch.cuda.empty_cache()
+        log(f"[moe] {name}: peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+        torch.cuda.reset_peak_memory_stats()
+    return out
+
+
+def leaves(tree):
+    """The tensors of a param tree (nested dicts and lists)."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from leaves(v)
+    else:
+        yield tree
+
+
+
 def build_kernels(names=None) -> None:
     """Build the kernels (all of them by default), one nvcc each, all at
     once, and log the build time and ptxas' register and spill report."""
@@ -1907,6 +2389,10 @@ def main() -> int:
         f"{bacc['ms']:.4f} ms, sdpa bf16 {bacc['library_ms']:.4f} ms, bound {bbnd:.4f} ms "
         f"({bby}, 989 TFLOP/s), {bacc['flops'] / (bacc['ms'] * 1e-3) / 1e12:.2f} TFLOP/s")
     del qb, kb, vb
+    # the other configs' layer shapes: the dense family's G 7 / 8 / 12,
+    # mixtral's windowed G 6 and MLA's prefill (G 1, D 192, Dv 128)
+    errs["flash_attention"] = max(errs["flash_attention"],
+                                  flash_family_phase(torch, gen, dev, f"{kind} ({smi})"))
 
     row = time_decode(torch, gen, dev)[DECODE_TIMED[0][0]]
     rows["decode_attention"] = dict(
@@ -1943,6 +2429,13 @@ def main() -> int:
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"])
     check(len(rows) == 8, "eight kernels in the record")
+
+    # ---- the MoE family: deepseek_v2_236b and mixtral_8x22b, the fifth ---------
+    del params, qparams, prompts, res, warm
+    torch.cuda.empty_cache()
+    moe = moe_phases(torch, dev, f"{kind} ({smi})")
+    for path, counts in moe.items():
+        log(f"[moe] launches on {path}: {counts}")
 
     print(json.dumps({"kernels": [dict(name=n, **r) for n, r in rows.items()]}))
     print(smi)

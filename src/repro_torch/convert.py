@@ -10,7 +10,9 @@ Quantized trees (``optim.quant.quantize_params``) carry over with the
 reference's values: integer leaves (``qw``) keep their dtype, ``qw`` is
 packed K-major as the port's own ``quantize_params`` packs it, and the
 int8 scale leaves (``qscale``, and the KV pools' ``*_scales``) stay f32
-whatever ``dtype`` is, as the reference keeps them.  ``resnet_params_from_numpy`` carries
+whatever ``dtype`` is, as the reference keeps them, and so does an MoE
+layer's float ``router``.  Stacked expert leaves (L, E, K, N) unstack to
+(E, K, N), an int8 ``qw`` among them packed K-major per expert.  ``resnet_params_from_numpy`` carries
 ResNet-18's nested tree (lists of blocks, no stacked axis), whose batch
 norm statistics stay f32 as well (``keeps_f32`` says which leaves).
 """
@@ -25,10 +27,10 @@ from repro_torch.optim.quant import k_major
 
 def keeps_f32(key) -> bool:
     """A float leaf that stays f32 in every dtype: an int8 scale leaf
-    (``qscale``, ``*_scales``) or a batch norm's running ``mean`` / ``var``
-    (``resnet._bn_init``)."""
-    return key in ("qscale", "mean", "var") or (isinstance(key, str)
-                                                and key.endswith("_scales"))
+    (``qscale``, ``*_scales``), a batch norm's running ``mean`` / ``var``
+    (``resnet._bn_init``) or an MoE ``router`` (``moe.moe_init``)."""
+    return key in ("qscale", "mean", "var", "router") or (
+        isinstance(key, str) and key.endswith("_scales"))
 
 
 def _to_torch(tree, device, dtype, key=None):

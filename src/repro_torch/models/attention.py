@@ -1,24 +1,34 @@
-"""GQA attention (PyTorch port of ``repro.models.attention``, GQA only).
+"""Attention variants: GQA (+bias / qk-norm / SWA) and MLA (PyTorch port
+of ``repro.models.attention``; cross-attention is a later slice).
 
-    params = gqa_init(gen, cfg, dtype, device)
+    params = gqa_init(gen, cfg, dtype, device)      | mla_init(...)
     y, cache = gqa_apply(params, cfg, x, positions, cache=None|dict)
+                                                    | mla_apply(...)
 
 * ``cache=None`` — full causal (or bidirectional) forward, no state.
 * dense cache ``{"k": (B, T, Hkv, D), "v": (B, T, Hkv, Dv), "len": int}``
   — prefill chunks and S=1 decode steps write their K/V at ``len`` and
   attend over the live prefix.  ``len`` is a host int, so the kernels'
-  scalar arguments never wait on the device.
+  scalar arguments never wait on the device.  An SWA config's buffer
+  holds ``T = min(max_len, window)`` rows and rolls: after every call,
+  row j holds the key of position ``len - T + j`` (the ordered
+  snapshot), so chunked prefill and decode both attend over
+  ``[buffer | new]`` and keep the trailing T rows.
+* MLA's dense cache ``{"kv": (B, T, r + dr), "len": int}`` is ONE buffer
+  of ``[c_kv | k_rope]`` rows (the reference keeps ``ckv`` and ``k_rope``
+  apart): the compressed latent and the shared rope key are views of
+  it, and the absorbed decode reads it as K with V a view of its leading
+  r columns, the layout the dense decode kernel streams fastest.
 * paged cache ``{"k_pages"/"v_pages": (Hkv, num_pages + 1, page, D),
   "block_tables": (B, pages) int32, "len": (B,) int32}`` (serve/kv_cache
-  layout, the last page a sink) — S=1 decode and S>1 speculative verify
-  write their S tokens into the pool in place and attend through the
-  block table.  ``len`` is the per-sequence PRE-write fill, a device
-  tensor: nothing here reads it back.  Inactive slots (block-table row
-  -1) send their writes to the sink and emit zeros.  int8 pools (with
-  ``k_scales``/``v_scales``) insert the S tokens one by one, each
+  layout, the last page a sink; MLA: one ``"kv_pages"`` (1, num_pages +
+  1, page, r + dr) pool serving as key and value) — S=1 decode and S>1
+  speculative verify write their S tokens into the pool in place and
+  attend through the block table.  ``len`` is the per-sequence PRE-write
+  fill, a device tensor: nothing here reads it back.  Inactive slots
+  (block-table row -1) send their writes to the sink and emit zeros.
+  int8 pools (with ``*_scales``) insert the S tokens one by one, each
   requantizing its page.
-
-The SWA rolling buffer is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from repro_torch.models.layers import (
     rmsnorm_init,
     softmax_attend,
 )
+from repro_torch.optim.quant import dequant_int8
 from repro_torch.serve.kv_cache import quant_page_update
 
 # sequences at or above this length attend via the flash path (never
@@ -145,8 +156,21 @@ def gqa_apply(p, cfg, x, positions, cache=None, *, bidirectional=False):
         t = cache["k"].shape[1]
         cur = cache["len"]
         if cfg.sliding_window and t <= cfg.sliding_window:
-            raise NotImplementedError(
-                "SWA rolling-buffer cache: ROADMAP.md queue 1, item 8")
+            # SWA rolling buffer (ordered snapshot: row j holds position
+            # cur - t + j, negative = not written yet, masked out): attend
+            # over [buffer | new keys], then keep the trailing t rows
+            full_k = torch.cat([cache["k"], k.to(cache["k"].dtype)], dim=1)
+            full_v = torch.cat([cache["v"], v.to(cache["v"].dtype)], dim=1)
+            kv_pos = cur - t + torch.arange(t + s, device=x.device)
+            q_pos = cur + torch.arange(s, device=x.device)
+            mask = (kv_pos[None, :] <= q_pos[:, None]) & (kv_pos >= 0)[None, :]
+            mask &= kv_pos[None, :] > (q_pos[:, None] - cfg.sliding_window)
+            out = softmax_attend(q, full_k, full_v, mask)
+            ck, cv = cache["k"], cache["v"]
+            ck.copy_(full_k[:, s:])
+            cv.copy_(full_v[:, s:])
+            y = dense_apply(p["wo"], out.reshape(b, s, -1))
+            return y, {"k": ck, "v": cv, "len": cur + s}
         if cur + s > t:
             # the reference's dynamic_update_slice would clamp the write
             # start; the port refuses instead of writing elsewhere
@@ -177,3 +201,185 @@ def gqa_apply(p, cfg, x, positions, cache=None, *, bidirectional=False):
 
     y = dense_apply(p["wo"], out.reshape(b, s, -1))
     return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA — multi-head latent attention (deepseek-v2)
+# ---------------------------------------------------------------------------
+
+
+def _w(p):
+    """Weight of a dense dict for einsum-shaped uses (MLA's weight
+    absorption): a quantized dict gives the f32 dequant of its int8
+    ``qw`` (the stored leaf stays int8); a float dict its ``w``."""
+    if "qw" in p:
+        return dequant_int8(p["qw"], p["qscale"])
+    return p["w"]
+
+
+def mla_init(gen, cfg, dtype, device):
+    d, h = cfg.d_model, cfg.num_heads
+    r, dr = cfg.kv_lora_rank, cfg.rope_head_dim
+    dn, dv = cfg.mla_head_dim, cfg.mla_v_head_dim
+    q_in = cfg.q_lora_rank or d
+    p = {
+        # queries (nope + rope parts), from the q-lora latent when it is set
+        "wq": dense_init(gen, q_in, h * (dn + dr), dtype, device),
+        # joint KV down-projection -> [c_kv (r) | k_rope (dr)]
+        "wdkv": dense_init(gen, d, r + dr, dtype, device),
+        "ckv_norm": rmsnorm_init(r, dtype, device),
+        # up-projections from the latent
+        "wuk": dense_init(gen, r, h * dn, dtype, device),
+        "wuv": dense_init(gen, r, h * dv, dtype, device),
+        "wo": dense_init(gen, h * dv, d, dtype, device),
+    }
+    if cfg.q_lora_rank:
+        p["wdq"] = dense_init(gen, d, cfg.q_lora_rank, dtype, device)
+        p["q_norm"] = rmsnorm_init(cfg.q_lora_rank, dtype, device)
+    return p
+
+
+def mla_cache_init(cfg, batch: int, max_len: int, dtype, device):
+    width = cfg.kv_lora_rank + cfg.rope_head_dim
+    return {"kv": torch.zeros((batch, max_len, width), dtype=dtype, device=device),
+            "len": 0}
+
+
+def _mla_qkv_latent(p, cfg, x, positions):
+    b, s, _ = x.shape
+    h, dn, dr = cfg.num_heads, cfg.mla_head_dim, cfg.rope_head_dim
+    xq = x
+    if cfg.q_lora_rank:
+        xq = rmsnorm_apply(p["q_norm"], dense_apply(p["wdq"], x), cfg.norm_eps)
+    q = dense_apply(p["wq"], xq).reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    dkv = dense_apply(p["wdkv"], x)
+    ckv = rmsnorm_apply(p["ckv_norm"], dkv[..., :cfg.kv_lora_rank], cfg.norm_eps)
+    k_rope = dkv[..., cfg.kv_lora_rank:][:, :, None, :]  # 1 shared head
+    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, ckv, k_rope
+
+
+def _mla_attend(p, cfg, q_nope, q_rope, ckv, k_rope, mask=None, *,
+                q_offset: int = 0, kv_len: int | None = None):
+    """MLA attention: the latent is up-projected per head; the rope part is
+    a single shared head concatenated onto the nope part, so the flash
+    path applies unchanged for long sequences (D = dn + dr, Dv = dv)."""
+    b, s, h, dn = q_nope.shape
+    t = ckv.shape[1]
+    dr, dv = cfg.rope_head_dim, cfg.mla_v_head_dim
+    k_nope = dense_apply(p["wuk"], ckv).reshape(b, t, h, dn)
+    v = dense_apply(p["wuv"], ckv).reshape(b, t, h, dv)
+    scale = (dn + dr) ** -0.5
+
+    if s >= FLASH_MIN_SEQ:
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, t, h, dr)], dim=-1)
+        out = flash_attend(q, k, v, q_offset=q_offset, kv_len=kv_len, scale=scale)
+        return out.reshape(b, s, h * dv)
+
+    logits = torch.einsum("bshd,bthd->bhst", q_nope.float(), k_nope.float())
+    logits += torch.einsum("bshd,btd->bhst", q_rope.float(), k_rope.float())
+    logits = logits * scale
+    logits = logits.masked_fill(~mask, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", probs, v.float())
+    return out.reshape(b, s, h * dv).to(q_nope.dtype)
+
+
+def _mla_absorbed_q(p, cfg, q_nope, q_rope):
+    """Fold ``Wuk`` into the query: latent-space queries (B, S, H, r+dr)."""
+    h, dn = q_nope.shape[2], q_nope.shape[3]
+    r = cfg.kv_lora_rank
+    wuk = _w(p["wuk"]).reshape(r, h, dn).to(q_nope.dtype)
+    q_lat = torch.einsum("bshd,rhd->bshr", q_nope, wuk)
+    return torch.cat([q_lat, q_rope], dim=-1)
+
+
+def _mla_up_project(p, cfg, out_lat):
+    """Up-project the attended latent through ``Wuv``."""
+    b, s, h, r = out_lat.shape
+    dv = cfg.mla_v_head_dim
+    wuv = _w(p["wuv"]).reshape(r, h, dv).to(out_lat.dtype)
+    out = torch.einsum("bshr,rhd->bshd", out_lat, wuv)
+    return out.reshape(b, s, h * dv)
+
+
+def _mla_attend_absorbed(p, cfg, q_nope, q_rope, kv, *, kv_len: int):
+    """Decode (S=1) MLA by weight absorption: ``k_nope[t, h] = Wuk[:, h]^T
+    c_kv[t]``, so the nope logits are ``(Wuk q_nope) . c_kv`` and the step
+    attends in the latent space — keys the cache's ``[c_kv | k_rope]``
+    rows, values a view of their leading r columns, one shared KV head —
+    and only the attended latent goes through ``Wuv``."""
+    dn, dr = cfg.mla_head_dim, cfg.rope_head_dim
+    q = _mla_absorbed_q(p, cfg, q_nope, q_rope)
+    k = kv[:, :, None, :]
+    out_lat = decode_attend(q, k, k[..., :cfg.kv_lora_rank], kv_len=kv_len,
+                            scale=(dn + dr) ** -0.5)  # (B, 1, H, r)
+    return _mla_up_project(p, cfg, out_lat)
+
+
+def _mla_attend_absorbed_paged(p, cfg, q_nope, q_rope, pool, block_tables,
+                               kv_lens, scales=None):
+    """Paged twin of :func:`_mla_attend_absorbed`: pool rows are
+    ``[c_kv | k_rope]``, so the pool serves as key AND value pages — ``dv
+    = r`` reads the value as each row's leading columns (an int8 pool's
+    per-page ``scales`` serve both sides)."""
+    dn, dr = cfg.mla_head_dim, cfg.rope_head_dim
+    q = _mla_absorbed_q(p, cfg, q_nope, q_rope)
+    out_lat = paged_decode_attend(q, pool, pool, block_tables, kv_lens,
+                                  scale=(dn + dr) ** -0.5, dv=cfg.kv_lora_rank,
+                                  k_scales=scales, v_scales=scales)
+    return _mla_up_project(p, cfg, out_lat)
+
+
+def mla_apply(p, cfg, x, positions, cache=None):
+    b, s, _ = x.shape
+    r = cfg.kv_lora_rank
+    q_nope, q_rope, ckv, k_rope = _mla_qkv_latent(p, cfg, x, positions)
+    if cache is None:
+        mask = causal_mask(s, s, device=x.device) if s < FLASH_MIN_SEQ else None
+        out = _mla_attend(p, cfg, q_nope, q_rope, ckv, k_rope, mask)
+        new_cache = None
+    elif "kv_pages" in cache:
+        # paged decode (S=1) / speculative verify (S>1): one [c_kv | k_rope]
+        # row per token in the pool
+        page, slot, new_len = cache.get("coords") or _paged_token_coords(cache, "kv_pages", s)
+        row = torch.cat([ckv, k_rope], dim=-1)  # (B, S, r+dr)
+        pool = cache["kv_pages"]
+        if pool.dtype == torch.int8:
+            sc = cache["kv_scales"]
+            for j in range(s):
+                quant_page_update(pool, sc, page[:, j], slot[:, j], row[None, :, j])
+            out = _mla_attend_absorbed_paged(p, cfg, q_nope, q_rope, pool,
+                                             cache["block_tables"], new_len, scales=sc)
+            new_cache = {"kv_pages": pool, "kv_scales": sc}
+        else:
+            pool[0, page, slot] = row.to(pool.dtype)
+            out = _mla_attend_absorbed_paged(p, cfg, q_nope, q_rope, pool,
+                                             cache["block_tables"], new_len)
+            new_cache = {"kv_pages": pool}
+    else:
+        kv, cur = cache["kv"], cache["len"]
+        t = kv.shape[1]
+        if cur + s > t:
+            raise ValueError(f"cache overflow: len {cur} + {s} new rows > {t}")
+        # written in place, as the GQA cache; c_kv and k_rope are views
+        kv[:, cur:cur + s] = torch.cat([ckv, k_rope], dim=-1).to(kv.dtype)
+        new_len = cur + s
+        cc, cr = kv[..., :r], kv[..., r:]
+        if s == 1:
+            # decode: weight-absorbed split-KV over the compressed cache
+            out = _mla_attend_absorbed(p, cfg, q_nope, q_rope, kv, kv_len=new_len)
+        elif s >= FLASH_MIN_SEQ:
+            out = _mla_attend(p, cfg, q_nope, q_rope, cc, cr, q_offset=cur,
+                              kv_len=new_len)
+        else:
+            kv_pos = torch.arange(t, device=x.device)
+            q_pos = torch.arange(s, device=x.device) + cur
+            mask = (kv_pos[None, :] <= q_pos[:, None]) & (kv_pos < new_len)[None, :]
+            out = _mla_attend(p, cfg, q_nope, q_rope, cc, cr, mask)
+        new_cache = {"kv": kv, "len": new_len}
+    return dense_apply(p["wo"], out), new_cache

@@ -92,6 +92,12 @@ def gemm_impl() -> str:
     return _GEMM_IMPL
 
 
+def use_gemm_kernel(x: torch.Tensor) -> bool:
+    """True when an int8 GEMM on ``x`` goes to the VTA GEMM's wrapper
+    under ``set_gemm_impl``; False sends it to the plain version."""
+    return _to_wrapper(_GEMM_IMPL, "gemm", x)
+
+
 # ---------------------------------------------------------------------------
 # initializers and linear maps
 # ---------------------------------------------------------------------------
@@ -136,7 +142,7 @@ def quant_dense_apply(p, x, act: str | None = None):
     qx, sx = quant_int8(x.reshape(-1, k))
     scale = p["qscale"].float() * sx
     bias = p["b"].float() if "b" in p else None
-    if _to_wrapper(_GEMM_IMPL, "gemm", x):
+    if use_gemm_kernel(x):
         y = dense_int8(qx, p["qw"], scale, bias=bias, act=act)
     else:
         y = vta_gemm_ref(qx, p["qw"], bias, scale, epilogue="dequant", act=act)

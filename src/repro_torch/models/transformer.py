@@ -1,4 +1,5 @@
-"""Decoder LM, dense family (PyTorch port of ``repro.models.transformer``).
+"""Decoder LM, dense and MoE families (PyTorch port of
+``repro.models.transformer``).
 
 Params are ``{"embed": {"table"}, "blocks": [per-layer dict, ...],
 "final_norm": {"scale"}[, "lm_head"]}``: the reference's stacked layer
@@ -13,8 +14,11 @@ reference's sharding hints have nothing to do and are gone.
   decode_step(params, cfg, token, caches)       -> (logits, caches)
   verify_step(params, cfg, tokens, caches)      -> (logits, caches)  (paged)
 
-MoE, MLA, SSM, hybrid, enc-dec, VLM and CNN configs raise
-``NotImplementedError``: they are later slices of the port.
+The mixer is GQA (with q/k/v biases, qk-norm and SWA as the config
+says) or MLA; the FFN a gated MLP or an MoE layer, whose auxiliary
+load-balancing loss ``forward`` sums over the layers.  SSM, hybrid,
+enc-dec, VLM and CNN configs raise ``NotImplementedError``: they are a
+later slice of the port.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     dense_apply,
     dense_init,
@@ -38,18 +43,16 @@ from repro_torch.models.layers import (
 def check_supported(cfg) -> None:
     """Raise for the families this slice of the port does not run."""
     unported = {
-        "MoE": cfg.moe_experts > 0,
-        "MLA": cfg.uses_mla,
         "SSM/hybrid": cfg.ssm_state > 0 or cfg.attn_every > 0,
         "enc-dec": cfg.is_enc_dec,
         "VLM/audio frontend": cfg.frontend is not None,
         "CNN": cfg.family == "cnn",
     }
     missing = [name for name, hit in unported.items() if hit]
-    if missing or cfg.family != "dense":
+    if missing or cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}; {', '.join(missing) or 'not dense'}) is "
-            "not ported yet: ROADMAP.md queue 1, items 8-9")
+            f"{cfg.name} ({cfg.family}; {', '.join(missing) or cfg.family}) is "
+            "not ported yet: ROADMAP.md queue 1, item 9")
 
 
 # ---------------------------------------------------------------------------
@@ -57,22 +60,58 @@ def check_supported(cfg) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _mixer_init(gen, cfg, dtype, device):
+    if cfg.uses_mla:
+        return attn.mla_init(gen, cfg, dtype, device)
+    return attn.gqa_init(gen, cfg, dtype, device)
+
+
+def _mixer_apply(p, cfg, x, positions, cache):
+    if cfg.uses_mla:
+        return attn.mla_apply(p, cfg, x, positions, cache)
+    return attn.gqa_apply(p, cfg, x, positions, cache)
+
+
+def _ffn_init(gen, cfg, dtype, device):
+    if cfg.moe_experts:
+        return moe_mod.moe_init(gen, cfg, dtype, device)
+    return gated_mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device)
+
+
+def _ffn_apply(p, cfg, x, dropless: bool = False, cap: int | None = None):
+    """(y, aux), aux None for a gated MLP.  MoE serving capacity
+    (``dropless``, any call with a cache): exactly dropless (cap = tokens)
+    up to 4096 tokens, above that a 2x-balanced bound ``ceil(2 n k / E)``;
+    an explicit ``cap`` overrides both, clamped to the call's token count."""
+    if cfg.moe_experts:
+        n = x.shape[0] * x.shape[1]
+        if cap is not None:
+            cap = min(cap, n)
+        elif dropless:
+            generous = -(-2 * n * cfg.moe_top_k // cfg.moe_experts)
+            cap = n if n <= 4096 else min(n, generous)
+        return moe_mod.moe_apply(p, cfg, x, capacity=cap)
+    return gated_mlp_apply(p, x), None
+
+
 def block_init(gen, cfg, dtype, device):
     return {
         "norm1": rmsnorm_init(cfg.d_model, dtype, device),
-        "mixer": attn.gqa_init(gen, cfg, dtype, device),
+        "mixer": _mixer_init(gen, cfg, dtype, device),
         "norm2": rmsnorm_init(cfg.d_model, dtype, device),
-        "ffn": gated_mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device),
+        "ffn": _ffn_init(gen, cfg, dtype, device),
     }
 
 
-def block_apply(p, cfg, x, positions, cache=None):
-    h, new_cache = attn.gqa_apply(p["mixer"], cfg,
-                                  rmsnorm_apply(p["norm1"], x, cfg.norm_eps),
-                                  positions, cache)
+def block_apply(p, cfg, x, positions, cache=None, moe_cap: int | None = None):
+    """Returns (x, new_cache, aux); aux is None without an MoE layer."""
+    h, new_cache = _mixer_apply(p["mixer"], cfg,
+                                rmsnorm_apply(p["norm1"], x, cfg.norm_eps),
+                                positions, cache)
     x = x + h
-    x = x + gated_mlp_apply(p["ffn"], rmsnorm_apply(p["norm2"], x, cfg.norm_eps))
-    return x, new_cache
+    h, aux = _ffn_apply(p["ffn"], cfg, rmsnorm_apply(p["norm2"], x, cfg.norm_eps),
+                        dropless=cache is not None, cap=moe_cap)
+    return x + h, new_cache, aux
 
 
 def init(cfg, *, generator: torch.Generator, dtype=torch.bfloat16, device="cuda"):
@@ -107,12 +146,17 @@ def _head(params, cfg, x):
 
 
 def _apply_stack(params, cfg, x, positions, caches):
+    """Returns (x, new caches, aux summed over the layers: a zero for the
+    dense family)."""
     new_layers = []
+    aux = torch.zeros((), device=x.device)
     for li, p in enumerate(params["blocks"]):
         cache = caches["blocks"][li] if caches is not None else None
-        x, nc = block_apply(p, cfg, x, positions, cache)
+        x, nc, a = block_apply(p, cfg, x, positions, cache)
+        if a is not None:
+            aux = aux + a
         new_layers.append(nc)
-    return x, ({"blocks": new_layers} if caches is not None else None)
+    return x, ({"blocks": new_layers} if caches is not None else None), aux
 
 
 def _positions(start: int, tokens):
@@ -122,18 +166,21 @@ def _positions(start: int, tokens):
 
 def forward(params, cfg, tokens):
     """Full causal forward.  tokens: (B, S) int64.  Returns (logits, aux)
-    with aux the (zero) auxiliary loss of the dense family."""
+    with aux the MoE load-balancing loss summed over the layers (zero for
+    the dense family)."""
     check_supported(cfg)
     x = _embed(params, cfg, tokens)
-    x, _ = _apply_stack(params, cfg, x, _positions(0, tokens), None)
-    return _head(params, cfg, x), torch.zeros((), device=x.device)
+    x, _, aux = _apply_stack(params, cfg, x, _positions(0, tokens), None)
+    return _head(params, cfg, x), aux
 
 
 def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda", *,
                 cache_layout: str = "dense", page_size: int = 16,
                 num_pages: int | None = None, kv_dtype: str | None = None):
     """Serving caches.  ``cache_layout="dense"`` (default): one
-    (B, max_len, Hkv, D) K/V pair per layer.  ``"paged"``: the
+    (B, max_len, Hkv, D) K/V pair per layer (an SWA config's holds
+    ``min(max_len, window)`` rows and rolls; MLA's is one (B, max_len,
+    r + dr) latent buffer).  ``"paged"``: the
     serve/kv_cache pool layout (shared pages + block tables +
     per-sequence lens) that ``decode_step`` and ``verify_step`` serve
     through the paged kernel — decode-only, engine-managed; ``kv_dtype``
@@ -147,7 +194,8 @@ def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device="cud
                                  num_pages=num_pages, kv_dtype=kv_dtype, device=device)
     if cache_layout != "dense":
         raise ValueError(f"cache_layout must be 'dense' or 'paged', got {cache_layout!r}")
-    return {"blocks": [attn.gqa_cache_init(cfg, batch, max_len, dtype, device)
+    one = attn.mla_cache_init if cfg.uses_mla else attn.gqa_cache_init
+    return {"blocks": [one(cfg, batch, max_len, dtype, device)
                        for _ in range(cfg.num_layers)]}
 
 
@@ -161,7 +209,7 @@ def prefill(params, cfg, tokens, caches, *, logit_index: int | None = None):
     how a right-padded chunk returns its last real token's logits."""
     x = _embed(params, cfg, tokens)
     positions = _positions(_cache_len(cfg, caches), tokens)
-    x, caches = _apply_stack(params, cfg, x, positions, caches)
+    x, caches, _ = _apply_stack(params, cfg, x, positions, caches)
     last = x[:, -1:] if logit_index is None else x[:, logit_index:logit_index + 1]
     return _head(params, cfg, last), caches
 
@@ -172,7 +220,7 @@ def decode_step(params, cfg, token, caches):
         return _paged_decode_step(params, cfg, token, caches)
     x = _embed(params, cfg, token)
     positions = _positions(_cache_len(cfg, caches), token)
-    x, caches = _apply_stack(params, cfg, x, positions, caches)
+    x, caches, _ = _apply_stack(params, cfg, x, positions, caches)
     return _head(params, cfg, x), caches
 
 
@@ -185,13 +233,13 @@ def _paged_stack(params, cfg, tokens, caches):
     lens, bt = caches["lens"], caches["block_tables"]
     s = tokens.shape[1]
     positions = lens.long()[:, None] + torch.arange(s, device=lens.device)[None, :]
+    key = "kv_pages" if cfg.uses_mla else "k_pages"
     coords = attn._paged_token_coords(
-        {"block_tables": bt, "len": lens, "k_pages": caches["blocks"][0]["k_pages"]},
-        "k_pages", s)
+        {"block_tables": bt, "len": lens, key: caches["blocks"][0][key]}, key, s)
     new_blocks = []
     for p, pool in zip(params["blocks"], caches["blocks"]):
         cache_i = dict(pool, block_tables=bt, len=lens, coords=coords)
-        x, nc = block_apply(p, cfg, x, positions, cache_i)
+        x, nc, _ = block_apply(p, cfg, x, positions, cache_i)
         new_blocks.append(nc)
     return x, new_blocks
 

@@ -73,10 +73,12 @@ the engine uploads the tokens, block tables and lens once (pinned host
 memory, asynchronous copies) and reads the step's tokens back once; the
 only other sync is the SLO probe, one prefill step in eight.
 
-The port runs the dense family with plain (non-SWA) attention caches
-on float or int8 pools (an int8 prefix tree shares whole pages only, so
-``row_lo`` is page-aligned and no partial int8 page is ever COW-forked);
-SWA rolling buffers raise, naming their ROADMAP.md item.  Step
+The port runs the dense and MoE families, GQA and MLA caches, on float
+or int8 pools (an int8 prefix tree shares whole pages only, so
+``row_lo`` is page-aligned and no partial int8 page is ever COW-forked).
+An SWA config prefills each prompt in one exact-shape pass into a
+rolling buffer (which cannot absorb pad rows or pause mid-prompt), so it
+refuses ``prefill_budget`` and ``prefix_cache`` as the reference does.  Step
 functions are plain closures built per engine: PyTorch runs eagerly,
 so the reference's cross-engine jit cache has
 nothing to keep.  Knobs left unset take the reference's untuned
@@ -230,10 +232,6 @@ class ServingEngine:
                 f"ServingEngine: {cfg.name} ({cfg.family}) has recurrent/"
                 "enc-dec caches — use the static loop")
         tf.check_supported(cfg)
-        if cfg.sliding_window:
-            raise NotImplementedError(
-                "ServingEngine over an SWA config needs the rolling-buffer "
-                "prefill cache: ROADMAP.md queue 1, item 8")
         # the reference's untuned defaults (its tuning table is ROADMAP.md
         # queue 1, item 13)
         if page_size is None:
@@ -257,7 +255,7 @@ class ServingEngine:
                                 cache_layout="paged", page_size=page_size,
                                 num_pages=num_pages, kv_dtype=self.kv_dtype)
         self.blocks = caches["blocks"]
-        self.num_pages = kv_cache.pool_num_pages(self.blocks[0]["k_pages"])
+        self.num_pages = kv_cache.pool_num_pages(next(iter(self.blocks[0].values())))
         self.pool_bytes = self.num_pages * kv_cache.page_bytes(
             cfg, page_size, self.kv_dtype)
         self.allocator = kv_cache.PageAllocator(self.num_pages)
@@ -268,6 +266,8 @@ class ServingEngine:
         self._done: list[Request] = []
         self._next_rid = 0
         self._prefill_chunk = prefill_chunk
+        # SWA rolling buffers can't absorb pad rows -> exact-shape path
+        self._dyn_prefill = not cfg.sliding_window
         self._prefill = make_prefill_step(cfg, chunk=prefill_chunk)
         self._decode = make_serve_step(cfg)
         self._verify = make_verify_step(cfg)
@@ -276,6 +276,10 @@ class ServingEngine:
             if prefill_budget < 1:
                 raise ValueError(
                     f"prefill_budget must be >= 1 token, got {prefill_budget}")
+            if not self._dyn_prefill:
+                raise NotImplementedError(
+                    "prefill_budget needs the dynamic (resumable) prefill "
+                    "path — an SWA rolling buffer cannot pause mid-prompt")
         if slo_ms is not None and prefill_budget is None:
             raise ValueError(
                 "slo_ms targets per-step prefill interference — it needs "
@@ -289,6 +293,10 @@ class ServingEngine:
         self._chunk_ewma: float | None = None   # s per prefill chunk call
         self._decode_ewma: float | None = None  # s per batched decode step
         self._chunk_probe = 0  # steps since the last synced chunk sample
+        if prefix_cache and not self._dyn_prefill:
+            raise NotImplementedError(
+                "prefix cache needs the dynamic (resumable) prefill path — "
+                "an SWA rolling buffer cannot seed a mid-sequence resume")
         self.prefix = (
             kv_cache.RadixPrefixCache(self.allocator, page_size,
                                       full_pages_only=self.kv_dtype == "int8")
@@ -604,6 +612,10 @@ class ServingEngine:
             req.t_admit = now
         slot.req, slot.pages, slot.length = req, pages, 0
         slot.seq, slot.pf_pos, slot.n_prefix = seq, m, m
+        if not self._dyn_prefill:  # SWA: monolithic exact-shape prefill
+            slot.dense = tf.init_caches(self.cfg, 1, self._bucket(len(seq)),
+                                        self._dtype, self.device)
+            return
         ns = len(seq) - m
         # the dense cache must hold prefix + suffix, bucketed on the
         # chunk grid as the reference does
@@ -626,13 +638,19 @@ class ServingEngine:
         real token count).  Returns prompt tokens consumed; the slot
         transitions to DECODING when the last chunk lands."""
         seq, n = slot.seq, len(slot.seq)
-        k = min(self._prefill_chunk, n - slot.pf_pos)
-        piece = np.zeros((1, self._prefill_chunk), np.int64)
-        piece[0, :k] = seq[slot.pf_pos:slot.pf_pos + k]
-        tok, slot.dense = self._prefill(self.params,
-                                        self._upload(piece, torch.int64),
-                                        slot.dense, n_tokens=k)
-        slot.pf_pos += k
+        if not self._dyn_prefill:  # SWA: single exact pass
+            tok, slot.dense = self._prefill(self.params,
+                                            self._upload(seq[None], torch.int64),
+                                            slot.dense)
+            slot.pf_pos, k = n, n
+        else:
+            k = min(self._prefill_chunk, n - slot.pf_pos)
+            piece = np.zeros((1, self._prefill_chunk), np.int64)
+            piece[0, :k] = seq[slot.pf_pos:slot.pf_pos + k]
+            tok, slot.dense = self._prefill(self.params,
+                                            self._upload(piece, torch.int64),
+                                            slot.dense, n_tokens=k)
+            slot.pf_pos += k
         self._prefill_chunk_calls += 1
         if slot.pf_pos >= n:
             self._finish_prefill(slot_id, slot, tok)
@@ -646,11 +664,14 @@ class ServingEngine:
         n = len(seq)
         self.block_tables[slot_id, :] = -1
         self.block_tables[slot_id, :len(pages)] = pages
+        # an SWA prefill's rolling buffer holds positions n - t .. n - 1
+        # (the ordered snapshot): tell the copy where its row 0 sits
+        row0 = 0 if self._dyn_prefill else n - slot.dense["blocks"][0]["k"].shape[1]
         # row_lo=m: rows < m came from shared pages this slot may only
         # READ — scatter back just what this prefill computed
         kv_cache.write_prompt_pages(self.blocks, slot.dense["blocks"],
                                     self._upload(self.block_tables[slot_id]),
-                                    n, row_lo=m)
+                                    n, row0_pos=row0, row_lo=m)
         slot.dense = None
         if self.spec_k:
             # draft prefill: FULL sequence (the draft shares no pages,

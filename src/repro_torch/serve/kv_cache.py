@@ -4,6 +4,7 @@
 Each layer's cache is a shared pool of fixed-size **pages**:
 
     k_pages / v_pages : (Hkv, num_pages + 1, page_size, D)
+    kv_pages          : (1, num_pages + 1, page_size, r + dr)   (MLA)
 
 A sequence owns an ordered **block table** of pool-page indices; logical
 position ``t`` lives at ``(block_table[t // page_size], t % page_size)``.
@@ -24,7 +25,8 @@ sink; :func:`pool_num_pages` gives the served count of a pool.
 
 **int8 pools** (``kv_dtype="int8"``): pages store int8 rows plus ONE f32
 scale per (kv-head, page), ``k_scales``/``v_scales`` of shape
-(Hkv, num_pages + 1) — the sink has a scale column too.  Quantization
+(Hkv, num_pages + 1) — the sink has a scale column too (MLA: one
+``kv_scales`` (1, num_pages + 1) row for its shared pool).  Quantization
 happens at write time (:func:`write_prompt_pages` per page,
 :func:`quant_page_update` per decode token) with the shared
 ``optim.quant`` convention; the paged kernel dequantizes as it reads.
@@ -513,10 +515,14 @@ def supports_paged(cfg) -> bool:
 
 
 def _layer_pool(cfg, num_pages: int, page_size: int, dtype, device):
-    if cfg.uses_mla:
-        raise NotImplementedError(
-            "MLA's shared paged pool is not ported yet: ROADMAP.md queue 1, item 8")
     # one page more than served: the sink (see the module docstring)
+    if cfg.uses_mla:
+        # one shared [c_kv | k_rope] pool, one scale row per page for int8
+        shape = (1, num_pages + 1, page_size, cfg.kv_lora_rank + cfg.rope_head_dim)
+        pool = {"kv_pages": torch.zeros(shape, dtype=dtype, device=device)}
+        if dtype == torch.int8:
+            pool["kv_scales"] = torch.zeros(shape[:2], dtype=torch.float32, device=device)
+        return pool
     shape = (cfg.kv_heads, num_pages + 1, page_size, cfg.head_dim)
     pool = {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
             "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
@@ -633,14 +639,23 @@ def fork_page(paged_blocks, src: int, dst: int):
     return paged_blocks
 
 
+def _dense_rows(dense: dict) -> dict:
+    """A batch-1 dense layer cache as ``{pool prefix: (T, H, W) rows}``:
+    GQA's ``{"k": ..., "v": ...}`` rows per KV head, MLA's one ``"kv"``
+    latent buffer as a single head (the layout of its pool)."""
+    if "kv" in dense:
+        return {"kv": dense["kv"][0][:, None, :]}
+    return {"k": dense["k"][0], "v": dense["v"][0]}
+
+
 def seed_prefix_dense(dense_caches, paged_blocks, block_row, n_prefix: int):
     """Gather a cached prefix's page rows into a freshly initialised
     batch-1 dense cache so chunked prefill can RESUME at ``n_prefix``.
 
-    ``dense_caches`` is ``{"blocks": [per-layer {"k", "v", "len"}]}``
-    (rows at and past ``n_prefix`` stay zero); ``block_row``
-    (pages_per_seq,) is the request's page ids on the pools' device;
-    every layer's ``len`` becomes ``n_prefix``; int8 pages are
+    ``dense_caches`` is ``{"blocks": [per-layer {"k", "v", "len"}]}`` (MLA:
+    ``{"kv", "len"}``; rows at and past ``n_prefix`` stay zero);
+    ``block_row`` (pages_per_seq,) is the request's page ids on the pools'
+    device; every layer's ``len`` becomes ``n_prefix``; int8 pages are
     dequantized by their page scales.  Written in place; returns
     ``dense_caches``."""
     first = next(iter(paged_blocks[0].values()))
@@ -652,12 +667,12 @@ def seed_prefix_dense(dense_caches, paged_blocks, block_row, n_prefix: int):
     page = torch.where(valid, page, 0)  # gather page 0, mask its rows after
     slot = pos % pg
     for pool, dense in zip(paged_blocks, dense_caches["blocks"]):
-        for key in ("k", "v"):
-            rows = pool[f"{key}_pages"][:, page, slot].float()    # (Hkv, n, W)
+        for key, dst in _dense_rows(dense).items():
+            rows = pool[f"{key}_pages"][:, page, slot].float()    # (H, n, W)
             if f"{key}_scales" in pool:
                 rows = rows * pool[f"{key}_scales"][:, page][..., None]
             rows = rows * valid[None, :, None]
-            dense[key][0, :n_prefix] = rows.transpose(0, 1).to(dense[key].dtype)
+            dst[:n_prefix] = rows.transpose(0, 1).to(dst.dtype)
         dense["len"] = n_prefix
     return dense_caches
 
@@ -668,17 +683,18 @@ def seed_prefix_dense(dense_caches, paged_blocks, block_row, n_prefix: int):
 
 
 def write_prompt_pages(paged_blocks, dense_blocks, block_row, n_tokens: int,
-                       row_lo: int = 0):
+                       row0_pos: int = 0, row_lo: int = 0):
     """Scatter one request's dense-prefill cache rows into its pages.
 
     paged_blocks: the per-layer pool list from :func:`init_paged_caches`;
     dense_blocks: the per-layer ``[{"k", "v", ...}]`` of a **batch-1**
-    dense cache after prefill, each (1, T, Hkv, D); block_row:
-    (pages_per_seq,) int32 page ids on the pools' device; n_tokens: live
-    prompt length.  Dense row j holds position j (the reference's
-    ``row0_pos`` serves SWA rolling buffers, not ported).  Rows mapping
-    outside [0, n_tokens) — pad rows, -1 table tails — go to the sink
-    page.
+    dense cache after prefill, each (1, T, Hkv, D) (MLA: ``[{"kv", ...}]``,
+    (1, T, r + dr)); block_row: (pages_per_seq,) int32 page ids on the
+    pools' device; n_tokens: live prompt length.  ``row0_pos`` is the
+    position of dense row 0 — 0 for plain buffers, ``n_tokens - T`` for an
+    SWA rolling buffer (the ordered snapshot).  Rows mapping outside
+    [0, n_tokens) — pad rows, unwritten rolling rows, -1 table tails — go
+    to the sink page.
 
     ``row_lo`` drops rows BELOW a position too: a prefix-cache hit means
     positions [0, row_lo) live in SHARED pages that must not be
@@ -694,11 +710,11 @@ def write_prompt_pages(paged_blocks, dense_blocks, block_row, n_tokens: int,
     first = next(iter(paged_blocks[0].values()))
     sink, pg = pool_num_pages(first), first.shape[2]
     max_pp = block_row.shape[0]
-    t = dense_blocks[0]["k"].shape[1]
-    pos = torch.arange(t, device=first.device)
+    t = next(iter(_dense_rows(dense_blocks[0]).values())).shape[0]
+    pos = torch.arange(t, device=first.device) + row0_pos
     local = torch.clamp(pos // pg, 0, max_pp - 1)
     page = block_row.long()[local]
-    valid = (pos >= row_lo) & (pos < n_tokens) & (page >= 0)
+    valid = (pos >= 0) & (pos >= row_lo) & (pos < n_tokens) & (page >= 0)
     page = torch.where(valid, page, sink)
     slot = pos % pg
     if first.dtype == torch.int8:
@@ -715,9 +731,8 @@ def write_prompt_pages(paged_blocks, dense_blocks, block_row, n_tokens: int,
         return quant_with_scale(rows, scales[local][..., None]), scales
 
     for pool, dense in zip(paged_blocks, dense_blocks):
-        for key in ("k", "v"):
+        for key, rows in _dense_rows(dense).items():               # (T, H, W)
             leaf = pool[f"{key}_pages"]
-            rows = dense[key][0]                                   # (T, Hkv, W)
             if leaf.dtype == torch.int8:
                 rows, scales = page_quant(rows)
                 pool[f"{key}_scales"][:, spage] = scales.T

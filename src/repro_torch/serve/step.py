@@ -6,7 +6,9 @@ sequential chunk passes against the growing KV cache.  A ragged final
 chunk is right-padded to ``chunk`` for attention caches: its logits are
 read at the last real token (``logit_index``) and every cache ``len`` is
 rewound past the pad, so the pad rows are masked out of every later
-attend and overwritten as decode proceeds.
+attend and overwritten as decode proceeds.  An SWA rolling buffer cannot
+absorb pad rows (they would push real keys out of the window), so an SWA
+config runs the remainder as one exact-size pass instead.
 
 ``n_tokens`` (a host int) is the DYNAMIC-length contract the serving
 engine uses: ``tokens`` arrives right-padded and only its first
@@ -67,8 +69,9 @@ def make_prefill_step(cfg, chunk: int = 4096, *, return_logits: bool = False):
         at the clamped real-last position, the chunk that holds token
         ``n - 1`` gives the logits, and ``len`` rewinds past the pad."""
         if not pad_ok:
-            raise NotImplementedError(
-                "dynamic-length prefill needs a pad-tolerant attention cache")
+            raise ValueError(
+                "dynamic-length prefill needs a pad-tolerant attention cache; "
+                "an SWA rolling buffer takes the exact-shape call (no n_tokens)")
         s = tokens.shape[1]
         if not 1 <= n <= s:
             raise ValueError(f"n_tokens={n} outside [1, {s}]")

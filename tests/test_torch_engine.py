@@ -225,10 +225,16 @@ def test_engine_cancel_and_quarantine_match_reference(model):
 
 
 def test_engine_refuses_what_the_port_lacks(model):
+    """An SWA config's rolling-buffer prefill cannot pause or resume, so
+    the engine refuses a prefill budget and the prefix cache for it, as
+    the reference does; it serves it otherwise."""
     _, tcfg, params = model
     swa = dataclasses.replace(tcfg, sliding_window=16)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        teng.ServingEngine(params["target"][1], swa)
+    with pytest.raises(NotImplementedError, match="SWA rolling buffer cannot pause"):
+        teng.ServingEngine(params["target"][1], swa, prefill_budget=8)
+    with pytest.raises(NotImplementedError, match="SWA rolling buffer cannot seed"):
+        teng.ServingEngine(params["target"][1], swa, prefix_cache=True)
+    assert not teng.ServingEngine(params["target"][1], swa)._dyn_prefill
     with pytest.raises(ValueError, match="prefill_budget"):
         teng.ServingEngine(params["target"][1], tcfg, prefill_budget=0)
 

@@ -924,3 +924,152 @@ def test_resnet18_int8_head_on_card(cuda):
         layers.set_gemm_impl(prev)
     assert tvta.vta_gemm.launches["dequant"] == n0 + 1
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the MoE family and the rest of the dense family (slice 8)
+# ---------------------------------------------------------------------------
+
+# one full-width layer's flash call: the dense family's G 7 / 8 / 12 (a
+# 512-row chunk at q_offset 512), mixtral's G 6 with its window biting,
+# MLA's prefill (G 1, D = dn + dr = 192, Dv 128, scale 192^-0.5)
+GPU_FLASH_FAMILY = [
+    ("yi_34b_g7", dict(b=1, s=512, t=1024, h=56, hkv=8, d=128, dv=128),
+     dict(q_offset=512, kv_len=1024)),
+    ("qwen2_72b_g8", dict(b=1, s=512, t=1024, h=64, hkv=8, d=128, dv=128),
+     dict(q_offset=512, kv_len=1024)),
+    ("starcoder2_15b_g12", dict(b=1, s=512, t=1024, h=48, hkv=4, d=128, dv=128),
+     dict(q_offset=512, kv_len=1024)),
+    ("mixtral_g6_window", dict(b=1, s=512, t=4608, h=48, hkv=8, d=128, dv=128),
+     dict(q_offset=4096, kv_len=4608, window=4096)),
+    ("mla_g1_d192_dv128", dict(b=2, s=512, t=1040, h=128, hkv=128, d=192, dv=128),
+     dict(q_offset=512, kv_len=1024, scale=192 ** -0.5)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,shape,opts", GPU_FLASH_FAMILY, ids=[c[0] for c in GPU_FLASH_FAMILY])
+def test_flash_kernel_at_family_shapes_on_card(cuda, name, shape, opts, dtype):
+    q, k, v = _qkv(cuda, getattr(torch, dtype), **shape, seed=len(name))
+    n0 = tfl.flash_attention.launches
+    got = tfl.flash_attention(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert tfl.flash_attention.launches == n0 + 1
+    want = tfl.flash_attention_ref(q, k, v, **opts)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=TOL[dtype])
+
+
+def _moe_model(dev, arch, **kw):
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as tf
+
+    cfg = get_config(arch).scaled_down(**kw)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return cfg, tf.init(cfg, generator=gen, dtype=torch.float32, device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek_v2_236b", "mixtral_8x22b"])
+def test_moe_generate_on_card_goes_through_kernels(cuda, arch):
+    """Reduced MoE generate on the card (prompt 600 at chunk 512): deepseek
+    launches flash per prefill chunk and the dense decode kernel per step;
+    mixtral's 128-token window makes its cache a rolling buffer, whose
+    branch launches neither.  Tokens equal a run on the plain versions."""
+    from repro_torch.models import layers
+    from repro_torch.serve.step import generate
+
+    cfg, params = _moe_model(cuda, arch)
+    prompt = torch.randint(0, cfg.vocab, (2, 600), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    n0 = (tfl.flash_attention.launches, tdec.decode_attention.launches)
+    got = generate(params, cfg, prompt, 5, 1030, torch.float32, chunk=512)
+    n1 = (tfl.flash_attention.launches, tdec.decode_attention.launches)
+    want_n = (0, 0) if cfg.sliding_window else (2 * cfg.num_layers, 4 * cfg.num_layers)
+    assert (n1[0] - n0[0], n1[1] - n0[1]) == want_n
+    prev = layers.set_attention_impl("ref")
+    try:
+        want = generate(params, cfg, prompt, 5, 1030, torch.float32, chunk=512)
+    finally:
+        layers.set_attention_impl(prev)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_moe_int8_experts_on_card_go_through_the_gemm(cuda):
+    """deepseek reduced on int8 weights: every routed and shared expert's
+    three projections are one VTA GEMM launch each per forward call, and
+    the logits equal a run with the GEMMs on their plain version bitwise;
+    two runs on the card are bitwise equal (the fixed-order combine)."""
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.quant import quantize_params
+
+    cfg, params = _moe_model(cuda, "deepseek_v2_236b")
+    qp = quantize_params(params)
+    ex = qp["blocks"][0]["ffn"]["experts"]["w_gate"]["qw"]
+    assert ex.shape == (cfg.moe_experts, cfg.d_model, cfg.d_ff)
+    assert ex.stride()[1:] == (1, cfg.d_model), "K-major per expert"
+    toks = torch.randint(0, cfg.vocab, (2, 40), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(3))
+    n0 = tvta.vta_gemm.launches["none"]
+    got, aux = tf.forward(qp, cfg, toks)
+    torch.cuda.synchronize()
+    per_call = 3 * (cfg.moe_experts + cfg.moe_shared_experts) * cfg.num_layers
+    assert tvta.vta_gemm.launches["none"] - n0 == per_call
+    again, _ = tf.forward(qp, cfg, toks)
+    assert torch.equal(got, again)
+    prev = layers.set_gemm_impl("ref")
+    try:
+        want, want_aux = tf.forward(qp, cfg, toks)
+    finally:
+        layers.set_gemm_impl(prev)
+    assert torch.equal(got, want) and torch.equal(aux, want_aux)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["f32", "int8"])
+def test_mla_engine_on_card_goes_through_kernels(cuda, kv_dtype):
+    """A reduced deepseek ServingEngine trace on MLA's one-pool pages with
+    the prefix cache: the paged kernel per layer and decode step, flash per
+    layer and 512-token prefill chunk, the audit green, and tokens equal to
+    a run on the plain versions."""
+    from repro_torch.models import layers
+    from repro_torch.serve.engine import ServingEngine
+
+    cfg, params = _moe_model(cuda, "deepseek_v2_236b")
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.vocab, 512)
+    trace = []
+    for n, m in [(530, 6), (700, 3), (520, 9), (600, 5)]:
+        p = rng.integers(0, cfg.vocab, n).astype(np.int32)
+        if n >= 600:
+            p[:512] = shared
+        trace.append((p, m))
+
+    def run():
+        eng = ServingEngine(params, cfg, max_slots=2, max_len=1024, page_size=16,
+                            prefill_chunk=512, prefix_cache=True, kv_dtype=kv_dtype)
+        for p, m in trace:
+            eng.submit(p, m)
+        for _ in range(200):
+            if not eng.pending and eng.active == 0:
+                break
+            eng.step(debug_audit=True)
+        done = eng.run()
+        eng.audit()
+        assert eng.allocator.num_free + len(eng.prefix.pages()) == eng.num_pages
+        return {r.rid: r.tokens for r in done}, eng.stats(), set(eng.blocks[0])
+
+    n0 = (tdec.paged_decode_attention.launches, tfl.flash_attention.launches)
+    got, st, pools = run()
+    assert pools == ({"kv_pages", "kv_scales"} if kv_dtype == "int8" else {"kv_pages"})
+    assert tdec.paged_decode_attention.launches - n0[0] == st["steps"] * cfg.num_layers
+    assert tfl.flash_attention.launches - n0[1] == st["prefill_chunk_calls"] * cfg.num_layers
+    prev = layers.set_attention_impl("ref")
+    try:
+        want, want_st, _ = run()
+    finally:
+        layers.set_attention_impl(prev)
+    assert got == want and st["prefill_chunk_calls"] == want_st["prefill_chunk_calls"]
