@@ -45,7 +45,22 @@ qwen3_0p6b (f32, random weights from seed 0):
   to runs with the GEMMs on their plain version; mixtral_8x22b (8 experts
   top-2, SWA 4096) through the static path (batch 2, prompt 4608: the
   rolling buffer wraps) and the engine (4 requests of 4200-4608 tokens:
-  the paged kernel's window bites).
+  the paged kernel's window bites);
+* the remaining families at full width (batch 2, f32, random weights from
+  the port's ``init``, seed 0, each freed before the next), after flash
+  and dense decode are held and timed at their new shapes (G 1 at D 80,
+  bidirectional S = T = 1024, S 512 and S 1 against 1024 frames, a
+  768-row first chunk at G 8): mamba2_2p7b (64 layers, the static path,
+  prompt 2048 in four 512-token chunks, 16 new tokens; its chunked
+  prefill against one pass, prefill(2047) + one decode step against
+  prefill(2048), and the chunked SSD against its recurrence in f64),
+  zamba2_2p7b (54 Mamba2 layers in 9 groups with the shared attention
+  block, the same static path, in f32 and on ``quantize_params`` weights,
+  bitwise to a plain-GEMM run), seamless_m4t_large_v2 (24 + 24 layers,
+  ``serve.step.generate`` with 1024 frames and a 1024-token prompt in two
+  chunks) and internvl2_76b (depth cut to 2, ``generate`` with 256 patch
+  embeddings before a 1536-token prompt), their f32 logits held to runs
+  on the plain versions.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after, and the counts must be exactly those the path's own
@@ -223,13 +238,17 @@ def bound_ms(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def flash_work(b, s, h, hkv, d, dv, q_offset, kv_len, esize, window=0):
-    """Operations and bytes one causal flash call needs: every visible
-    (query, key) pair costs 2*D + 2*Dv; q and the live K/V (of a window:
-    the keys some query sees) are read once, the output written once."""
+def flash_work(b, s, h, hkv, d, dv, q_offset, kv_len, esize, window=0, bidirectional=False):
+    """Operations and bytes one flash call needs: every visible (query,
+    key) pair costs 2*D + 2*Dv (bidirectional: every query sees every live
+    key); q and the live K/V (of a window: the keys some query sees) are
+    read once, the output written once."""
     lo = (lambda p: max(0, p - window + 1)) if window else (lambda p: 0)
-    pairs = sum(min(q_offset + i + 1, kv_len) - lo(q_offset + i) for i in range(s))
-    keys = kv_len - lo(q_offset)
+    if bidirectional:
+        pairs, keys = s * kv_len, kv_len
+    else:
+        pairs = sum(min(q_offset + i + 1, kv_len) - lo(q_offset + i) for i in range(s))
+        keys = kv_len - lo(q_offset)
     flops = b * h * pairs * 2 * (d + dv)
     nbytes = esize * (b * s * h * d + b * keys * hkv * (d + dv) + b * s * h * dv)
     return flops, nbytes
@@ -1992,6 +2011,466 @@ def moe_phases(torch, dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the remaining families: mamba2_2p7b (SSD), zamba2_2p7b (hybrid shared
+# attention), seamless_m4t_large_v2 (enc-dec) and internvl2_76b (VLM)
+# ---------------------------------------------------------------------------
+
+FAMILY_BATCH, FAMILY_CHUNK, FAMILY_NEW = 2, 512, 16
+# arch -> (prompt tokens, encoder frames or patch embeddings, depth: None
+# keeps the config's).  internvl2's 80 layers need ~274 GB in f32, more than
+# the card holds: 2, as the MoE slice.  mamba2 and zamba2 run the launcher's
+# static path; seamless and internvl2 ``serve.step.generate``
+FAMILIES = {"mamba2_2p7b": (2048, 0, None), "zamba2_2p7b": (2048, 0, None),
+            "seamless_m4t_large_v2": (1024, 1024, None), "internvl2_76b": (1536, 256, 2)}
+# mamba2's gates: the four-chunk prefill against one 2048-token pass, and
+# prefill(2047) + one decode step against prefill(2048), relative to the
+# largest |logit|; the SSM and conv states relative to their largest
+# element; ssd_chunked in f32 against the f64 recurrence, to max|y|
+SSM_LOGIT_TOL, SSM_STATE_TOL, SSD_F64_TOL = 1e-3, 1e-4, 1e-4
+
+# the kernels at the families' new shapes (batch 2, f32), each at the
+# path's own buffers: (label, q/k shape, call options, cold): zamba2's
+# shared block at its last prompt chunk (G 1, D 80); seamless's encoder
+# (bidirectional S = T = 1024) and its cross-attention at prefill (S 512)
+# and at every decode step (S 1, K/V cycled past the L2, as each layer
+# reads its own); internvl2's first chunk (256 patch embeddings + 512
+# tokens, G 8)
+FAMILY_FLASH = [
+    ("zamba2 G 1 D 80", dict(s=512, t=2064, h=32, hkv=32, d=80),
+     dict(q_offset=1536, kv_len=2048), False),
+    ("seamless encoder S 1024 T 1024 bidirectional", dict(s=1024, t=1024, h=16, hkv=16, d=64),
+     dict(bidirectional=True), False),
+    ("seamless cross S 512 T 1024 bidirectional", dict(s=512, t=1024, h=16, hkv=16, d=64),
+     dict(bidirectional=True), False),
+    ("seamless cross S 1 T 1024 bidirectional", dict(s=1, t=1024, h=16, hkv=16, d=64),
+     dict(bidirectional=True), True),
+    ("internvl2 G 8 first chunk S 768", dict(s=768, t=1808, h=64, hkv=8, d=128),
+     dict(q_offset=0, kv_len=768), False),
+]
+# dense decode at each path's middle step: (label, shape, kv_len)
+FAMILY_DECODE = [
+    ("zamba2 G 1 D 80", dict(h=32, hkv=32, d=80, t=2064), 2056),
+    ("seamless G 1 D 64", dict(h=16, hkv=16, d=64, t=1040), 1032),
+    ("internvl2 G 8 D 128", dict(h=64, hkv=8, d=128, t=1808), 1800),
+]
+
+
+def family_kernel_phase(torch, gen, dev, card: str) -> dict:
+    """Flash and dense decode at FAMILY_FLASH's and FAMILY_DECODE's shapes,
+    before any of the families' models runs: one launch each, finite,
+    within TOL of the plain version; then the kernel's graph-replay time
+    beside the eager plain version, SDPA (graph replay; K/V heads repeated
+    to H, the same mask) and the bound.  At seamless's S 1 cross-attention
+    the dense decode kernel is timed on the same K/V too (one query
+    attending every live key is its function), beside its byte bound.
+    Returns the largest errors by kernel."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    b = FAMILY_BATCH
+    worst = {"flash_attention": 0.0, "decode_attention": 0.0}
+    for label, sh, opts, cold in FAMILY_FLASH:
+        s, t, h, hkv, d = sh["s"], sh["t"], sh["h"], sh["hkv"], sh["d"]
+        kv_len, bidir = opts.get("kv_len", t), opts.get("bidirectional", False)
+        n = cold_copies(2 * b * t * hkv * d * 4) if cold else 1
+        q = torch.randn((b, s, h, d), generator=gen, device=dev)
+        kvs = [(torch.randn((b, t, hkv, d), generator=gen, device=dev),
+                torch.randn((b, t, hkv, d), generator=gen, device=dev)) for _ in range(n)]
+        k, v = kvs[0]
+        n0 = flash_attention.launches
+        got = flash_attention(q, k, v, **opts)
+        want = flash_attention_ref(q, k, v, **opts)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(flash_attention.launches == n0 + 1 and bool(torch.isfinite(got).all()),
+              f"flash {label}: one launch, finite")
+        check(err <= TOL["float32"], f"flash {label}: max|err| {err} > {TOL['float32']}")
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+        mask = None
+        if not bidir:
+            mask = (torch.arange(kv_len, device=dev)[None, :]
+                    <= opts["q_offset"] + torch.arange(s, device=dev)[:, None])
+        g = h // hkv
+        qt = q.transpose(1, 2)
+        kt = [k_[:, :kv_len].repeat_interleave(g, dim=2).transpose(1, 2) for k_, _ in kvs]
+        vt = [v_[:, :kv_len].repeat_interleave(g, dim=2).transpose(1, 2) for _, v_ in kvs]
+        ms = graph_ms(torch, lambda i: flash_attention(q, *kvs[i % n], **opts), reps=20)
+        lib = graph_ms(torch, lambda i: F.scaled_dot_product_attention(
+            qt, kt[i % n], vt[i % n], attn_mask=mask), reps=20)
+        plain = cuda_ms(torch, lambda i: flash_attention_ref(q, *kvs[i % n], **opts), reps=3)
+        flops, nbytes = flash_work(b, s, h, hkv, d, d, opts.get("q_offset", 0), kv_len, 4,
+                                   bidirectional=bidir)
+        bnd, by = bound_ms(3 * flops, nbytes, "tf32")
+        extra = ""
+        if s == 1:
+            dms = graph_ms(torch, lambda i: decode_attention(q, *kvs[i % n], kv_len=kv_len),
+                           reps=20)
+            derr = (decode_attention(q, k, v, kv_len=kv_len) - want).abs().max().item()
+            check(derr <= TOL["float32"], f"decode on {label}'s K/V: max|err| {derr}")
+            dbnd, dby = bound_ms(*decode_work(b, h, hkv, d, d, kv_len, 4), "float32")
+            extra = (f"; the dense decode kernel on the same K/V {dms:.4f} ms (max|err| vs "
+                     f"flash's plain version {derr:.3e}), its bound {dbnd:.4f} ms ({dby})")
+        log(f"[time] flash {label} (B {b}, H {h}, Hkv {hkv}, D {d}, kv_len {kv_len}"
+            f"{f', {n} K/V copies cycled' if cold else ''}) f32: max|err| vs plain {err:.3e} "
+            f"(tol {TOL['float32']}); kernel {ms:.4f} ms (graph replay), plain {plain:.4f} ms, "
+            f"sdpa {lib:.4f} ms (graph replay), bound {bnd:.4f} ms ({by}, 3xTF32; "
+            f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB){extra}; on {card}")
+        del q, kvs, k, v, kt, vt, qt, got, want
+
+    for label, sh, kv_len in FAMILY_DECODE:
+        h, hkv, d, t = sh["h"], sh["hkv"], sh["d"], sh["t"]
+        n = cold_copies(2 * b * t * hkv * d * 4)
+        q = torch.randn((b, 1, h, d), generator=gen, device=dev)
+        kvs = [(torch.randn((b, t, hkv, d), generator=gen, device=dev),
+                torch.randn((b, t, hkv, d), generator=gen, device=dev)) for _ in range(n)]
+        n0 = decode_attention.launches
+        got = decode_attention(q, *kvs[0], kv_len=kv_len)
+        want = decode_attention_ref(q, *kvs[0], kv_len=kv_len)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(decode_attention.launches == n0 + 1 and bool(torch.isfinite(got).all()),
+              f"decode {label}: one launch, finite")
+        check(err <= TOL["float32"], f"decode {label}: max|err| {err} > {TOL['float32']}")
+        worst["decode_attention"] = max(worst["decode_attention"], err)
+        g = h // hkv
+        qt = q.transpose(1, 2)
+        kt = [k_[:, :kv_len].repeat_interleave(g, dim=2).transpose(1, 2) for k_, _ in kvs]
+        vt = [v_[:, :kv_len].repeat_interleave(g, dim=2).transpose(1, 2) for _, v_ in kvs]
+        ms = graph_ms(torch, lambda i: decode_attention(q, *kvs[i % n], kv_len=kv_len), reps=50)
+        lib = graph_ms(torch, lambda i: F.scaled_dot_product_attention(qt, kt[i % n], vt[i % n]),
+                       reps=50)
+        plain = cuda_ms(torch, lambda i: decode_attention_ref(q, *kvs[i % n], kv_len=kv_len),
+                        reps=5)
+        bnd, by = bound_ms(*decode_work(b, h, hkv, d, d, kv_len, 4), "float32")
+        log(f"[time] decode {label} (B {b}, H {h}, Hkv {hkv}, T {t}, kv_len {kv_len}, {n} K/V "
+            f"copies cycled) f32: max|err| vs plain {err:.3e} (tol {TOL['float32']}); kernel "
+            f"{ms:.4f} ms (graph replay), plain {plain:.4f} ms, sdpa {lib:.4f} ms (graph "
+            f"replay), bound {bnd:.4f} ms ({by}), {100 * bnd / ms:.1f} % of the bound; on {card}")
+        del q, kvs, kt, vt, qt, got, want
+    return worst
+
+
+def family_expect(cfg, chunks: int, steps: int, int8: bool) -> dict:
+    """The launch counts of one family path: flash per attention layer and
+    prefill chunk (enc-dec: also each encoder layer once, and the
+    cross-attention at every chunk and decode step), dense decode per
+    attention layer and step, the dequant GEMM per quantized projection
+    (Mamba2's in/out, the shared block's seven, the head) and call."""
+    groups = cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
+    attn_layers = groups or (0 if cfg.ssm_state else cfg.num_layers)
+    flash = attn_layers * chunks
+    if cfg.is_enc_dec:
+        flash += cfg.encoder_layers + cfg.num_layers * (chunks + steps)
+    deq = (2 * cfg.num_layers + 7 * groups + 1) * (chunks + steps) if int8 else 0
+    return {"flash_attention": flash, "decode_attention": attn_layers * steps,
+            "paged_decode_attention": 0, "vta_gemm_none": 0, "vta_gemm_dequant": deq}
+
+
+def family_inputs(torch, cfg, dev, prompt: int, side: int):
+    """Prompts (seed 1) and the frontend stub's input (seed 2): encoder
+    frames for an enc-dec config, patch embeddings for a VLM, else None."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (FAMILY_BATCH, prompt), generator=gen, device=dev)
+    extra = None
+    if side:
+        gen = torch.Generator(device=dev).manual_seed(2)
+        extra = torch.randn((FAMILY_BATCH, side, cfg.d_model), generator=gen, device=dev)
+    return prompts, extra
+
+
+def family_steps(cfg, extra, return_logits: bool = False):
+    """(prefill, step) over the path's own entry points: ``prefill(params,
+    prompts, caches)`` -> (tok, logits or None, caches, cross K/V or None)
+    and ``step(params, tok, caches, kv)``."""
+    from repro_torch.serve.step import make_prefill_step, make_serve_step
+
+    kw = {}
+    if extra is not None:
+        kw = {"frames": extra} if cfg.is_enc_dec else {"embeds": extra}
+    pre = make_prefill_step(cfg, FAMILY_CHUNK, return_logits=return_logits)
+
+    def prefill(params, prompts, caches):
+        out = pre(params, prompts, caches, **kw)
+        kv = out[-1] if cfg.is_enc_dec else None
+        out = out[:-1] if cfg.is_enc_dec else out
+        return out[0], (out[1] if return_logits else None), out[-1], kv
+
+    return prefill, make_serve_step(cfg, return_logits=return_logits)
+
+
+def family_caches(torch, cfg, dev, max_len: int):
+    from repro_torch.models import encdec
+    from repro_torch.models import transformer as tf
+
+    return (encdec if cfg.is_enc_dec else tf).init_caches(cfg, FAMILY_BATCH, max_len,
+                                                          torch.float32, dev)
+
+
+def ssm_gates(torch, params, cfg, dev, prompts) -> None:
+    """mamba2 at full depth: the four-chunk prefill against one 2048-token
+    pass (last logits; every layer's SSM and conv states, each layer's
+    block on the one-pass run's own input to it, since through the whole
+    stack the GEMMs' rounding at another M grows layer by layer), prefill(2047)
+    (three chunks and an exact-size 511-token pass, whose SSD runs at chunk
+    1 by the reference's rule) plus one decode step against prefill(2048),
+    and one full-width layer's ``ssd_chunked`` (B 2, L 2048, H 80, P 64,
+    N 128) against ``ssd_reference`` run in f64 on the card."""
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import embedding_apply, rmsnorm_apply
+    from repro_torch.serve.step import make_prefill_step
+
+    tag = f"[ssm {cfg.name}]"
+    s = prompts.shape[1]
+    with torch.inference_mode():
+        _, lg4, c4 = make_prefill_step(cfg, FAMILY_CHUNK, return_logits=True)(
+            params, prompts, tf.init_caches(cfg, FAMILY_BATCH, 0, torch.float32, dev))
+        _, lg1, c1 = make_prefill_step(cfg, s, return_logits=True)(
+            params, prompts, tf.init_caches(cfg, FAMILY_BATCH, 0, torch.float32, dev))
+        scale = lg1.abs().max().item()
+        err = (lg4 - lg1).abs().max().item()
+        states, per_layer = {}, {}
+        for name in ("ssm", "conv"):
+            per_layer[name] = [(a[name] - b_[name]).abs().max().item()
+                               / b_[name].abs().max().item()
+                               for a, b_ in zip(c4["blocks"], c1["blocks"])]
+            states[name] = max(per_layer[name])
+        log(f"{tag} {s // FAMILY_CHUNK}-chunk prefill vs one {s}-token pass: last logits "
+            f"max|err| {err:.3e} ({err / scale:.3e} of max|logit| {scale:.3f}; tol "
+            f"{SSM_LOGIT_TOL}); through the whole stack, each layer's state error / its max "
+            f"(every 8th layer; the GEMMs' rounding at another M, grown over the layers): "
+            + "; ".join(f"{name} " + " ".join(f"{e:.1e}" for e in errs[::8])
+                        + f" (worst {states[name]:.3e})" for name, errs in per_layer.items()))
+        check(err <= SSM_LOGIT_TOL * scale, f"{tag} chunked prefill logits vs one pass")
+        del c4, c1
+        # the state carried across chunks, layer by layer: each layer's
+        # Mamba2 block over the four chunks against one pass, both on the
+        # one-pass run's own input to that layer
+        x = embedding_apply(params["embed"], prompts)
+        for name in states:
+            states[name] = 0.0
+        for p in params["blocks"]:
+            xin = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+            cache = ssm.mamba2_cache_init(cfg, FAMILY_BATCH, torch.float32, dev)
+            h1, one = ssm.mamba2_apply(p["mixer"], cfg, xin, cache)
+            for i in range(0, s, FAMILY_CHUNK):
+                _, cache = ssm.mamba2_apply(p["mixer"], cfg, xin[:, i:i + FAMILY_CHUNK], cache)
+            for name in states:
+                states[name] = max(states[name], (cache[name] - one[name]).abs().max().item()
+                                   / one[name].abs().max().item())
+            x = x + h1
+        log(f"{tag} each layer's Mamba2 block over {s // FAMILY_CHUNK} chunks vs one pass on "
+            f"the same input: worst state error / its max: ssm {states['ssm']:.3e}, conv "
+            f"{states['conv']:.3e} (tol {SSM_STATE_TOL})")
+        check(max(states.values()) <= SSM_STATE_TOL, f"{tag} chunked prefill states vs one pass")
+        del x, xin, cache, one, h1
+        _, _, c = make_prefill_step(cfg, FAMILY_CHUNK, return_logits=True)(
+            params, prompts[:, :s - 1], tf.init_caches(cfg, FAMILY_BATCH, 0, torch.float32, dev))
+        lgd, c = tf.decode_step(params, cfg, prompts[:, s - 1:], c)
+        err = (lgd[:, -1] - lg1[:, -1]).abs().max().item()
+        log(f"{tag} prefill({s - 1}: {(s - 1) // FAMILY_CHUNK} chunks + an exact "
+            f"{(s - 1) % FAMILY_CHUNK}-token pass at SSD chunk 1) + decode_step vs prefill({s}):"
+            f" max|err| {err:.3e} ({err / scale:.3e} of max|logit|; tol {SSM_LOGIT_TOL})")
+        check(err <= SSM_LOGIT_TOL * scale, f"{tag} decode consistency")
+        del c
+        gen = torch.Generator(device=dev).manual_seed(3)
+        _, h, n = ssm._mamba2_dims(cfg)
+        b, L, p = FAMILY_BATCH, s, cfg.ssm_head_dim
+        x = torch.randn((b, L, h, p), generator=gen, device=dev)
+        dt = torch.nn.functional.softplus(torch.randn((b, L, h), generator=gen, device=dev))
+        a_log = torch.randn((h,), generator=gen, device=dev) * 0.5
+        bm = torch.randn((b, L, n), generator=gen, device=dev)
+        cm = torch.randn((b, L, n), generator=gen, device=dev)
+        y, st = ssm.ssd_chunked(x, dt, a_log, bm, cm, chunk=128)
+        y64, st64 = ssm.ssd_reference(x.double(), dt.double(), a_log.double(), bm.double(),
+                                      cm.double())
+        err = (y.double() - y64).abs().max().item() / y64.abs().max().item()
+        serr = (st.double() - st64).abs().max().item() / st64.abs().max().item()
+        log(f"{tag} ssd_chunked f32 (B {b}, L {L}, H {h}, P {p}, N {n}, chunk 128) vs the f64 "
+            f"recurrence on the card: max|err| / max|y| {err:.3e}, final state {serr:.3e} "
+            f"(tol {SSD_F64_TOL})")
+        check(err <= SSD_F64_TOL and serr <= SSD_F64_TOL, f"{tag} ssd_chunked vs f64")
+
+
+def family_phase(torch, params, cfg, dev, card: str, int8: bool = False) -> dict:
+    """One family's path at full width: driven once through its entry
+    points with every count at 0 (mamba2 / zamba2: the launcher's static
+    path; seamless / internvl2: ``serve.step.generate`` with frames or
+    patch embeddings), launches exact, finite logits or tokens of the right
+    shape; then its gates (mamba2: ``ssm_gates``; int8: teacher-forced
+    logits bitwise equal to the run with the GEMMs on their plain version;
+    f32: within LOGIT_TOL of the run with every kernel on its plain
+    version, greedy tokens equal where the margin is clear), a warm timed
+    run and a profile of the prefill and of 8 decode steps.  Returns the
+    launch counts."""
+    from repro_torch.launch.serve import run_static
+    from repro_torch.models import layers
+    from repro_torch.serve.step import generate
+
+    prompt, side, _ = FAMILIES[cfg.name]
+    tag = f"[{cfg.family} {cfg.name} {'int8' if int8 else 'f32'}]"
+    prompts, extra = family_inputs(torch, cfg, dev, prompt, side)
+    chunks, steps = -(-prompt // FAMILY_CHUNK), FAMILY_NEW - 1
+    static = extra is None
+    max_len = (chunks * FAMILY_CHUNK if static else prompt + side) + FAMILY_NEW
+    expect = family_expect(cfg, chunks, steps, int8)
+    check(layers.attention_impl() == "auto" and layers.gemm_impl() == "auto",
+          f"{tag} runs with attention and gemm impl auto")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if static:
+        res = run_static(params, cfg, prompts, new_tokens=FAMILY_NEW, chunk=FAMILY_CHUNK,
+                         return_logits=True)
+        tokens, logits = res["tokens"], torch.stack(res["logits"], dim=1)
+    else:
+        kw = {"frames": extra} if cfg.is_enc_dec else {"embeds": extra}
+        tokens = generate(params, cfg, prompts, FAMILY_NEW, max_len, torch.float32,
+                          chunk=FAMILY_CHUNK, **kw)
+        logits = None
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    after = f" after {side} {'frames' if cfg.is_enc_dec else 'patch embeddings'}" if side else ""
+    log(f"{tag} batch {FAMILY_BATCH}, prompt {prompt} in {chunks} chunks of {FAMILY_CHUNK}"
+        f"{after}, {FAMILY_NEW} new tokens through {'run_static' if static else 'generate'} in "
+        f"{time.perf_counter() - t0:.2f} s (first run); launches {counts} (expect {expect})")
+    check(counts == expect, f"{tag} every kernel of the path launched as expected")
+    check(tokens.shape == (FAMILY_BATCH, FAMILY_NEW) and int(tokens.min()) >= 0
+          and int(tokens.max()) < cfg.vocab, f"{tag} tokens of shape (B, new) in the vocabulary")
+    prefill, step = family_steps(cfg, extra, return_logits=True)
+
+    def teacher_forced():
+        """(B, new, vocab) logits of the path fed the run's tokens."""
+        with torch.inference_mode():
+            _, lg, caches, kv = prefill(params, prompts, family_caches(torch, cfg, dev, max_len))
+            out = [lg[:, -1]]
+            for i in range(steps):
+                _, lg, caches = step(params, tokens[:, i:i + 1], caches, kv)
+                out.append(lg[:, -1])
+        return torch.stack(out, dim=1)
+
+    if logits is None:
+        logits = teacher_forced()
+    check(logits.shape == (FAMILY_BATCH, FAMILY_NEW, cfg.vocab)
+          and bool(torch.isfinite(logits).all()), f"{tag} finite logits of shape (B, new, vocab)")
+    check(bool((tokens == logits.argmax(-1)).all()), f"{tag} tokens are the logits' argmax")
+    if cfg.ssm_state and not cfg.attn_every:
+        ssm_gates(torch, params, cfg, dev, prompts)
+    elif int8:
+        prev = layers.set_gemm_impl("ref")
+        try:
+            ref = teacher_forced()
+        finally:
+            layers.set_gemm_impl(prev)
+        err = (logits - ref).abs().max().item()
+        log(f"{tag} teacher-forced logits vs the run with the GEMMs on their plain version: "
+            f"max|err| {err:.3e} (bitwise expected)")
+        check(torch.equal(logits, ref), f"{tag} logits equal to the plain-GEMM run")
+    else:
+        before = kernel_counts()
+        with plain_versions():
+            ref = teacher_forced()
+        check(kernel_counts() == before, f"{tag} the reference run launched no kernel")
+        err = (logits - ref).abs().max().item()
+        top2 = ref.topk(2, dim=-1).values
+        decided = (top2[..., 0] - top2[..., 1]) > LOGIT_TOL
+        agree = tokens == ref.argmax(-1)
+        log(f"{tag} teacher-forced logits vs the run with every kernel on its plain version: "
+            f"max|err| {err:.3e} (tol {LOGIT_TOL}), |logits| max {logits.abs().max().item():.3f};"
+            f" greedy tokens equal at {int(agree.sum())}/{agree.numel()}, "
+            f"{int(decided.sum())} with margin > tol")
+        check(err <= LOGIT_TOL, f"{tag} logits vs the plain-version run: {err} > {LOGIT_TOL}")
+        check(bool(agree[decided].all()), f"{tag} greedy token differs at a clear margin")
+    del logits
+
+    fast_prefill, fast_step = family_steps(cfg, extra)
+    state = {}
+
+    @torch.inference_mode()
+    def run_prefill():
+        caches = family_caches(torch, cfg, dev, max_len)
+        state["tok"], _, state["caches"], state["kv"] = fast_prefill(params, prompts, caches)
+
+    @torch.inference_mode()
+    def run_decode(n):
+        tok, c = state["tok"][:, None], state["caches"]
+        for _ in range(n):
+            tok, c = fast_step(params, tok, c, state["kv"])
+
+    n_prof = min(8, steps)
+    run_prefill()
+    run_decode(n_prof)
+    times = {}
+    for name, fn in (("prefill", run_prefill), ("decode", lambda: run_decode(steps))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+    log(f"[time] {tag[1:-1]}: prefill {FAMILY_BATCH}x{prompt} {times['prefill'] * 1e3:.2f} ms "
+        f"({times['prefill'] * 1e3 / chunks:.2f} ms per {FAMILY_CHUNK}-token chunk"
+        f"{', the encoder included' if cfg.is_enc_dec else ''}); decode {steps} steps "
+        f"{times['decode'] / steps * 1e3:.2f} ms/step "
+        f"({FAMILY_BATCH * steps / times['decode']:.1f} tok/s); on {card}")
+    for phase, fn in ((f"prefill {chunks} chunks", run_prefill),
+                      (f"decode {n_prof} steps", lambda: run_decode(n_prof))):
+        wall, busy, top = device_breakdown(torch, fn)
+        log(f"[profile] {tag[1:-1]} {phase}: wall {wall * 1e3:.2f} ms (profiled), device "
+            f"kernels {busy * 1e3:.2f} ms, device idle {100 * (1 - busy / wall):.1f} %")
+        for name, us, calls in top:
+            log(f"[profile]   {us / 1e3:9.3f} ms {calls:5d}x {name[:90]}")
+    return counts
+
+
+def family_phases(torch, dev, card: str) -> dict:
+    """The four families at full width (internvl2's depth cut to 2), random
+    f32 weights from the port's ``init`` on a seeded generator on the card,
+    each freed before the next; zamba2 again on ``quantize_params`` weights.
+    Returns {path: launch counts}."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import encdec
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.quant import quantize_params
+
+    out = {}
+    for name, (_, _, depth) in FAMILIES.items():
+        full = get_config(name)
+        cfg = full if depth is None else dataclasses.replace(full, num_layers=depth)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = (encdec if cfg.is_enc_dec else tf).init(
+            cfg, generator=torch.Generator(device=dev).manual_seed(0), dtype=torch.float32,
+            device=dev)
+        torch.cuda.synchronize()
+        n_params = sum(x.numel() for x in leaves(params))
+        cut = f" (cut from {full.num_layers})" if depth is not None else ""
+        log(f"[{cfg.family}] {name} full width, {cfg.num_layers} layers{cut}"
+            f"{f' + {cfg.encoder_layers} encoder layers' if cfg.is_enc_dec else ''}: d_model "
+            f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.kv_heads}, d_ff {cfg.d_ff}, ssm_state "
+            f"{cfg.ssm_state}, attn_every {cfg.attn_every}, vocab {cfg.vocab}: "
+            f"{n_params / 1e9:.3f} B f32 params made in {time.perf_counter() - t0:.2f} s; "
+            f"device memory {torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB")
+        out[f"{name} f32"] = family_phase(torch, params, cfg, dev, card)
+        if cfg.attn_every:
+            qparams = quantize_params(params)
+            del params
+            torch.cuda.empty_cache()
+            out[f"{name} int8"] = family_phase(torch, qparams, cfg, dev, card, int8=True)
+            del qparams
+        else:
+            del params
+        torch.cuda.empty_cache()
+        log(f"[{cfg.family}] {name}: peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+        torch.cuda.reset_peak_memory_stats()
+    return out
+
+
 def leaves(tree):
     """The tensors of a param tree (nested dicts and lists)."""
     if isinstance(tree, dict):
@@ -2436,6 +2915,16 @@ def main() -> int:
     moe = moe_phases(torch, dev, f"{kind} ({smi})")
     for path, counts in moe.items():
         log(f"[moe] launches on {path}: {counts}")
+
+    # ---- the remaining families: mamba2, zamba2, seamless, internvl2 ----------
+    # the kernels at the families' new shapes first, then the models
+    for name, err in family_kernel_phase(torch, gen, dev, f"{kind} ({smi})").items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+    families = family_phases(torch, dev, f"{kind} ({smi})")
+    for path, counts in families.items():
+        log(f"[family] launches on {path}: {counts}")
+        for name in ("flash_attention", "decode_attention", "vta_gemm_dequant"):
+            rows[name]["launches"] += counts[name]
 
     print(json.dumps({"kernels": [dict(name=n, **r) for n, r in rows.items()]}))
     print(smi)

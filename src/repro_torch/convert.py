@@ -10,11 +10,13 @@ Quantized trees (``optim.quant.quantize_params``) carry over with the
 reference's values: integer leaves (``qw``) keep their dtype, ``qw`` is
 packed K-major as the port's own ``quantize_params`` packs it, and the
 int8 scale leaves (``qscale``, and the KV pools' ``*_scales``) stay f32
-whatever ``dtype`` is, as the reference keeps them, and so does an MoE
-layer's float ``router``.  Stacked expert leaves (L, E, K, N) unstack to
-(E, K, N), an int8 ``qw`` among them packed K-major per expert.  ``resnet_params_from_numpy`` carries
-ResNet-18's nested tree (lists of blocks, no stacked axis), whose batch
-norm statistics stay f32 as well (``keeps_f32`` says which leaves).
+whatever ``dtype`` is, as the reference keeps them, and so do an MoE
+layer's float ``router`` and a Mamba2 block's ``a_log``, ``d_skip`` and
+``dt_bias``.  Stacked expert leaves (L, E, K, N) unstack to (E, K, N), an
+int8 ``qw`` among them packed K-major per expert.
+``resnet_params_from_numpy`` carries ResNet-18's nested tree (lists of
+blocks, no stacked axis), whose batch norm statistics stay f32 as well
+(``keeps_f32`` says which leaves).
 """
 
 from __future__ import annotations
@@ -28,8 +30,9 @@ from repro_torch.optim.quant import k_major
 def keeps_f32(key) -> bool:
     """A float leaf that stays f32 in every dtype: an int8 scale leaf
     (``qscale``, ``*_scales``), a batch norm's running ``mean`` / ``var``
-    (``resnet._bn_init``) or an MoE ``router`` (``moe.moe_init``)."""
-    return key in ("qscale", "mean", "var", "router") or (
+    (``resnet._bn_init``), an MoE ``router`` (``moe.moe_init``) or a Mamba2
+    block's ``a_log`` / ``d_skip`` / ``dt_bias`` (``ssm.mamba2_init``)."""
+    return key in ("qscale", "mean", "var", "router", "a_log", "d_skip", "dt_bias") or (
         isinstance(key, str) and key.endswith("_scales"))
 
 
@@ -55,12 +58,17 @@ def _layer(tree, li):
 
 def params_from_numpy(tree, cfg, device, dtype=torch.float32):
     """The port's params from the reference's params as a nested dict of
-    numpy arrays: the stacked ``blocks`` are unstacked into a list of
-    ``cfg.num_layers`` per-layer dicts; float leaves become ``dtype`` on
-    ``device`` (int8 scale leaves f32), integer leaves keep their dtype."""
-    out = {k: _to_torch(v, device, dtype) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [_to_torch(_layer(tree["blocks"], li), device, dtype)
-                     for li in range(cfg.num_layers)]
+    numpy arrays: the stacked ``blocks`` (an enc-dec config's ``encoder``
+    and ``decoder``) are unstacked into lists of per-layer dicts
+    (``cfg.encoder_layers`` and ``cfg.num_layers``); a hybrid's unstacked
+    ``shared_attn`` carries over as it is; float leaves become ``dtype`` on
+    ``device`` (the ``keeps_f32`` leaves f32), integer leaves keep their
+    dtype."""
+    stacked = ({"encoder": cfg.encoder_layers, "decoder": cfg.num_layers}
+               if cfg.is_enc_dec else {"blocks": cfg.num_layers})
+    out = {k: _to_torch(v, device, dtype) for k, v in tree.items() if k not in stacked}
+    for k, n in stacked.items():
+        out[k] = [_to_torch(_layer(tree[k], li), device, dtype) for li in range(n)]
     return out
 
 

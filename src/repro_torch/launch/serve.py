@@ -9,11 +9,15 @@ prefill and greedy decode and prints the prefill time and decode tok/s.
 the paged KV cache on a mixed-length trace of ``2 * batch`` requests and
 prints the reference's engine summary (tok/s, token latency and TTFT
 percentiles, pool, admission, scheduler, prefix-cache and speculative
-lines).  It runs on the CUDA card by default; ``--device cpu`` runs the
-same path on the CPU with the kernels' plain versions.  Weights and
-prompts are random, made from fixed seeds.  ``--kv-dtype int8`` serves
-the paged engine from int8 pools; the static path ignores it, as the
-reference's does.  Int8 weights come from ``optim.quant.quantize_params``
+lines); an SSM or hybrid config (mamba2_2p7b, zamba2_2p7b) has no paged
+cache and the engine refuses it, as the reference's does.  An enc-dec or
+frontend config (seamless_m4t_large_v2, internvl2_76b) exits with the
+reference's message: its entry point is ``serve.step.generate`` with
+``frames=`` or ``embeds=``.  It runs on the CUDA card by default;
+``--device cpu`` runs the same path on the CPU with the kernels' plain
+versions.  Weights and prompts are random, made from fixed seeds.
+``--kv-dtype int8`` serves the paged engine from int8 pools; the static
+path ignores it, as the reference's does.  Int8 weights come from ``optim.quant.quantize_params``
 (the reference launcher has no flag for them either).  Options of the
 JAX launcher that belong to later slices of the port exit with the
 ROADMAP.md item that ports them.
@@ -207,6 +211,14 @@ def main(argv=None):
         if getattr(args, name) not in ported:
             raise SystemExit(f"--{name.replace('_', '-')} {getattr(args, name)} is "
                              f"not ported yet: ROADMAP.md {item}")
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.scaled_down()
+    if cfg.is_enc_dec or cfg.frontend:
+        # the reference's message; their entry point is
+        # repro_torch.serve.step.generate(frames= / embeds=)
+        raise SystemExit("use examples/serve_batched.py variants for "
+                         "frontend/enc-dec archs")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but torch sees no CUDA device; "
@@ -216,9 +228,6 @@ def main(argv=None):
     # f32 matmuls in full f32, never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    cfg = get_config(args.arch)
-    if args.smoke:
-        cfg = cfg.scaled_down()
     tf.check_supported(cfg)
     # random weights from seed 0 and prompts from seed 1, as the reference
     gen = torch.Generator(device=device).manual_seed(0)

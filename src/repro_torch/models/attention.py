@@ -1,9 +1,10 @@
-"""Attention variants: GQA (+bias / qk-norm / SWA) and MLA (PyTorch port
-of ``repro.models.attention``; cross-attention is a later slice).
+"""Attention variants: GQA (+bias / qk-norm / SWA), MLA and the enc-dec
+cross-attention (PyTorch port of ``repro.models.attention``).
 
     params = gqa_init(gen, cfg, dtype, device)      | mla_init(...)
     y, cache = gqa_apply(params, cfg, x, positions, cache=None|dict)
                                                     | mla_apply(...)
+    kv = cross_attn_kv(p, cfg, enc_out); y = cross_attn_apply(p, cfg, x, kv)
 
 * ``cache=None`` — full causal (or bidirectional) forward, no state.
 * dense cache ``{"k": (B, T, Hkv, D), "v": (B, T, Hkv, Dv), "len": int}``
@@ -383,3 +384,41 @@ def mla_apply(p, cfg, x, positions, cache=None):
             out = _mla_attend(p, cfg, q_nope, q_rope, cc, cr, mask)
         new_cache = {"kv": kv, "len": new_len}
     return dense_apply(p["wo"], out), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (enc-dec decoder blocks)
+# ---------------------------------------------------------------------------
+
+
+def cross_attn_init(gen, cfg, dtype, device):
+    d, h, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    return {
+        "wq": dense_init(gen, d, h * hd, dtype, device),
+        "wk": dense_init(gen, d, h * hd, dtype, device),
+        "wv": dense_init(gen, d, h * hd, dtype, device),
+        "wo": dense_init(gen, h * hd, d, dtype, device),
+    }
+
+
+def cross_attn_kv(p, cfg, enc_out):
+    """Encoder K/V, computed once per request (the enc-dec 'cache'):
+    (B, T, H, D) each, ``num_heads`` heads."""
+    b, t, _ = enc_out.shape
+    k = dense_apply(p["wk"], enc_out).reshape(b, t, cfg.num_heads, cfg.head_dim)
+    v = dense_apply(p["wv"], enc_out).reshape(b, t, cfg.num_heads, cfg.head_dim)
+    return {"k": k, "v": v}
+
+
+def cross_attn_apply(p, cfg, x, kv):
+    """Bidirectional attention of ``x`` (B, S, D) over the encoder K/V.  As
+    the reference, flash runs whenever S or T reaches FLASH_MIN_SEQ, a
+    decode step's single query row against a long encoder output too."""
+    b, s, _ = x.shape
+    q = dense_apply(p["wq"], x).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    t = kv["k"].shape[1]
+    if s >= FLASH_MIN_SEQ or t >= FLASH_MIN_SEQ:
+        out = flash_attend(q, kv["k"], kv["v"], bidirectional=True)
+    else:
+        out = softmax_attend(q, kv["k"], kv["v"])
+    return dense_apply(p["wo"], out.reshape(b, s, -1))

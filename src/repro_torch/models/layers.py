@@ -178,6 +178,19 @@ def rmsnorm_apply(p, x, eps: float = 1e-5):
     return (y * p["scale"].float()).to(x.dtype)
 
 
+def layernorm_init(d: int, dtype, device):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm_apply(p, x, eps: float = 1e-5):
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
     # a Python-float base: no host-to-device copy (which would synchronise
     # the stream) on every call

@@ -1,24 +1,30 @@
-"""Decoder LM, dense and MoE families (PyTorch port of
+"""Decoder LM: dense, MoE, SSM, hybrid and VLM backbones (PyTorch port of
 ``repro.models.transformer``).
 
 Params are ``{"embed": {"table"}, "blocks": [per-layer dict, ...],
-"final_norm": {"scale"}[, "lm_head"]}``: the reference's stacked layer
-axis becomes a list, and layers run as a Python loop.  On one device the
-reference's sharding hints have nothing to do and are gone.
+"final_norm": {"scale"}[, "lm_head"][, "shared_attn"]}``: the
+reference's stacked layer axis becomes a list, and layers run as a
+Python loop.  On one device the reference's sharding hints have nothing
+to do and are gone.
 
   init(cfg, *, generator, dtype, device)        -> params
-  forward(params, cfg, tokens)                  -> (logits, aux_loss)
+  forward(params, cfg, tokens, embeds=None)     -> (logits, aux_loss)
   init_caches(cfg, batch, max_len, dtype, device[, cache_layout="paged"])
                                                 -> caches
-  prefill(params, cfg, tokens, caches)          -> (last_logits, caches)
+  prefill(params, cfg, tokens, caches, embeds=None) -> (last_logits, caches)
   decode_step(params, cfg, token, caches)       -> (logits, caches)
   verify_step(params, cfg, tokens, caches)      -> (logits, caches)  (paged)
 
 The mixer is GQA (with q/k/v biases, qk-norm and SWA as the config
-says) or MLA; the FFN a gated MLP or an MoE layer, whose auxiliary
-load-balancing loss ``forward`` sums over the layers.  SSM, hybrid,
-enc-dec, VLM and CNN configs raise ``NotImplementedError``: they are a
-later slice of the port.
+says), MLA or a Mamba2 block (SSM and hybrid configs); the FFN a gated
+MLP or an MoE layer, whose auxiliary load-balancing loss ``forward``
+sums over the layers, and none for mamba2 (``d_ff == 0``) or a hybrid's
+backbone blocks.  A hybrid (zamba2) runs groups of ``attn_every`` Mamba2
+layers, each followed by the one ``shared_attn`` block (GQA + its MLP):
+one set of weights, one KV cache per group.  A VLM's ``embeds`` (the
+stubbed frontend's patch embeddings) are prepended to the token
+embeddings.  The enc-dec model lives in ``encdec.py`` and ResNet-18 in
+``resnet.py``; a CNN config raises ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     dense_apply,
     dense_init,
@@ -41,18 +48,10 @@ from repro_torch.models.layers import (
 
 
 def check_supported(cfg) -> None:
-    """Raise for the families this slice of the port does not run."""
-    unported = {
-        "SSM/hybrid": cfg.ssm_state > 0 or cfg.attn_every > 0,
-        "enc-dec": cfg.is_enc_dec,
-        "VLM/audio frontend": cfg.frontend is not None,
-        "CNN": cfg.family == "cnn",
-    }
-    missing = [name for name, hit in unported.items() if hit]
-    if missing or cfg.family not in ("dense", "moe"):
+    """Raise for a CNN config, whose model is ``models/resnet``."""
+    if cfg.family == "cnn":
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}; {', '.join(missing) or cfg.family}) is "
-            "not ported yet: ROADMAP.md queue 1, item 9")
+            f"{cfg.name} is a CNN: its model is repro_torch.models.resnet")
 
 
 # ---------------------------------------------------------------------------
@@ -60,13 +59,23 @@ def check_supported(cfg) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _mixer_is_ssm(cfg):
+    # pure SSM (mamba2) and hybrid (zamba2) backbone blocks are Mamba2; the
+    # hybrid's attention lives in the shared block only
+    return cfg.ssm_state > 0
+
+
 def _mixer_init(gen, cfg, dtype, device):
+    if _mixer_is_ssm(cfg):
+        return ssm_mod.mamba2_init(gen, cfg, dtype, device)
     if cfg.uses_mla:
         return attn.mla_init(gen, cfg, dtype, device)
     return attn.gqa_init(gen, cfg, dtype, device)
 
 
 def _mixer_apply(p, cfg, x, positions, cache):
+    if _mixer_is_ssm(cfg):
+        return ssm_mod.mamba2_apply(p, cfg, x, cache)
     if cfg.uses_mla:
         return attn.mla_apply(p, cfg, x, positions, cache)
     return attn.gqa_apply(p, cfg, x, positions, cache)
@@ -75,7 +84,9 @@ def _mixer_apply(p, cfg, x, positions, cache):
 def _ffn_init(gen, cfg, dtype, device):
     if cfg.moe_experts:
         return moe_mod.moe_init(gen, cfg, dtype, device)
-    return gated_mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device)
+    if cfg.d_ff:
+        return gated_mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device)
+    return None
 
 
 def _ffn_apply(p, cfg, x, dropless: bool = False, cap: int | None = None):
@@ -95,12 +106,17 @@ def _ffn_apply(p, cfg, x, dropless: bool = False, cap: int | None = None):
 
 
 def block_init(gen, cfg, dtype, device):
-    return {
+    p = {
         "norm1": rmsnorm_init(cfg.d_model, dtype, device),
         "mixer": _mixer_init(gen, cfg, dtype, device),
-        "norm2": rmsnorm_init(cfg.d_model, dtype, device),
-        "ffn": _ffn_init(gen, cfg, dtype, device),
     }
+    # a hybrid's Mamba2 backbone blocks carry no FFN: the MLP lives in the
+    # shared attention block
+    ffn = None if cfg.attn_every else _ffn_init(gen, cfg, dtype, device)
+    if ffn is not None:
+        p["norm2"] = rmsnorm_init(cfg.d_model, dtype, device)
+        p["ffn"] = ffn
+    return p
 
 
 def block_apply(p, cfg, x, positions, cache=None, moe_cap: int | None = None):
@@ -109,9 +125,12 @@ def block_apply(p, cfg, x, positions, cache=None, moe_cap: int | None = None):
                                 rmsnorm_apply(p["norm1"], x, cfg.norm_eps),
                                 positions, cache)
     x = x + h
-    h, aux = _ffn_apply(p["ffn"], cfg, rmsnorm_apply(p["norm2"], x, cfg.norm_eps),
-                        dropless=cache is not None, cap=moe_cap)
-    return x + h, new_cache, aux
+    aux = None
+    if "ffn" in p:
+        h, aux = _ffn_apply(p["ffn"], cfg, rmsnorm_apply(p["norm2"], x, cfg.norm_eps),
+                            dropless=cache is not None, cap=moe_cap)
+        x = x + h
+    return x, new_cache, aux
 
 
 def init(cfg, *, generator: torch.Generator, dtype=torch.bfloat16, device="cuda"):
@@ -126,6 +145,13 @@ def init(cfg, *, generator: torch.Generator, dtype=torch.bfloat16, device="cuda"
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab, dtype, device)
+    if cfg.attn_every:  # hybrid: one shared attention (+ MLP) block
+        params["shared_attn"] = {
+            "norm": rmsnorm_init(cfg.d_model, dtype, device),
+            "attn": attn.gqa_init(generator, cfg, dtype, device),
+            "mlp_norm": rmsnorm_init(cfg.d_model, dtype, device),
+            "mlp": gated_mlp_init(generator, cfg.d_model, cfg.d_ff, dtype, device),
+        }
     return params
 
 
@@ -134,8 +160,13 @@ def init(cfg, *, generator: torch.Generator, dtype=torch.bfloat16, device="cuda"
 # ---------------------------------------------------------------------------
 
 
-def _embed(params, cfg, tokens):
-    return embedding_apply(params["embed"], tokens)
+def _embed(params, cfg, tokens, embeds=None):
+    x = embedding_apply(params["embed"], tokens)
+    if embeds is not None:
+        # the modality frontend's stub: precomputed patch embeddings are
+        # prepended to the token embeddings (the VLM backbone contract)
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
+    return x
 
 
 def _head(params, cfg, x):
@@ -145,32 +176,55 @@ def _head(params, cfg, x):
     return dense_apply(params["lm_head"], x)
 
 
+def _hybrid_groups(cfg) -> int:
+    if cfg.num_layers % cfg.attn_every:
+        raise ValueError(f"num_layers {cfg.num_layers} % attn_every {cfg.attn_every} != 0")
+    return cfg.num_layers // cfg.attn_every
+
+
 def _apply_stack(params, cfg, x, positions, caches):
-    """Returns (x, new caches, aux summed over the layers: a zero for the
-    dense family)."""
-    new_layers = []
+    """Returns (x, new caches, aux summed over the layers: a zero without
+    MoE).  A hybrid runs each group of ``attn_every`` Mamba2 layers, then
+    the shared attention block and its MLP against the group's KV cache."""
+    new_layers, new_attn = [], []
     aux = torch.zeros((), device=x.device)
-    for li, p in enumerate(params["blocks"]):
-        cache = caches["blocks"][li] if caches is not None else None
-        x, nc, a = block_apply(p, cfg, x, positions, cache)
-        if a is not None:
-            aux = aux + a
-        new_layers.append(nc)
-    return x, ({"blocks": new_layers} if caches is not None else None), aux
+    per = cfg.attn_every or cfg.num_layers
+    for gi in range(cfg.num_layers // per):
+        for li in range(gi * per, (gi + 1) * per):
+            cache = caches["blocks"][li] if caches is not None else None
+            x, nc, a = block_apply(params["blocks"][li], cfg, x, positions, cache)
+            if a is not None:
+                aux = aux + a
+            new_layers.append(nc)
+        if cfg.attn_every:
+            sa = params["shared_attn"]
+            acache = caches["shared_attn"][gi] if caches is not None else None
+            h, na = attn.gqa_apply(sa["attn"], cfg,
+                                   rmsnorm_apply(sa["norm"], x, cfg.norm_eps),
+                                   positions, acache)
+            x = x + h
+            x = x + gated_mlp_apply(sa["mlp"], rmsnorm_apply(sa["mlp_norm"], x, cfg.norm_eps))
+            new_attn.append(na)
+    if caches is None:
+        return x, None, aux
+    new_caches = {"blocks": new_layers}
+    if cfg.attn_every:
+        new_caches["shared_attn"] = new_attn
+    return x, new_caches, aux
 
 
-def _positions(start: int, tokens):
-    b, s = tokens.shape
-    return (start + torch.arange(s, device=tokens.device)).expand(b, s)
+def _positions(start: int, x):
+    b, s = x.shape[:2]
+    return (start + torch.arange(s, device=x.device)).expand(b, s)
 
 
-def forward(params, cfg, tokens):
-    """Full causal forward.  tokens: (B, S) int64.  Returns (logits, aux)
-    with aux the MoE load-balancing loss summed over the layers (zero for
-    the dense family)."""
+def forward(params, cfg, tokens, embeds=None):
+    """Full causal forward.  tokens: (B, S) int64; ``embeds`` (B, E, D)
+    prepended (VLM).  Returns (logits over E + S positions, aux) with aux
+    the MoE load-balancing loss summed over the layers (zero without MoE)."""
     check_supported(cfg)
-    x = _embed(params, cfg, tokens)
-    x, _, aux = _apply_stack(params, cfg, x, _positions(0, tokens), None)
+    x = _embed(params, cfg, tokens, embeds)
+    x, _, aux = _apply_stack(params, cfg, x, _positions(0, x), None)
     return _head(params, cfg, x), aux
 
 
@@ -194,21 +248,35 @@ def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device="cud
                                  num_pages=num_pages, kv_dtype=kv_dtype, device=device)
     if cache_layout != "dense":
         raise ValueError(f"cache_layout must be 'dense' or 'paged', got {cache_layout!r}")
-    one = attn.mla_cache_init if cfg.uses_mla else attn.gqa_cache_init
-    return {"blocks": [one(cfg, batch, max_len, dtype, device)
-                       for _ in range(cfg.num_layers)]}
+    if _mixer_is_ssm(cfg):
+        # O(1) recurrent state: no max_len
+        blocks = [ssm_mod.mamba2_cache_init(cfg, batch, dtype, device)
+                  for _ in range(cfg.num_layers)]
+    else:
+        one = attn.mla_cache_init if cfg.uses_mla else attn.gqa_cache_init
+        blocks = [one(cfg, batch, max_len, dtype, device) for _ in range(cfg.num_layers)]
+    caches = {"blocks": blocks}
+    if cfg.attn_every:
+        caches["shared_attn"] = [attn.gqa_cache_init(cfg, batch, max_len, dtype, device)
+                                 for _ in range(_hybrid_groups(cfg))]
+    return caches
 
 
 def _cache_len(cfg, caches) -> int:
+    if cfg.attn_every:  # hybrid: the Mamba2 caches carry no position
+        return caches["shared_attn"][0]["len"]
+    if cfg.is_attention_free:  # pure SSM: positions are unused downstream
+        return 0
     return caches["blocks"][0]["len"]
 
 
-def prefill(params, cfg, tokens, caches, *, logit_index: int | None = None):
-    """Run ``tokens`` (B, S) into the caches from their current length;
-    returns the head at position ``logit_index`` (default: the last) —
-    how a right-padded chunk returns its last real token's logits."""
-    x = _embed(params, cfg, tokens)
-    positions = _positions(_cache_len(cfg, caches), tokens)
+def prefill(params, cfg, tokens, caches, embeds=None, *, logit_index: int | None = None):
+    """Run ``tokens`` (B, S), after ``embeds`` (B, E, D) where given, into
+    the caches from their current length; returns the head at position
+    ``logit_index`` of the E + S rows (default: the last) — how a
+    right-padded chunk returns its last real token's logits."""
+    x = _embed(params, cfg, tokens, embeds)
+    positions = _positions(_cache_len(cfg, caches), x)
     x, caches, _ = _apply_stack(params, cfg, x, positions, caches)
     last = x[:, -1:] if logit_index is None else x[:, logit_index:logit_index + 1]
     return _head(params, cfg, last), caches

@@ -1073,3 +1073,183 @@ def test_mla_engine_on_card_goes_through_kernels(cuda, kv_dtype):
     finally:
         layers.set_attention_impl(prev)
     assert got == want and st["prefill_chunk_calls"] == want_st["prefill_chunk_calls"]
+
+
+# ---------------------------------------------------------------------------
+# the remaining families: mamba2, zamba2, seamless, internvl2
+# ---------------------------------------------------------------------------
+
+# flash at the slice's shapes (one full-width layer, batch 2): zamba2's
+# shared block (G 1, D 80) at its last prompt chunk; seamless's encoder
+# (bidirectional S = T = 1024), its cross-attention at prefill (S 512) and
+# at a decode step (S 1) against 1024 frames; internvl2's first chunk (256
+# patch embeddings + 512 tokens: 768 rows, G 8)
+GPU_FLASH_SLICE9 = [
+    ("zamba2_g1_d80", dict(b=2, s=512, t=2064, h=32, hkv=32, d=80, dv=80),
+     dict(q_offset=1536, kv_len=2048)),
+    ("seamless_encoder_bidir", dict(b=2, s=1024, t=1024, h=16, hkv=16, d=64, dv=64),
+     dict(bidirectional=True)),
+    ("seamless_cross_s512", dict(b=2, s=512, t=1024, h=16, hkv=16, d=64, dv=64),
+     dict(bidirectional=True)),
+    ("seamless_cross_s1", dict(b=2, s=1, t=1024, h=16, hkv=16, d=64, dv=64),
+     dict(bidirectional=True)),
+    ("internvl2_g8_s768", dict(b=2, s=768, t=1808, h=64, hkv=8, d=128, dv=128),
+     dict(q_offset=0, kv_len=768)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,shape,opts", GPU_FLASH_SLICE9, ids=[c[0] for c in GPU_FLASH_SLICE9])
+def test_flash_kernel_at_slice9_shapes_on_card(cuda, name, shape, opts, dtype):
+    q, k, v = _qkv(cuda, getattr(torch, dtype), **shape, seed=len(name))
+    n0 = tfl.flash_attention.launches
+    got, counts = tfl.flash_attention(q, k, v, return_counts=True, **opts)
+    torch.cuda.synchronize()
+    assert tfl.flash_attention.launches == n0 + 1
+    want = tfl.flash_attention_ref(q, k, v, **opts)
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=TOL[dtype])
+    tile_map = tfl.flash_tile_map(shape["s"], shape["t"], **opts)
+    np.testing.assert_array_equal(counts.cpu().numpy(),
+                                  tile_map.expand_as(counts.cpu()).numpy())
+
+
+# dense decode at the slice's shapes: zamba2 (G 1, D 80), seamless (G 1,
+# D 64), internvl2 (G 8, D 128), each at its static path's last step
+GPU_DECODE_SLICE9 = [
+    ("zamba2_g1_d80", dict(h=32, hkv=32, d=80, t=2064), 2063),
+    ("seamless_g1_d64", dict(h=16, hkv=16, d=64, t=1040), 1039),
+    ("internvl2_g8_d128", dict(h=64, hkv=8, d=128, t=1808), 1807),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,shape,kv_len", GPU_DECODE_SLICE9,
+                         ids=[c[0] for c in GPU_DECODE_SLICE9])
+def test_decode_kernel_at_slice9_shapes_on_card(cuda, name, shape, kv_len, dtype):
+    h, hkv, d, t = shape["h"], shape["hkv"], shape["d"], shape["t"]
+    q, k, v = _qkv(cuda, getattr(torch, dtype), 2, 1, t, h, hkv, d, d, seed=len(name))
+    n0 = tdec.decode_attention.launches
+    got, counts = tdec.decode_attention(q, k, v, kv_len=kv_len, return_counts=True)
+    torch.cuda.synchronize()
+    assert tdec.decode_attention.launches == n0 + 1
+    want = tdec.decode_attention_ref(q, k, v, kv_len=kv_len)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=TOL[dtype])
+    want_map = tdec.decode_partition_map(t, kv_len)
+    np.testing.assert_array_equal(counts.cpu().numpy(),
+                                  want_map.expand_as(counts.cpu()).numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,chunk", [(512, 128), (37, 1)], ids=["chunk128", "ragged_chunk1"])
+def test_ssd_chunked_f32_matches_f64_recurrence_on_card(cuda, L, chunk):
+    """mamba2's full-width head layout (H 80, P 64, N 128) from a drawn
+    state: the f32 chunked form within 1e-4 of max|y| of the per-token
+    recurrence in f64, with TF32 off."""
+    from repro_torch.models import ssm
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    b, h, p, n = 2, 80, 64, 128
+    x = torch.randn((b, L, h, p), generator=gen, device=cuda)
+    dt = torch.nn.functional.softplus(torch.randn((b, L, h), generator=gen, device=cuda))
+    a_log = torch.randn((h,), generator=gen, device=cuda) * 0.5
+    bm = torch.randn((b, L, n), generator=gen, device=cuda)
+    cm = torch.randn((b, L, n), generator=gen, device=cuda)
+    s0 = torch.randn((b, h, n, p), generator=gen, device=cuda) * 0.1
+    y, st = ssm.ssd_chunked(x, dt, a_log, bm, cm, chunk=chunk, initial_state=s0)
+    y64, st64 = ssm.ssd_reference(x.double(), dt.double(), a_log.double(), bm.double(),
+                                  cm.double(), initial_state=s0.double())
+    assert y.dtype == torch.float32 and y64.dtype == torch.float64
+    assert (y.double() - y64).abs().max().item() <= 1e-4 * y64.abs().max().item()
+    assert (st.double() - st64).abs().max().item() <= 1e-4 * st64.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2_2p7b", "zamba2_2p7b"])
+def test_ssm_families_int8_logits_bitwise_against_plain_gemm_on_card(cuda, arch):
+    """Reduced mamba2 / zamba2 (2 groups) on int8 weights: prefill (an
+    exact-size remainder) and decode logits with every projection on the
+    dequant GEMM kernel equal the run on its plain version, bitwise; zamba2's
+    shared block runs flash and dense decode on the card."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.vta_gemm import vta_gemm
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.quant import quantize_params
+    from repro_torch.serve.step import make_prefill_step, make_serve_step
+
+    cfg = get_config(arch).scaled_down()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    qparams = quantize_params(tf.init(cfg, generator=gen, dtype=torch.float32, device=cuda))
+    prompt = torch.randint(0, cfg.vocab, (2, 600), generator=gen, device=cuda)
+
+    def run():
+        caches = tf.init_caches(cfg, 2, 610, torch.float32, cuda)
+        tok, lg, caches = make_prefill_step(cfg, 512, return_logits=True)(qparams, prompt, caches)
+        out, step = [lg], make_serve_step(cfg, return_logits=True)
+        tok = tok[:, None]
+        for _ in range(3):
+            tok, lg, caches = step(qparams, tok, caches)
+            out.append(lg)
+        return torch.cat(out, dim=1)
+
+    n0 = (vta_gemm.launches["dequant"], tfl.flash_attention.launches,
+          tdec.decode_attention.launches)
+    got = run()
+    n1 = (vta_gemm.launches["dequant"], tfl.flash_attention.launches,
+          tdec.decode_attention.launches)
+    groups = cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
+    per_call = 2 * cfg.num_layers + 7 * groups + 1
+    # 600 = one 512 chunk + an exact-size 88-token pass, then 3 decode steps
+    assert n1[0] - n0[0] == per_call * 5
+    assert (n1[1] - n0[1], n1[2] - n0[2]) == (groups, 3 * groups)
+    prev = layers.set_gemm_impl("ref")
+    try:
+        want = run()
+    finally:
+        layers.set_gemm_impl(prev)
+    assert vta_gemm.launches["dequant"] == n1[0]
+    assert bool(torch.isfinite(got).all()) and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_encdec_and_vlm_generate_on_card_go_through_kernels(cuda):
+    """Reduced seamless (1024 frames: the encoder and every cross-attention
+    on flash, decode steps' S 1 included) and internvl2 (a first chunk of
+    256 embeddings + 512 tokens) through ``generate`` on the card: tokens
+    equal to the runs on the plain versions."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import encdec
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.step import generate
+
+    for arch in ("seamless_m4t_large_v2", "internvl2_76b"):
+        cfg = get_config(arch).scaled_down()
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        mod = encdec if cfg.is_enc_dec else tf
+        params = mod.init(cfg, generator=gen, dtype=torch.float32, device=cuda)
+        prompt = torch.randint(0, cfg.vocab, (2, 1024), generator=gen, device=cuda)
+        side = torch.randn((2, 1024 if cfg.is_enc_dec else 256, cfg.d_model), generator=gen,
+                           device=cuda)
+        kw = dict(frames=side) if cfg.is_enc_dec else dict(embeds=side)
+        max_len = 1024 + 5 + (0 if cfg.is_enc_dec else 256)
+        n0 = (tfl.flash_attention.launches, tdec.decode_attention.launches)
+        got = generate(params, cfg, prompt, 5, max_len, torch.float32, chunk=512, **kw)
+        n1 = (tfl.flash_attention.launches, tdec.decode_attention.launches)
+        nl = cfg.num_layers
+        if cfg.is_enc_dec:
+            want_flash = cfg.encoder_layers + 2 * nl + 2 * nl + 4 * nl
+        else:
+            want_flash = 2 * nl
+        assert (n1[0] - n0[0], n1[1] - n0[1]) == (want_flash, 4 * nl)
+        prev = layers.set_attention_impl("ref")
+        try:
+            want = generate(params, cfg, prompt, 5, max_len, torch.float32, chunk=512, **kw)
+        finally:
+            layers.set_attention_impl(prev)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())

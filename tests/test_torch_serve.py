@@ -1,6 +1,10 @@
 """The port's serving slice vs the JAX reference: params carried over by
 ``convert.params_from_numpy``, ``transformer.forward`` logits, chunked
 prefill (ragged final chunk), greedy ``generate``, and the launcher.
+Every config's copy equals the reference's; every family but the CNN
+inits, forwards and builds caches through its own model module; the SSM,
+hybrid, enc-dec and frontend families refuse paged caches, as the
+reference does.
 
 Model: ``qwen3_0p6b.scaled_down()`` in f32, with prompts of at least 512
 tokens so that the flash branch of both packages runs.
@@ -14,13 +18,17 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from repro.configs.base import get_config  # noqa: E402
+from repro.configs.base import ARCH_IDS, get_config  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
+from repro.serve import kv_cache as jkv  # noqa: E402
 from repro.serve import step as jstep  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs.base import get_config as t_get_config  # noqa: E402
 from repro_torch.launch import serve as tlaunch  # noqa: E402
+from repro_torch.models import encdec as ted  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
+from repro_torch.serve import engine as teng  # noqa: E402
+from repro_torch.serve import kv_cache as tkv  # noqa: E402
 from repro_torch.serve import step as tstep  # noqa: E402
 
 # f32 logits after a few layers: the two libraries sum matmuls and
@@ -41,18 +49,65 @@ def _tokens(seed, b, s, vocab):
     return np.random.default_rng(seed).integers(0, vocab, (b, s)).astype(np.int32)
 
 
-def test_config_copy_matches_reference():
-    for arch in ("qwen3_0p6b", "qwen2_72b", "deepseek_v2_236b", "zamba2_2p7b"):
-        assert get_config(arch).__dict__ == t_get_config(arch).__dict__
-        assert (get_config(arch).scaled_down().__dict__
-                == t_get_config(arch).scaled_down().__dict__)
+@pytest.mark.parametrize("arch", ARCH_IDS + ("resnet18_vta",))
+def test_config_copy_matches_reference(arch):
+    assert get_config(arch).__dict__ == t_get_config(arch).__dict__
+    assert (get_config(arch).scaled_down().__dict__
+            == t_get_config(arch).scaled_down().__dict__)
 
 
-def test_unported_families_raise():
-    for arch in ("mamba2_2p7b", "zamba2_2p7b", "seamless_m4t_large_v2", "internvl2_76b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 9"):
-            ttf.init_caches(t_get_config(arch).scaled_down(), 1, 8,
-                            torch.float32, "cpu")
+NO_PAGES = ("mamba2_2p7b", "zamba2_2p7b", "seamless_m4t_large_v2", "internvl2_76b")
+
+
+@pytest.mark.parametrize("arch", NO_PAGES)
+def test_recurrent_encdec_and_frontend_families_refuse_pages(arch):
+    """As the reference: the paged engine and ``init_paged_caches`` refuse
+    SSM, hybrid, enc-dec and frontend configs; the launcher's paged engine
+    refuses the SSM and hybrid configs, and it exits for an enc-dec or
+    frontend config with the reference's message (their entry point is
+    ``serve.step.generate``)."""
+    tcfg = t_get_config(arch).scaled_down()
+    assert not tkv.supports_paged(tcfg) and not jkv.supports_paged(get_config(arch))
+    with pytest.raises(NotImplementedError, match="not paged"):
+        tkv.init_paged_caches(tcfg, 1, 32, torch.float32, device="cpu")
+    with pytest.raises(NotImplementedError, match="not paged"):
+        ttf.init_caches(tcfg, 1, 32, torch.float32, "cpu", cache_layout="paged")
+    with pytest.raises(NotImplementedError, match="use the static loop"):
+        teng.ServingEngine({}, tcfg, max_slots=1, max_len=32)
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--engine", "paged", "--batch", "1",
+            "--prompt", "16", "--new-tokens", "2"]
+    if tcfg.is_enc_dec or tcfg.frontend:
+        with pytest.raises(SystemExit, match="use examples/serve_batched.py variants for "
+                                             "frontend/enc-dec archs"):
+            tlaunch.main(argv)
+    else:
+        with pytest.raises(NotImplementedError, match="use the static loop"):
+            tlaunch.main(argv)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS + ("resnet18_vta",))
+def test_only_the_cnn_config_is_refused(arch):
+    """Every ``ARCH_IDS`` entry inits and builds caches through its own
+    model module (``encdec`` for the enc-dec config, ``transformer`` for
+    the rest); ``transformer.check_supported`` refuses only the CNN."""
+    tcfg = t_get_config(arch)
+    if tcfg.family == "cnn":
+        with pytest.raises(NotImplementedError, match="models.resnet"):
+            ttf.check_supported(tcfg)
+        return
+    tcfg = tcfg.scaled_down()
+    mod = ted if tcfg.is_enc_dec else ttf
+    ttf.check_supported(tcfg)
+    params = mod.init(tcfg, generator=torch.Generator().manual_seed(0), dtype=torch.float32,
+                      device="cpu")
+    caches = mod.init_caches(tcfg, 1, 16, torch.float32, "cpu")
+    assert len(caches["blocks"]) == tcfg.num_layers
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    if tcfg.is_enc_dec:
+        logits, _ = ted.forward(params, tcfg, torch.zeros((1, 6, tcfg.d_model)), toks)
+    else:
+        logits, _ = ttf.forward(params, tcfg, toks)
+    assert logits.shape == (1, 4, tcfg.vocab) and bool(torch.isfinite(logits).all())
 
 
 def test_params_from_numpy_unstacks_layers(model):
