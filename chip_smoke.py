@@ -18,6 +18,24 @@ qwen3_0p6b (f32, random weights from seed 0):
   auditing the pool on every step, with its tokens held to a run on the
   plain versions; then 8 of those requests with speculative decoding (the
   target as its own draft, k = 4, S = 5 verify calls);
+* fault-tolerant serving (``[serve-ft]``): ``serve.supervisor.ServeSupervisor``
+  over the same engine trace, clean (tokens and counters equal to the
+  unsupervised run, no event), then one run per fault kind (decode_nan,
+  device_loss on four listed boards, pool_corrupt, step_hang, a deadline
+  that expires mid-trace, and a degrade after two decode_nans): exactly the
+  planned events, the streams equal to the clean run's under the margin
+  rule, no page leaked, no kernel launch after the degrade and ``auto``
+  dispatch restored after it; decode_nan and device_loss again on int8
+  weights and pools, every token, counter and event equal to the same run
+  with the GEMMs on their plain version;
+* single-device training (``[train]``): ``train.step.make_train_step`` on
+  the same weights at batch 4, seq 2048, grad_accum 2, remat, with
+  ``SyntheticLM`` batches, four steps through an ``AsyncCheckpointer``:
+  step 1 held to the same step on the plain versions (loss and every
+  gradient leaf), flash launched 2 x 28 x 2 times a step (forward and
+  remat recompute; the backward recomputes the plain version), the state
+  saved after step 2 restored bitwise into a fresh state, and step 3 from
+  it held to the uninterrupted step 3;
 * the VTA path: ResNet-18's convolutions (batch 1, 224 x 224) as int8
   GEMMs through ``ops.vta_conv2d`` and ``ops.dense_requant_int8``, the
   conv weights packed K-major by ``ops.pack_conv_weight``;
@@ -406,13 +424,14 @@ def margin_check(torch, params, cfg, dev, reqs, got, ref, what, tol):
     return diverged
 
 
-def engine_phases(torch, params, cfg, dev, card: str) -> int:
+def engine_phases(torch, params, cfg, dev, card: str) -> dict:
     """The paged ``ServingEngine`` at full width: the trace with the
     kernels (launch counts exact, preemption, prefix hits, audit green,
     no leaked page), the same trace on the plain versions (tokens equal
     under the margin rule), the speculative run, the timing line and a
-    profile of decoding engine steps.  Returns the paged kernel's
-    launches in the first run."""
+    profile of decoding engine steps.  Returns the first run's paged
+    kernel launches (``n_paged``), tokens by rid (``toks``), ``stats()``
+    and wall seconds."""
     from repro_torch.kernels.decode_attention import paged_decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.serve.engine import ServingEngine, latency_stats
@@ -531,7 +550,7 @@ def engine_phases(torch, params, cfg, dev, card: str) -> int:
     for name, us, calls in rows[:6]:
         log(f"[profile]   {us / 1e3:9.3f} ms {calls:5d}x {name[:90]}")
     del eng
-    return n_paged
+    return {"n_paged": n_paged, "toks": toks, "stats": est, "seconds": engine_s}
 
 
 def device_breakdown(torch, fn, top: int = 6):
@@ -2471,6 +2490,440 @@ def family_phases(torch, dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# fault-tolerant serving ([serve-ft]) and single-device training ([train])
+# ---------------------------------------------------------------------------
+
+# the [serve-ft] runs: (label, fault plan, supervisor options, decode_nan
+# steps); every step falls while slots decode (one arrival every two steps
+# to 30).  A decode_nan is planned at its step for the decoding slot with the
+# most tokens left (``arm_decode_nan``), so that its victim cannot retire
+# in the poisoned step and hand the page to an admission that overwrites it
+SERVE_FT_RUNS = [
+    ("decode_nan", None, {}, (20,)),
+    ("device_loss", "device_loss:step=25,lose=1", {"devices": [0, 1, 2, 3]}, ()),
+    ("pool_corrupt", "pool_corrupt:step=30", {}, ()),
+    ("step_hang", "step_hang:step=35,hang_s=60", {}, ()),
+    ("degrade", None, {"degrade_after": 2}, (20, 40)),
+]
+# the events each run must record, exactly (kind: count)
+SERVE_FT_EVENTS = {
+    "decode_nan": {"quarantine": 1},
+    "device_loss": {"rebuild": 1},
+    "pool_corrupt": {"rebuild": 1},
+    "step_hang": {"watchdog": 1, "rebuild": 1},
+    "degrade": {"quarantine": 2, "degrade": 1},
+}
+SERVE_FT_INT8 = [("int8 decode_nan", None, {}, (20,)),
+                 ("int8 device_loss", "device_loss:step=25,lose=1", {"devices": [0, 1, 2, 3]},
+                  ())]
+# the [train] phase: qwen3_0p6b full width, f32, remat, SyntheticLM batches
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS, TRAIN_SAVE_AT = 4, 2048, 2, 4, 2
+# step 1 against the same step on the plain versions: the loss (f32 sums
+# over 8192 tokens in another order) and each gradient leaf against its
+# max|grad| (the kernel's ~1e-6 attention differences through 28 layers)
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
+# the restored step 3 against the uninterrupted one
+TRAIN_RESUME_TOL = 1e-6
+
+
+def drive_supervisor(torch, sup, reqs, deadline_ms=None, on_step=None):
+    """``drive_engine`` under a ``ServeSupervisor``: submit each request
+    before its arrival step (with ``deadline_ms``), step the supervisor
+    until every request is done, cancelled or shed, ``on_step(sup)`` after
+    each step; returns (finished requests by rid, wall seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    i = 0
+    while True:
+        while i < len(reqs) and reqs[i][3] <= sup.steps:
+            prompt, max_new, priority, _ = reqs[i]
+            sup.submit(prompt, max_new, priority=priority, deadline_ms=deadline_ms)
+            i += 1
+        if i == len(reqs) and not sup.engine.pending and sup.engine.active == 0:
+            break
+        sup.step()
+        if on_step is not None:
+            on_step(sup)
+    done = sup.run()
+    torch.cuda.synchronize()
+    return {r.rid: r for r in done}, time.perf_counter() - t0
+
+
+def arm_decode_nan(steps, planned: list):
+    """An ``on_step`` hook that plans a decode_nan at each of ``steps`` (or
+    the first step after it with a candidate) for the decoding slot with the
+    most tokens left, at least two; ``planned`` collects the specs."""
+    from repro_torch.ft.faults import FaultPlan
+
+    todo = sorted(steps)
+
+    def hook(sup):
+        if not todo or sup.steps < todo[0]:
+            return
+        cands = [(sl.req.max_new - len(sl.req.tokens), -sid)
+                 for sid, sl in enumerate(sup.engine.slots) if sl.decoding]
+        left, sid = max(cands, default=(0, 0))
+        if left >= 2:
+            todo.pop(0)
+            spec = f"decode_nan:step={sup.steps},slot={-sid}"
+            sup.plan = FaultPlan.parse(spec)
+            planned.append(spec)
+
+    return hook
+
+
+def leak_check(eng, what: str) -> None:
+    """The drained pool: audit green, and once the radix tree lets go,
+    every page not quarantined is free."""
+    eng.audit()
+    eng.prefix.clear()
+    check(eng.allocator.num_free == eng.num_pages - eng.allocator.num_quarantined
+          and (eng.block_tables == -1).all(), f"{what}: no page leaked")
+
+
+def serve_ft_phase(torch, params, qparams, cfg, dev, card: str, clean: dict) -> None:
+    """``ServeSupervisor`` over the engine trace at full width.  The clean
+    supervised run equals the unsupervised ``[engine]`` run (tokens and
+    counters, no event); each fault run records exactly its planned events,
+    its streams equal the clean run's under the margin rule, and its drained
+    pool leaks nothing; a degrade leaves no kernel launch behind it and
+    ``restore_dispatchers`` puts ``auto`` back; on int8 weights and pools,
+    decode_nan and device_loss hold every token, counter and event equal to
+    the same supervised run with the GEMMs on their plain version."""
+    from repro_torch.ft.faults import FaultPlan
+    from repro_torch.models import layers
+    from repro_torch.serve import kv_cache
+    from repro_torch.serve.supervisor import ServeSupervisor
+
+    reqs = engine_trace(cfg.vocab)
+    engine_kw = dict(prefix_cache=True, aging_s=None, num_pages=ENGINE_POOL,
+                     prefill_budget=512, **ENGINE)
+
+    def supervise(plan=None, p=params, kw=engine_kw, **sup_kw):
+        fp = FaultPlan.parse(plan, seed=0) if plan else None
+        return ServeSupervisor(p, cfg, engine_kw=kw, fault_plan=fp, **sup_kw)
+
+    def counts():
+        return {k: v for k, v in kernel_counts().items() if v}
+
+    def events(sup):
+        out = {}
+        for ev in sup.events:
+            out[ev.kind] = out.get(ev.kind, 0) + 1
+        return out
+
+    # the clean supervised run: invisible
+    sup = supervise()
+    done, clean_s = drive_supervisor(torch, sup, reqs)
+    st = sup.stats()
+    check(sup.events == [] and st["recoveries"] == 0 and st["health_events"] == 0
+          and not st["degraded"], f"[serve-ft] clean run: no event ({st['events']}, "
+          f"{st['health_events']} health events)")
+    same = sum(list(done[rid].tokens) == clean["toks"][rid] for rid in clean["toks"])
+    check(same == len(reqs) and _counters(sup.engine.stats()) == _counters(clean["stats"]),
+          f"[serve-ft] clean run: tokens ({same}/{len(reqs)}) and counters equal to "
+          f"the unsupervised [engine] run")
+    n_tok = sum(len(r.tokens) for r in done.values())
+    # what the supervisor adds to each step: the pool probe and the audit
+    eng = sup.engine
+    reps = 20
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        kv_cache.find_nonfinite_pages(eng.blocks)
+        eng.audit()
+    probe_ms = (time.perf_counter() - t0) / reps * 1e3
+    log(f"[serve-ft] clean supervised run: {st['supervisor_steps']} steps, tokens and "
+        f"counters equal to the [engine] run, no event; {n_tok / clean_s:.1f} tok/s "
+        f"supervised vs {n_tok / clean['seconds']:.1f} unsupervised ({clean_s:.3f} s vs "
+        f"{clean['seconds']:.3f} s); probe + audit {probe_ms:.3f} ms a step "
+        f"({len(eng.blocks)} layers x 2 pools of {eng.num_pages} pages); on {card}")
+    leak_check(eng, "[serve-ft] clean")
+    del sup, eng
+
+    # one run per fault kind; the deadline run after them
+    for label, plan, sup_kw, nan_steps in SERVE_FT_RUNS:
+        sup = supervise(plan, **sup_kw)
+        state, planned = {}, []
+        arm = arm_decode_nan(nan_steps, planned)
+
+        def watch(s):
+            arm(s)
+            # from the degrade on, no kernel may launch
+            if s.degraded and "at" not in state:
+                check(layers.attention_impl() == "ref" and layers.gemm_impl() == "ref",
+                      "[serve-ft] degrade: the dispatch reads ref")
+                state["at"] = (s.steps, kernel_counts())
+
+        reset_counts()
+        try:
+            done, secs = drive_supervisor(torch, sup, reqs, on_step=watch)
+        finally:
+            sup.restore_dispatchers()
+        check(layers.attention_impl() == "auto" and layers.gemm_impl() == "auto",
+              f"[serve-ft] {label}: the dispatch reads auto after restore_dispatchers")
+        got = events(sup)
+        check(got == SERVE_FT_EVENTS[label] and sup.recoveries == (2 if label == "degrade" else 1),
+              f"[serve-ft] {label}: events {got} (recoveries {sup.recoveries}), expected "
+              f"exactly {SERVE_FT_EVENTS[label]}")
+        if label == "step_hang":
+            check(next(e for e in sup.events if e.kind == "watchdog").detail["detected"],
+                  "[serve-ft] step_hang: the watchdog declared the miss")
+        if label == "degrade":
+            check("at" in state and kernel_counts() == state["at"][1],
+                  f"[serve-ft] degrade: no kernel launched after the degrade at step "
+                  f"{state.get('at', (None,))[0]}")
+        check(all(not r.cancelled and len(r.tokens) == r.max_new for r in done.values())
+              and len(done) == len(reqs), f"[serve-ft] {label}: every request finished")
+        diverged = margin_check(torch, params, cfg, dev, reqs,
+                                {rid: list(r.tokens) for rid, r in done.items()},
+                                clean["toks"], f"serve-ft {label} vs the clean run", LOGIT_TOL)
+        leak_check(sup.engine, f"[serve-ft] {label}")
+        recov = [(e.kind, round(e.recovery_s * 1e3, 3)) for e in sup.events if e.recovery_s]
+        log(f"[serve-ft] {label}: plan {plan or ';'.join(planned)}; events {got}, "
+            f"recovery_s {recov} ms, {sup.steps} steps, "
+            f"{len(reqs) - diverged}/{len(reqs)} streams equal to the clean run, "
+            f"{diverged} diverge where the margin <= {LOGIT_TOL}; pool "
+            f"{sup.engine.num_pages} pages, {sup.engine.allocator.num_quarantined} "
+            f"quarantined; {secs:.2f} s; launches {counts()}")
+        del sup
+
+    # a deadline that expires mid-trace: half the clean run's wall time
+    deadline_ms = clean["seconds"] * 1e3 / 2
+    sup = supervise()
+    done, secs = drive_supervisor(torch, sup, reqs, deadline_ms=deadline_ms)
+    got = events(sup)
+    cancelled = {rid for rid, r in done.items() if r.cancelled}
+    check(set(got) == {"cancel_deadline"} and got["cancel_deadline"] == len(cancelled) >= 1
+          and len(cancelled) < len(reqs) and sup.recoveries == 0,
+          f"[serve-ft] deadline: events {got}, {len(cancelled)} cancelled")
+    check(all(e.detail["expired_since_last_check"] for e in sup.events),
+          "[serve-ft] deadline: each cancelled within one step of its deadline")
+    finished = {rid: list(r.tokens) for rid, r in done.items() if rid not in cancelled}
+    diverged = margin_check(torch, params, cfg, dev, reqs, finished,
+                            {rid: clean["toks"][rid] for rid in finished},
+                            "serve-ft deadline vs the clean run", LOGIT_TOL)
+    for rid in cancelled:
+        have, want = list(done[rid].tokens), clean["toks"][rid]
+        check(len(have) < len(want), f"[serve-ft] deadline: request {rid} stopped early")
+    leak_check(sup.engine, "[serve-ft] deadline")
+    late = max(e.detail["late_s"] for e in sup.events)
+    log(f"[serve-ft] deadline {deadline_ms:.0f} ms: {len(cancelled)}/{len(reqs)} cancelled "
+        f"(latest {late * 1e3:.2f} ms past its deadline), {len(finished) - diverged}/"
+        f"{len(finished)} finished streams equal to the clean run; {secs:.2f} s")
+    del sup
+
+    # int8 weights on int8 pools: kernels vs the plain GEMM, every token,
+    # counter and event equal
+    kw8 = dict(engine_kw, kv_dtype="int8")
+    for label, plan, sup_kw, nan_steps in SERVE_FT_INT8:
+        runs = []
+        for impl in ("auto", "ref"):
+            prev = layers.set_gemm_impl(impl)
+            try:
+                reset_counts()
+                sup = supervise(plan, p=qparams, kw=kw8, **sup_kw)
+                planned = []
+                done, secs = drive_supervisor(torch, sup, reqs,
+                                              on_step=arm_decode_nan(nan_steps, planned))
+                leak_check(sup.engine, f"[serve-ft] {label} gemm {impl}")
+                runs.append(({rid: (list(r.tokens), r.cancelled) for rid, r in done.items()},
+                             _counters(sup.engine.stats()), events(sup), sup.recoveries,
+                             counts(), secs, planned))
+                del sup
+            finally:
+                layers.set_gemm_impl(prev)
+        (toks, st8, ev8, rec8, n8, secs, planned), ref = runs[0], runs[1]
+        want = SERVE_FT_EVENTS[label.split()[1]]
+        check(ev8 == want and rec8 == 1, f"[serve-ft] {label}: events {ev8}, expected {want}")
+        check(n8.get("vta_gemm_dequant", 0) > 0 and "vta_gemm_dequant" not in ref[4],
+              f"[serve-ft] {label}: the GEMMs ran on the kernel, then on the plain version")
+        same = sum(toks[rid] == ref[0][rid] for rid in toks)
+        check(same == len(reqs) and st8 == ref[1] and ev8 == ref[2] and planned == ref[6],
+              f"[serve-ft] {label}: tokens ({same}/{len(reqs)}), counters and events equal "
+              f"to the plain-GEMM run")
+        log(f"[serve-ft] {label}: plan {plan or ';'.join(planned)}; events {ev8}; "
+            f"{same}/{len(reqs)} requests, counters and "
+            f"events equal to the plain-GEMM run; {secs:.2f} s (plain GEMM {ref[5]:.2f} s); "
+            f"launches {n8}")
+
+
+def train_phase(torch, params, cfg, dev, card: str) -> int:
+    """The port's ``make_train_step`` on qwen3_0p6b at full width: B 4,
+    seq 2048, grad_accum 2, remat, ``SyntheticLM`` batches, four steps
+    through an ``AsyncCheckpointer``.  Step 1 is held to the same step on
+    the plain versions; flash launches 2 x layers x grad_accum a step (the
+    forward and the remat recompute; the backward is the plain version's);
+    the state saved after step 2 restores bitwise into a fresh state and
+    step 3 from it gives the uninterrupted loss.  Returns the flash
+    launches of the four steps."""
+    import math
+    import shutil
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.ft.checkpoint import AsyncCheckpointer
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_diff, flash_attention_ref)
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import make_state, make_train_step
+    from repro_torch.tree import flatten_with_path, leaves
+
+    import torch.nn.functional as F
+
+    opt = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=TRAIN_STEPS)
+    step_fn = make_train_step(cfg, opt, grad_accum=TRAIN_ACCUM, remat=True)
+    data = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+
+    def batch(i):
+        return {"tokens": torch.from_numpy(data.batch(i)["tokens"]).long().to(dev)}
+
+    expect = 2 * cfg.num_layers * TRAIN_ACCUM
+    log(f"[train] {ARCH} full width f32: batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, grad_accum "
+        f"{TRAIN_ACCUM}, remat, chunked CE, AdamW {opt}; SyntheticLM seed 0")
+    state0 = make_state(params)
+
+    # step 1 on the plain versions, then on the kernels
+    reset_counts()
+    with plain_versions():
+        ref1, mref = step_fn(state0, batch(0))
+        torch.cuda.synchronize()
+    check(flash_attention.launches == 0, "[train] the plain-version step launched no kernel")
+    runs, step_ms, n_flash = [], [], 0
+    state = state0
+    ckpt_root = ROOT / "build" / "ckpt_smoke"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    ckpt = AsyncCheckpointer(str(ckpt_root), keep=2)
+    saved = None
+    for i in range(TRAIN_STEPS):
+        flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch(i))
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        n = flash_attention.launches
+        n_flash += n
+        check(n == expect, f"[train] step {i + 1}: flash launches {n}, expected {expect} "
+              f"(2 x {cfg.num_layers} layers x {TRAIN_ACCUM} microbatches)")
+        check(math.isfinite(loss) and math.isfinite(gnorm), f"[train] step {i + 1}: finite "
+              f"loss {loss} and grad norm {gnorm}")
+        runs.append((loss, gnorm, float(m["lr"])))
+        if i == 0:
+            s1 = state
+        if i + 1 == TRAIN_SAVE_AT:
+            saved = state
+            t0 = time.perf_counter()
+            ckpt.save(state, i + 1)
+            snap_s = time.perf_counter() - t0
+        if i + 1 == TRAIN_SAVE_AT + 1:
+            s3 = state
+        log(f"[train] step {i + 1}: loss {loss:.6f}, grad_norm {gnorm:.4f}, lr "
+            f"{runs[-1][2]:.3e}, {step_ms[-1]:.1f} ms, flash launches {n}")
+
+    # step 1 against the plain versions: loss, and each gradient leaf through
+    # the first moment (mu = (1 - b1) x the clipped gradient)
+    lerr = abs(runs[0][0] - float(mref["loss"])) / abs(float(mref["loss"]))
+    check(lerr <= TRAIN_LOSS_TOL, f"[train] step 1 loss vs the plain versions: {lerr} > "
+          f"{TRAIN_LOSS_TOL}")
+    worst, worst_at = -1.0, None
+    for (path, a), (_, b) in zip(flatten_with_path(s1["opt"].mu),
+                                 flatten_with_path(ref1["opt"].mu)):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max()) / max(scale, 1e-30)
+        if err > worst:
+            worst, worst_at = err, path
+        if path[0] == "blocks" and path[-2] in ("wq", "wk", "wv", "q_norm", "k_norm"):
+            check(float(a.abs().max()) > 0, f"[train] kernel route: zero gradient at {path}")
+    check(worst <= TRAIN_GRAD_TOL, f"[train] step 1 gradient at {worst_at}: {worst} of its "
+          f"max > {TRAIN_GRAD_TOL}")
+    log(f"[train] step 1 vs the plain versions: loss rel err {lerr:.3e} (tol "
+        f"{TRAIN_LOSS_TOL}), worst gradient leaf {worst:.3e} of its max|grad| at "
+        f"{'/'.join(map(str, worst_at))} (tol {TRAIN_GRAD_TOL}); every wq/wk/wv/q_norm/"
+        f"k_norm gradient non-zero on the kernel route; flash launches {expect} a step "
+        f"(forward + remat recompute), none in the backward")
+    del ref1, mref, s1
+
+    # the checkpoint: restore into a fresh state, then step 3 again
+    ckpt.wait()
+    t0 = time.perf_counter()
+    restored, at = ckpt.restore_latest(state0)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(at == TRAIN_SAVE_AT, f"[train] latest checkpoint at step {at}")
+    for (path, a), (_, b) in zip(flatten_with_path(restored), flatten_with_path(saved)):
+        check(a.dtype == b.dtype and a.device == b.device and torch.equal(a, b),
+              f"[train] restored leaf {path} equals the saved one bitwise")
+    flash_attention.launches = 0
+    again, m3 = step_fn(restored, batch(TRAIN_SAVE_AT))
+    loss3 = float(m3["loss"])
+    rel = abs(loss3 - runs[TRAIN_SAVE_AT][0]) / abs(runs[TRAIN_SAVE_AT][0])
+    bitwise = loss3 == runs[TRAIN_SAVE_AT][0] and all(
+        torch.equal(a, b) for a, b in zip(leaves(again), leaves(s3)))
+    check(rel <= TRAIN_RESUME_TOL, f"[train] step {TRAIN_SAVE_AT + 1} from the restored "
+          f"state: loss rel err {rel} > {TRAIN_RESUME_TOL}")
+    nbytes = sum(x.numel() * x.element_size() for x in leaves(saved))
+    log(f"[train] checkpoint after step {TRAIN_SAVE_AT}: {nbytes / 2 ** 30:.2f} GiB, "
+        f"snapshot {snap_s:.2f} s, restore {restore_s:.2f} s, every leaf (params, mu, nu, "
+        f"step) bitwise equal; step {TRAIN_SAVE_AT + 1} from it: loss {loss3:.6f} vs "
+        f"{runs[TRAIN_SAVE_AT][0]:.6f} (rel err {rel:.3e}, tol {TRAIN_RESUME_TOL}); "
+        f"{'bitwise' if bitwise else 'NOT bitwise'} equal to the uninterrupted step "
+        f"(state and loss)")
+    del restored, again, saved, s3
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+
+    # where a step's time goes
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mean_ms = sum(step_ms[1:]) / len(step_ms[1:])
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state, _ = step_fn(state, batch(TRAIN_STEPS))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    wall, busy, top = device_breakdown(torch, lambda: step_fn(state, batch(TRAIN_STEPS + 1)),
+                                       top=8)
+    log(f"[time] train step (steps 2-{TRAIN_STEPS}): {mean_ms:.1f} ms, "
+        f"{tokens / mean_ms * 1e3:.0f} tokens/s; peak allocated {peak / 2 ** 30:.2f} GiB "
+        f"({base / 2 ** 30:.2f} GiB live before the step: params, moments, the data); "
+        f"profiled step: wall {wall * 1e3:.1f} ms, device kernels {busy * 1e3:.1f} ms, "
+        f"device idle {100 * (1 - busy / wall):.1f} %; on {card}")
+    for name, us, calls in top:
+        log(f"[profile] train   {us / 1e3:9.3f} ms {calls:5d}x {name[:90]}")
+
+    # flash at the training shape, and the plain backward it pairs with
+    h, hkv, d = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn((TRAIN_BATCH, TRAIN_SEQ, h, d), generator=gen, device=dev)
+    k = torch.randn((TRAIN_BATCH, TRAIN_SEQ, hkv, d), generator=gen, device=dev)
+    v = torch.randn((TRAIN_BATCH, TRAIN_SEQ, hkv, d), generator=gen, device=dev)
+    with torch.no_grad():
+        ms = cuda_ms(torch, lambda _: flash_attention(q, k, v))
+        plain = cuda_ms(torch, lambda _: flash_attention_ref(q, k, v), reps=3)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k.repeat_interleave(h // hkv, 2),
+                                                  v.repeat_interleave(h // hkv, 2)))
+        lib = cuda_ms(torch, lambda _: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                      is_causal=True))
+    flops, nbytes = flash_work(TRAIN_BATCH, TRAIN_SEQ, h, hkv, d, d, 0, TRAIN_SEQ, 4)
+    bnd, by = bound_ms(3 * flops, nbytes, "tf32")
+    log(f"[time] flash train shape B {TRAIN_BATCH} S = T = {TRAIN_SEQ} causal G {h // hkv} "
+        f"D {d} f32: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
+        f"{bnd:.4f} ms ({by}, 3xTF32)")
+    mb = TRAIN_BATCH // TRAIN_ACCUM
+    leaves_ = [x[:mb].clone().requires_grad_() for x in (q, k, v)]
+    out = flash_attention_diff(*leaves_)
+    g = torch.randn(out.shape, generator=gen, device=dev)
+    bwd = cuda_ms(torch, lambda _: torch.autograd.grad(out, leaves_, g, retain_graph=True),
+                  reps=3, warmup=1)
+    share = bwd * cfg.num_layers * TRAIN_ACCUM / mean_ms
+    log(f"[time] flash's plain backward (recompute through flash_attention_ref) per layer "
+        f"and microbatch (B {mb}): {bwd:.3f} ms; x {cfg.num_layers} layers x {TRAIN_ACCUM} "
+        f"= {bwd * cfg.num_layers * TRAIN_ACCUM:.1f} ms, {100 * share:.1f} % of the step")
+    del q, k, v, qt, kt, vt, out, g, leaves_, state, state0
+    torch.cuda.empty_cache()
+    return n_flash
+
+
 def leaves(tree):
     """The tensors of a param tree (nested dicts and lists)."""
     if isinstance(tree, dict):
@@ -2795,11 +3248,18 @@ def main() -> int:
     del caches, state
 
     # ---- the paged engine: the second main path ------------------------------
-    n_paged = engine_phases(torch, params, cfg, dev, f"{kind} ({smi})")
+    engine_run = engine_phases(torch, params, cfg, dev, f"{kind} ({smi})")
+    n_paged = engine_run["n_paged"]
+
+    # ---- fault-tolerant serving and training on the same weights ---------------
+    qparams = quantize_params(params)
+    serve_ft_phase(torch, params, qparams, cfg, dev, f"{kind} ({smi})", engine_run)
+    n_train_flash = train_phase(torch, params, cfg, dev, f"{kind} ({smi})")
+    check(layers.attention_impl() == "auto" and layers.gemm_impl() == "auto",
+          "the dispatch reads auto after the serving-fault and training phases")
 
     # ---- the VTA path and int8 serving: the third ------------------------------
     n_none, n_req, vta_operands = vta_phase(torch, gen, dev)
-    qparams = quantize_params(params)
     n_deq = int8_static_phase(torch, params, qparams, cfg, prompts, dev, f"{kind} ({smi})")
     int8_engine_phase(torch, qparams, cfg, dev, f"{kind} ({smi})")
 
@@ -2840,7 +3300,7 @@ def main() -> int:
     simt, _ = bound_ms(acc["flops"], acc["bytes"], "float32")
     rows["flash_attention"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:196", launches=n_flash,
+        replaces="src/repro/kernels/flash_attention.py:196", launches=n_flash + n_train_flash,
         max_abs_err=errs["flash_attention"], ms=acc["ms"], plain_ms=acc["plain_ms"],
         bound_ms=bnd, bound_by=by, library_ms=acc["library_ms"])
     log(f"[time] flash mean over the main path's 4 chunk offsets: kernel "

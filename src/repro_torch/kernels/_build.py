@@ -118,9 +118,29 @@ def check_rows4(what: str, *tensors) -> None:
                              f"strides {x.stride()}")
 
 
+class KernelLaunchError(RuntimeError):
+    """A kernel's entry point returned a CUDA error at its launch.  Its own
+    class, so that a caller that recovers from other errors (the serving
+    supervisor) can let it through."""
+
+
 def check(rc: int, what: str, error_string) -> None:
-    """Raise on a non-zero ``cudaError_t`` returned by an entry point;
-    ``error_string`` is the library's ``cudaGetErrorString``."""
+    """Raise :class:`KernelLaunchError` on a non-zero ``cudaError_t``
+    returned by an entry point; ``error_string`` is the library's
+    ``cudaGetErrorString``."""
     if rc != 0:
         msg = error_string(rc).decode(errors="replace")
-        raise RuntimeError(f"{what}: CUDA error {rc} at launch ({msg})")
+        raise KernelLaunchError(f"{what}: CUDA error {rc} at launch ({msg})")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise a ``ValueError`` when grad is enabled and an input requires
+    it: the kernel writes its output through a raw pointer, so PyTorch
+    would see no path back to its inputs and a gradient would be silently
+    zero.  Only flash has a differentiable route (its autograd Function)."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad for x in tensors):
+        raise ValueError(f"{what}: the kernel has no backward; call it under "
+                         f"torch.no_grad() or on tensors that do not require grad")

@@ -316,6 +316,7 @@ def decode_attention(q, k, v, *, kv_len: int, window: int = 0,
                                     return_counts=return_counts)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda or cpu, not {q.device}")
+    _build.refuse_grad("decode_attention", q, k, v)
     b, _, h, d = q.shape
     t, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
     g = h // hkv
@@ -584,6 +585,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens, *,
             dv=dv, k_scales=k_scales, v_scales=v_scales, return_counts=return_counts)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention runs on cuda or cpu, not {q.device}")
+    _build.refuse_grad("paged_decode_attention", q, k_pages, v_pages, k_scales, v_scales)
     b, s, h, d = q.shape
     hkv, num_pages, pg, _ = k_pages.shape
     rows = s * (h // hkv)

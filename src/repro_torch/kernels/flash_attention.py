@@ -9,6 +9,14 @@ tile-accounting oracle.
 version, ``flash_attention_ref``.  ``q_offset`` and ``kv_len`` are host
 ints here: the serving cache keeps its length on the host, so no launch
 waits on the device to read them.
+
+The wrapper writes its output through a raw pointer, so autograd sees no
+path from it to q, k and v; it refuses inputs that require grad while
+grad is enabled.  ``flash_attention_diff`` is the differentiable route,
+the reference's ``custom_vjp`` (``repro.kernels.flash_attention._flash_diff``):
+the forward is the kernel (the plain version on the CPU), the backward
+recomputes through ``flash_attention_ref`` and differentiates that.  There
+is no backward kernel, as the reference has none.
 """
 
 from __future__ import annotations
@@ -211,6 +219,7 @@ def flash_attention(q, k, v, *, q_offset: int = 0, kv_len: int | None = None,
         return out, tile_map.expand(b, hkv, nq, nk).contiguous()
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    _build.refuse_grad("flash_attention", q, k, v)
 
     _build.check_rows4("flash_attention", q, k, v)
     if dv > MAX_DV:
@@ -241,6 +250,39 @@ def flash_attention(q, k, v, *, q_offset: int = 0, kv_len: int | None = None,
 
 
 flash_attention.launches = 0
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention with a gradient: forward through
+    :func:`flash_attention` (the kernel on the card), backward by
+    recomputing the plain version and differentiating it, as the
+    reference's vjp does.  ``q_offset``, ``kv_len`` and the masking
+    options are constants with no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset, kv_len, window, bidirectional, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(q_offset=q_offset, kv_len=kv_len, window=window,
+                        bidirectional=bidirectional, scale=scale)
+        return flash_attention(q, k, v, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            out = flash_attention_ref(*leaves, **ctx.opts)
+            dq, dk, dv = torch.autograd.grad(out, leaves, grad)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention_diff(q, k, v, *, q_offset: int = 0, kv_len: int | None = None,
+                         window: int = 0, bidirectional: bool = False,
+                         scale: float | None = None):
+    """:func:`flash_attention` with a gradient to q, k and v
+    (:class:`FlashAttentionFunction`)."""
+    return FlashAttentionFunction.apply(q, k, v, int(q_offset), kv_len, window,
+                                        bidirectional, scale)
 
 
 def _lib():

@@ -164,6 +164,7 @@ def vta_gemm(a, w, bias=None, scale=None, *, block_m: int = 128,
                             relu=relu, act=act)
     if a.device.type != "cuda":
         raise ValueError(f"vta_gemm runs on cuda or cpu, not {a.device}")
+    _build.refuse_grad("vta_gemm", a, w, bias, scale)
     m, k = a.shape
     n = w.shape[1]
     out_dtype = {"none": torch.int32, "requant": torch.int8,

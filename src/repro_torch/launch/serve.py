@@ -17,7 +17,11 @@ reference's message: its entry point is ``serve.step.generate`` with
 ``--device cpu`` runs the same path on the CPU with the kernels' plain
 versions.  Weights and prompts are random, made from fixed seeds.
 ``--kv-dtype int8`` serves the paged engine from int8 pools; the static
-path ignores it, as the reference's does.  Int8 weights come from ``optim.quant.quantize_params``
+path ignores it, as the reference's does.  ``--supervise`` (implied by
+``--fault-plan`` and ``--deadline-ms``) runs the paged engine under the
+fault-tolerant ``serve.supervisor.ServeSupervisor`` and prints the
+reference's supervisor summary (steps, recoveries, every event with its
+recovery time, a degrade to the plain versions, cancelled requests).  Int8 weights come from ``optim.quant.quantize_params``
 (the reference launcher has no flag for them either).  Options of the
 JAX launcher that belong to later slices of the port exit with the
 ROADMAP.md item that ports them.
@@ -37,9 +41,6 @@ from repro_torch.serve.step import make_prefill_step, make_serve_step
 
 # option -> (the values this slice runs, the ROADMAP.md item that ports the rest)
 _UNPORTED = {
-    "supervise": ((False,), "queue 1, item 10 (serving supervisor)"),
-    "fault_plan": ((None,), "queue 1, item 10 (serving supervisor)"),
-    "deadline_ms": ((None,), "queue 1, item 10 (serving supervisor)"),
     "autotune": ((False,), "queue 1, item 13 (measurement and tuning)"),
     "tuning_file": ((None,), "queue 1, item 13 (measurement and tuning)"),
     "strategy": (("fused",), "queue 1, item 12 (distributed runtime)"),
@@ -94,13 +95,14 @@ def run_static(params, cfg, prompts, *, new_tokens: int, chunk: int,
 
 
 def run_paged_engine(params, cfg, args, device):
-    """The reference's ``_run_paged_engine`` without the supervisor: a
-    ``ServingEngine`` sized from the launcher's options serves a
+    """The reference's ``_run_paged_engine``: a ``ServingEngine`` sized
+    from the launcher's options (under a ``ServeSupervisor`` with
+    ``--supervise``, ``--fault-plan`` or ``--deadline-ms``) serves a
     mixed-length trace of ``2 * batch`` requests (generation lengths
     spread 1/4x..1x so slots churn; with the prefix cache on, every other
     request shares the first half of its prompt), then the engine summary
     is printed.  Returns ``{"done": [Request], "engine": ServingEngine,
-    "seconds": float}``."""
+    "seconds": float, "supervisor": ServeSupervisor or None}``."""
     from repro_torch.serve.engine import ServingEngine, latency_stats
 
     page_size = args.page_size or 16
@@ -117,14 +119,26 @@ def run_paged_engine(params, cfg, args, device):
     # with the prefix cache on, a zero-slack pool evicts every retired
     # prefix before its sharer arrives — double it so pages can linger
     pages = -(-max_len // page_size) * args.batch
-    eng = ServingEngine(
-        params, cfg, max_slots=args.batch, max_len=max_len,
+    engine_kw = dict(
+        max_slots=args.batch, max_len=max_len,
         page_size=page_size, kv_dtype=args.kv_dtype,
         num_pages=2 * pages if args.prefix_cache else pages,
         prefill_chunk=max(16, args.prompt // 4),
         prefix_cache=args.prefix_cache,
         draft_params=draft_params, draft_cfg=draft_cfg, spec_k=args.spec_k,
         prefill_budget=args.prefill_budget, slo_ms=args.slo_ms)
+    sup = None
+    if args.supervise or args.fault_plan or args.deadline_ms:
+        from repro_torch.ft.faults import FaultPlan
+        from repro_torch.serve.supervisor import ServeSupervisor
+
+        plan = (FaultPlan.parse(args.fault_plan, seed=args.fault_seed)
+                if args.fault_plan else None)
+        sup = ServeSupervisor(params, cfg, engine_kw=engine_kw, fault_plan=plan,
+                              verbose=True)
+        eng = sup.engine
+    else:
+        eng = ServingEngine(params, cfg, **engine_kw)
     priorities = ([int(p) for p in args.priority.split(",")]
                   if args.priority else [0])
     gen = torch.Generator().manual_seed(1)
@@ -134,12 +148,43 @@ def run_paged_engine(params, cfg, args, device):
         if args.prefix_cache and i % 2:
             prompt = torch.cat([shared, prompt[args.prompt // 2:]])
         new = max(1, args.new_tokens // (1 + i % 4))
-        eng.submit(prompt.numpy(), new, priority=priorities[i % len(priorities)])
+        if sup is not None:
+            sup.submit(prompt.numpy(), new, priority=priorities[i % len(priorities)],
+                       deadline_ms=args.deadline_ms)
+        else:
+            eng.submit(prompt.numpy(), new, priority=priorities[i % len(priorities)])
     t0 = time.monotonic()
-    done = eng.run()
+    if sup is not None:
+        try:
+            done = sup.run()
+        finally:
+            sup.restore_dispatchers()
+        eng = sup.engine  # recoveries may have rebuilt it
+    else:
+        done = eng.run()
     _sync(device)
     dt = time.monotonic() - t0
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    result = {"done": done, "engine": eng, "seconds": dt, "supervisor": sup}
+    if sup is not None:
+        kinds = {}
+        for ev in sup.events:
+            kinds[ev.kind] = kinds.get(ev.kind, 0) + 1
+        print(f"supervisor: {sup.steps} supervised steps, "
+              f"{sup.recoveries} recoveries ({sup.rebuilds} rebuilds), "
+              f"events {kinds or '{}'}"
+              + (", DEGRADED to the plain versions" if sup.degraded else ""))
+        for ev in sup.events:
+            print(f"  step {ev.step}: {ev.kind} {ev.detail} "
+                  f"({ev.recovery_s * 1e3:.1f} ms)")
+    finished = [r for r in done if not r.cancelled]
+    if len(finished) < len(done):
+        print(f"  {len(done) - len(finished)} requests cancelled "
+              "(deadline/shed)")
+    if not finished:
+        print("paged engine: no requests finished")
+        return result
+    done = finished
     stats = latency_stats(done)
     print(f"paged engine: {len(done)} requests, {stats['tokens']} tokens "
           f"in {dt*1e3:.0f} ms over {eng.steps} decode steps "
@@ -175,7 +220,7 @@ def run_paged_engine(params, cfg, args, device):
         print(f"  speculative k={es['spec_k']}: "
               f"{es['accepted_per_spec_step']:.2f} tokens/slot-step "
               f"over {es['spec_steps']} verify steps")
-    return {"done": done, "engine": eng, "seconds": dt}
+    return result
 
 
 def main(argv=None):

@@ -15,10 +15,16 @@ reference's stacked layer axes as lists.  Caches: ``{"blocks":
 cross K/V: a list of per-layer ``{"k", "v"}`` (B, T, H, D).
 
   init(cfg, *, generator, dtype, device)        -> params
-  forward(params, cfg, frames, tokens)          -> (logits, aux = 0)
+  forward(params, cfg, frames, tokens, *, remat=False) -> (logits, aux = 0)
+  forward_hidden(params, cfg, frames, tokens, *, remat=False)
+                                                -> (final-normed hidden, aux = 0)
+  head_logits(params, cfg, hidden)              -> logits
   init_caches(cfg, batch, max_len, dtype, device) -> caches
   prefill(params, cfg, frames, tokens, caches)  -> (last_logits, caches, kv)
   decode_step(params, cfg, token, caches, kv)   -> (logits, caches)
+
+``remat=True`` (training) recomputes every encoder and decoder block in
+the backward pass, as the reference's ``jax.checkpoint`` does.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ from repro_torch.models.layers import (
     rmsnorm_apply,
     rmsnorm_init,
 )
-from repro_torch.models.transformer import _positions
+from repro_torch.models.transformer import _positions, _remat
 
 
 def _enc_block_init(gen, cfg, dtype, device):
@@ -74,15 +80,19 @@ def init(cfg, *, generator: torch.Generator, dtype=torch.bfloat16, device="cuda"
     }
 
 
-def encode(params, cfg, frame_embeds):
+def _enc_block(p, cfg, x, positions):
+    h, _ = attn.gqa_apply(p["attn"], cfg, rmsnorm_apply(p["norm1"], x, cfg.norm_eps),
+                          positions, None, bidirectional=True)
+    x = x + h
+    return x + gated_mlp_apply(p["mlp"], rmsnorm_apply(p["norm2"], x, cfg.norm_eps))
+
+
+def encode(params, cfg, frame_embeds, *, remat: bool = False):
     """frame_embeds: (B, T_enc, D) from the (stubbed) frontend."""
     x = frame_embeds
     positions = _positions(0, x)
     for p in params["encoder"]:
-        h, _ = attn.gqa_apply(p["attn"], cfg, rmsnorm_apply(p["norm1"], x, cfg.norm_eps),
-                              positions, None, bidirectional=True)
-        x = x + h
-        x = x + gated_mlp_apply(p["mlp"], rmsnorm_apply(p["norm2"], x, cfg.norm_eps))
+        x = _remat(_enc_block, p, cfg, x, positions) if remat else _enc_block(p, cfg, x, positions)
     return rmsnorm_apply(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -91,17 +101,25 @@ def cross_kv(params, cfg, enc_out):
     return [attn.cross_attn_kv(p["cross_attn"], cfg, enc_out) for p in params["decoder"]]
 
 
-def _dec_stack(params, cfg, x, positions, kv, caches):
-    """The decoder stack; the self-attention caches update in place."""
+def _dec_block(p, cfg, x, positions, layer_kv, cache):
+    h, nc = attn.gqa_apply(p["self_attn"], cfg,
+                           rmsnorm_apply(p["norm1"], x, cfg.norm_eps), positions, cache)
+    x = x + h
+    x = x + attn.cross_attn_apply(p["cross_attn"], cfg,
+                                  rmsnorm_apply(p["norm_x"], x, cfg.norm_eps), layer_kv)
+    return x + gated_mlp_apply(p["mlp"], rmsnorm_apply(p["norm2"], x, cfg.norm_eps)), nc
+
+
+def _dec_stack(params, cfg, x, positions, kv, caches, *, remat: bool = False):
+    """The decoder stack; the self-attention caches update in place.
+    ``remat`` (no caches) recomputes every block in the backward."""
     new_layers = []
     for li, p in enumerate(params["decoder"]):
         cache = caches["blocks"][li] if caches is not None else None
-        h, nc = attn.gqa_apply(p["self_attn"], cfg,
-                               rmsnorm_apply(p["norm1"], x, cfg.norm_eps), positions, cache)
-        x = x + h
-        x = x + attn.cross_attn_apply(p["cross_attn"], cfg,
-                                      rmsnorm_apply(p["norm_x"], x, cfg.norm_eps), kv[li])
-        x = x + gated_mlp_apply(p["mlp"], rmsnorm_apply(p["norm2"], x, cfg.norm_eps))
+        if remat and caches is None:
+            x, nc = _remat(_dec_block, p, cfg, x, positions, kv[li], None)
+        else:
+            x, nc = _dec_block(p, cfg, x, positions, kv[li], cache)
         new_layers.append(nc)
     return x, ({"blocks": new_layers} if caches is not None else None)
 
@@ -110,12 +128,25 @@ def _head(params, cfg, x):
     return dense_apply(params["lm_head"], rmsnorm_apply(params["final_norm"], x, cfg.norm_eps))
 
 
-def forward(params, cfg, frame_embeds, tokens):
+def forward(params, cfg, frame_embeds, tokens, *, remat: bool = False):
     """Encoder + teacher-forced decoder -> (logits (B, S, V), aux = 0)."""
-    kv = cross_kv(params, cfg, encode(params, cfg, frame_embeds))
+    x, aux = forward_hidden(params, cfg, frame_embeds, tokens, remat=remat)
+    return head_logits(params, cfg, x), aux
+
+
+def forward_hidden(params, cfg, frame_embeds, tokens, *, remat: bool = False):
+    """Final-normed decoder states (the chunked fused CE's entry point)
+    and aux = 0."""
+    kv = cross_kv(params, cfg, encode(params, cfg, frame_embeds, remat=remat))
     x = embedding_apply(params["embed"], tokens)
-    x, _ = _dec_stack(params, cfg, x, _positions(0, x), kv, None)
-    return _head(params, cfg, x), torch.zeros((), device=x.device)
+    x, _ = _dec_stack(params, cfg, x, _positions(0, x), kv, None, remat=remat)
+    return (rmsnorm_apply(params["final_norm"], x, cfg.norm_eps),
+            torch.zeros((), device=x.device))
+
+
+def head_logits(params, cfg, x):
+    """LM head only (no final norm) — pairs with :func:`forward_hidden`."""
+    return dense_apply(params["lm_head"], x)
 
 
 def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda"):

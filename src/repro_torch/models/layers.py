@@ -32,7 +32,11 @@ from repro_torch.kernels.decode_attention import (
     paged_decode_attention,
     paged_decode_attention_ref,
 )
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+from repro_torch.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_diff,
+    flash_attention_ref,
+)
 from repro_torch.kernels.ops import dense_int8
 from repro_torch.kernels.vta_gemm import vta_gemm_ref
 from repro_torch.optim.quant import quant_int8
@@ -270,12 +274,17 @@ def flash_attend(q, k, v, *, q_offset: int = 0, window: int = 0,
     q: (B,S,H,D); k/v: (B,T,Hkv,Dv).  ``q_offset``: absolute position of
     query 0; ``kv_len``: live prefix of a padded cache (host ints).
     Dispatches to the flash kernel's wrapper or its plain version
-    (``set_attention_impl``).
+    (``set_attention_impl``); with grad enabled and an input that requires
+    it, the kernel's route is ``flash_attention_diff`` (the kernel forward,
+    the plain version's backward).
     """
     if _use_kernel(q):
-        return flash_attention(q, k, v, q_offset=q_offset, kv_len=kv_len,
-                               window=window, bidirectional=bidirectional,
-                               scale=scale)
+        kw = dict(q_offset=q_offset, kv_len=kv_len, window=window,
+                  bidirectional=bidirectional, scale=scale)
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return flash_attention_diff(q, k, v, **kw)
+        return flash_attention(q, k, v, **kw)
     return flash_attention_ref(q, k, v, q_offset=q_offset, window=window,
                                bidirectional=bidirectional, scale=scale,
                                kv_len=kv_len)

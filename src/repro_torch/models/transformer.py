@@ -8,7 +8,11 @@ Python loop.  On one device the reference's sharding hints have nothing
 to do and are gone.
 
   init(cfg, *, generator, dtype, device)        -> params
-  forward(params, cfg, tokens, embeds=None)     -> (logits, aux_loss)
+  forward(params, cfg, tokens, embeds=None, *, remat=False)
+                                                -> (logits, aux_loss)
+  forward_hidden(params, cfg, tokens, embeds=None, *, remat=False)
+                                                -> (final-normed hidden, aux)
+  head_logits(params, cfg, hidden)              -> logits
   init_caches(cfg, batch, max_len, dtype, device[, cache_layout="paged"])
                                                 -> caches
   prefill(params, cfg, tokens, caches, embeds=None) -> (last_logits, caches)
@@ -25,11 +29,17 @@ one set of weights, one KV cache per group.  A VLM's ``embeds`` (the
 stubbed frontend's patch embeddings) are prepended to the token
 embeddings.  The enc-dec model lives in ``encdec.py`` and ResNet-18 in
 ``resnet.py``; a CNN config raises ``NotImplementedError`` here.
+
+``remat=True`` (training) recomputes each block in the backward pass
+(``torch.utils.checkpoint`` around every block, the hybrid's shared
+block included), as the reference wraps its scanned blocks in
+``jax.checkpoint``.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -170,10 +180,7 @@ def _embed(params, cfg, tokens, embeds=None):
 
 
 def _head(params, cfg, x):
-    x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
-    if cfg.tie_embeddings:
-        return embedding_logits(params["embed"], x)
-    return dense_apply(params["lm_head"], x)
+    return head_logits(params, cfg, rmsnorm_apply(params["final_norm"], x, cfg.norm_eps))
 
 
 def _hybrid_groups(cfg) -> int:
@@ -182,28 +189,39 @@ def _hybrid_groups(cfg) -> int:
     return cfg.num_layers // cfg.attn_every
 
 
-def _apply_stack(params, cfg, x, positions, caches):
+def _shared_block(sa, cfg, x, positions, cache):
+    """The hybrid's shared attention block and its MLP: (x, new cache)."""
+    h, na = attn.gqa_apply(sa["attn"], cfg, rmsnorm_apply(sa["norm"], x, cfg.norm_eps),
+                           positions, cache)
+    x = x + h
+    x = x + gated_mlp_apply(sa["mlp"], rmsnorm_apply(sa["mlp_norm"], x, cfg.norm_eps))
+    return x, na
+
+
+def _remat(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward."""
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _apply_stack(params, cfg, x, positions, caches, *, remat: bool = False):
     """Returns (x, new caches, aux summed over the layers: a zero without
     MoE).  A hybrid runs each group of ``attn_every`` Mamba2 layers, then
-    the shared attention block and its MLP against the group's KV cache."""
+    the shared attention block and its MLP against the group's KV cache.
+    ``remat`` (no caches) recomputes every block in the backward."""
     new_layers, new_attn = [], []
     aux = torch.zeros((), device=x.device)
     per = cfg.attn_every or cfg.num_layers
+    run = _remat if remat and caches is None else (lambda fn, *a: fn(*a))
     for gi in range(cfg.num_layers // per):
         for li in range(gi * per, (gi + 1) * per):
             cache = caches["blocks"][li] if caches is not None else None
-            x, nc, a = block_apply(params["blocks"][li], cfg, x, positions, cache)
+            x, nc, a = run(block_apply, params["blocks"][li], cfg, x, positions, cache)
             if a is not None:
                 aux = aux + a
             new_layers.append(nc)
         if cfg.attn_every:
-            sa = params["shared_attn"]
             acache = caches["shared_attn"][gi] if caches is not None else None
-            h, na = attn.gqa_apply(sa["attn"], cfg,
-                                   rmsnorm_apply(sa["norm"], x, cfg.norm_eps),
-                                   positions, acache)
-            x = x + h
-            x = x + gated_mlp_apply(sa["mlp"], rmsnorm_apply(sa["mlp_norm"], x, cfg.norm_eps))
+            x, na = run(_shared_block, params["shared_attn"], cfg, x, positions, acache)
             new_attn.append(na)
     if caches is None:
         return x, None, aux
@@ -218,14 +236,29 @@ def _positions(start: int, x):
     return (start + torch.arange(s, device=x.device)).expand(b, s)
 
 
-def forward(params, cfg, tokens, embeds=None):
+def forward(params, cfg, tokens, embeds=None, *, remat: bool = False):
     """Full causal forward.  tokens: (B, S) int64; ``embeds`` (B, E, D)
     prepended (VLM).  Returns (logits over E + S positions, aux) with aux
     the MoE load-balancing loss summed over the layers (zero without MoE)."""
+    x, aux = forward_hidden(params, cfg, tokens, embeds, remat=remat)
+    return head_logits(params, cfg, x), aux
+
+
+def forward_hidden(params, cfg, tokens, embeds=None, *, remat: bool = False):
+    """Like :func:`forward` but stops at the final-normed hidden states —
+    used with the chunked fused CE so (B, S, vocab) logits never
+    materialize."""
     check_supported(cfg)
     x = _embed(params, cfg, tokens, embeds)
-    x, _, aux = _apply_stack(params, cfg, x, _positions(0, x), None)
-    return _head(params, cfg, x), aux
+    x, _, aux = _apply_stack(params, cfg, x, _positions(0, x), None, remat=remat)
+    return rmsnorm_apply(params["final_norm"], x, cfg.norm_eps), aux
+
+
+def head_logits(params, cfg, x):
+    """LM head only (no final norm) — pairs with :func:`forward_hidden`."""
+    if cfg.tie_embeddings:
+        return embedding_logits(params["embed"], x)
+    return dense_apply(params["lm_head"], x)
 
 
 def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda", *,

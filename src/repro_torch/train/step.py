@@ -1,0 +1,146 @@
+"""Training step: loss, remat, grad accumulation, AdamW (PyTorch port of
+``repro.train.step``, single device).
+
+``make_train_step(cfg, opt_cfg)`` returns ``train_step(state, batch) ->
+(state, metrics)``.  The state is ``{"params", "opt": adamw.OptState,
+"step"}`` (plus ``"ef"`` with a compressor); a batch is ``{"tokens":
+(B, S + 1)}`` (and ``"frames"`` for an enc-dec config, ``"embeds"`` for a
+VLM), tensors on the params' device.
+
+Grad accumulation runs the microbatches in order and sums their
+gradients in f32 as the reference's scan carry does (``acc + g /
+grad_accum``).  With ``remat`` every block is recomputed in the backward
+(the models' ``remat`` flag), and the chunked cross-entropy recomputes
+each chunk's logits, so the (B, S, vocab) logits never exist.  Attention
+on the card runs the flash kernel forward in both the forward and the
+remat recompute; its backward is the plain version's
+(``kernels.flash_attention.FlashAttentionFunction``).
+
+The reference's pipeline-parallel siblings (``make_pipeline_train_step``,
+``init_pipeline_state`` and the pad / unpad helpers) wait for the port's
+distributed runtime.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models import encdec, transformer
+from repro_torch.optim import adamw
+from repro_torch.tree import leaves, tree_map, unflatten
+
+
+def cross_entropy(logits, targets, mask=None):
+    """f32 token-mean CE.  logits (B, S, V), targets (B, S) int."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, targets[..., None].long())[..., 0]
+    if mask is None:
+        return -ll.mean()
+    mask = mask.float()
+    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _ce_piece(head_fn, h_c, t_c):
+    logp = F.log_softmax(head_fn(h_c).float(), dim=-1)  # (B, c, V)
+    return logp.gather(-1, t_c[..., None].long())[..., 0].sum()
+
+
+def chunked_ce(head_fn, hidden, targets, chunk: int = 512):
+    """Fused chunked cross-entropy: logits are produced, consumed, and (in
+    backward) recomputed one sequence-chunk at a time, so the (B, S,
+    vocab) f32 tensor never exists.  The chunk is the largest divisor of S
+    that is at most ``chunk``."""
+    b, s, _ = hidden.shape
+    c = min(chunk, s)
+    while s % c:
+        c -= 1
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(s // c):
+        piece = checkpoint(_ce_piece, head_fn, hidden[:, i * c:(i + 1) * c],
+                           targets[:, i * c:(i + 1) * c], use_reentrant=False)
+        total = total + piece
+    return -total / (b * s)
+
+
+def make_loss_fn(cfg, aux_weight: float = 0.01, remat: bool = True):
+    def loss_fn(params, batch):
+        tokens = batch["tokens"]
+        if cfg.is_enc_dec:
+            hidden, aux = encdec.forward_hidden(params, cfg, batch["frames"],
+                                                tokens[:, :-1], remat=remat)
+            ce = chunked_ce(lambda h: encdec.head_logits(params, cfg, h), hidden,
+                            tokens[:, 1:])
+        else:
+            hidden, aux = transformer.forward_hidden(params, cfg, tokens[:, :-1],
+                                                     batch.get("embeds"), remat=remat)
+            # modality prefix tokens (if any) don't predict text targets
+            front = hidden.shape[1] - (tokens.shape[1] - 1)
+            hidden = hidden[:, front:]
+            ce = chunked_ce(lambda h: transformer.head_logits(params, cfg, h), hidden,
+                            tokens[:, 1:])
+        loss = ce + aux_weight * aux
+        return loss, {"ce": ce, "aux": aux}
+
+    return loss_fn
+
+
+def make_state(params, moments_dtype=torch.float32):
+    """A train state around existing ``params``."""
+    device = leaves(params)[0].device
+    return {"params": params, "opt": adamw.init(params, moments_dtype),
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def init_state(cfg, *, generator: torch.Generator, dtype=torch.bfloat16,
+               moments_dtype=torch.float32, device="cuda"):
+    """A fresh train state: random params from ``generator``."""
+    model = encdec if cfg.is_enc_dec else transformer
+    params = model.init(cfg, generator=generator, dtype=dtype, device=device)
+    return make_state(params, moments_dtype)
+
+
+def value_and_grad(loss_fn, params, batch):
+    """((loss, metrics), grads) of ``loss_fn(params, batch)``; a param the
+    loss does not reach gets a zero gradient, as ``jax.grad`` gives."""
+    flat = [p.detach().requires_grad_() for p in leaves(params)]
+    loss, metrics = loss_fn(unflatten(params, flat), batch)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return (loss.detach(), metrics), unflatten(params, grads)
+
+
+def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *, grad_accum: int = 1,
+                    aux_weight: float = 0.01, remat: bool = True, compress=None):
+    """``compress``: an optional ``optim.compress`` compressor applied to
+    the (mean-reduced) grads before the optimizer."""
+    loss_fn = make_loss_fn(cfg, aux_weight, remat)
+
+    def train_step(state, batch):
+        params = state["params"]
+        if grad_accum == 1:
+            (loss, metrics), grads = value_and_grad(loss_fn, params, batch)
+        else:
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                   device=p.device), params)
+            losses, ms = [], []
+            for i in range(grad_accum):
+                mb = {k: v.reshape(grad_accum, v.shape[0] // grad_accum, *v.shape[1:])[i]
+                      for k, v in batch.items()}
+                (l, m), g = value_and_grad(loss_fn, params, mb)
+                grads = tree_map(lambda a, gg: a + gg.float() / grad_accum, grads, g)
+                losses.append(l)
+                ms.append(m)
+            loss = torch.stack(losses).mean()
+            metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
+
+        if compress is not None:
+            grads, state = compress.apply(grads, state)
+
+        new_params, opt, opt_metrics = adamw.apply(opt_cfg, params, grads, state["opt"])
+        new_state = dict(state, params=new_params, opt=opt, step=state["step"] + 1)
+        return new_state, {"loss": loss, **metrics, **opt_metrics}
+
+    return train_step

@@ -264,9 +264,6 @@ def test_paged_launcher_runs_int8_pools_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--supervise"], "queue 1, item 10"),
-    (["--fault-plan", "decode_nan:step=3"], "queue 1, item 10"),
-    (["--deadline-ms", "50"], "queue 1, item 10"),
     (["--autotune"], "queue 1, item 13"),
     (["--tuning-file", "t.json"], "queue 1, item 13"),
     (["--strategy", "pipeline"], "queue 1, item 12"),
@@ -274,3 +271,57 @@ def test_paged_launcher_runs_int8_pools_on_cpu(capsys):
 def test_launcher_unported_flags_name_their_item(flags, item):
     with pytest.raises(SystemExit, match=item):
         tlaunch.main(["--engine", "paged", "--device", "cpu", "--smoke", *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--supervise"],
+    ["--fault-plan", "decode_nan:step=3"],
+    ["--deadline-ms", "1e-3"],
+], ids=["supervise", "fault_plan", "deadline_ms"])
+def test_supervised_launcher_runs_on_cpu(capsys, flags):
+    """The reference's supervisor summary: a clean supervised run, an
+    injected decode_nan recovered in place, and a deadline every request
+    misses (each cancelled within one supervised step)."""
+    res = tlaunch.main(["--engine", "paged", "--device", "cpu", "--smoke", "--batch", "2",
+                        "--prompt", "64", "--new-tokens", "8", "--prefix-cache", *flags])
+    out = capsys.readouterr().out
+    sup = res["supervisor"]
+    assert f"supervisor: {sup.steps} supervised steps, {sup.recoveries} recoveries" in out
+    if flags[0] == "--supervise":
+        assert "events {}" in out and sup.events == []
+        assert "paged engine: 4 requests" in out
+    if flags[0] == "--fault-plan":
+        assert "events {'quarantine': 1}" in out and "step 3: quarantine" in out
+        assert "paged engine: 4 requests" in out and not sup.degraded
+    if flags[0] == "--deadline-ms":
+        assert "4 requests cancelled (deadline/shed)" in out
+        assert "paged engine: no requests finished" in out
+        assert [e.kind for e in sup.events] == ["cancel_deadline"] * 4
+    res["engine"].audit()
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--strategy", "pipeline"], "queue 1, item 12"),
+    (["--pipeline-schedule", "gpipe"], "queue 1, item 12"),
+    (["--microbatches", "4"], "queue 1, item 12"),
+    (["--production-mesh"], "queue 1, item 12"),
+    (["--supervise"], "queue 1, item 11's remainder"),
+    (["--fault-plan", "kill:step=2"], "queue 1, item 11's remainder"),
+    (["--autotune"], "queue 1, item 13"),
+    (["--tuning-file", "t.json"], "queue 1, item 13"),
+])
+def test_train_launcher_unported_flags_name_their_item(flags, item):
+    from repro_torch.launch import train as ttrain
+
+    with pytest.raises(SystemExit, match=item):
+        ttrain.main(["--device", "cpu", "--smoke", *flags])
+
+
+def test_train_launcher_runs_on_cpu_when_asked(capsys):
+    from repro_torch.launch import train as ttrain
+
+    state = ttrain.main(["--device", "cpu", "--smoke", "--steps", "4", "--seq", "32",
+                         "--batch", "2"])
+    out = capsys.readouterr().out
+    assert out.splitlines()[0].startswith("device cpu  arch qwen3_0p6b  strategy fused")
+    assert out.splitlines()[-1] == "done" and int(state["step"]) == 4

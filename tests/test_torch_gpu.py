@@ -1253,3 +1253,116 @@ def test_encdec_and_vlm_generate_on_card_go_through_kernels(cuda):
         finally:
             layers.set_attention_impl(prev)
         np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# training: flash through autograd; the other wrappers refuse grad
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,shape,opts", GPU_FLASH[:4], ids=[c[0] for c in GPU_FLASH[:4]])
+def test_flash_function_grads_on_card_match_plain_route(cuda, name, shape, opts):
+    """``layers.flash_attend`` with grad on the card: one kernel launch
+    forward, none backward, the output within the kernel's tolerance of the
+    plain route's and dq / dk / dv equal to the plain route's (both
+    backwards differentiate the plain version on the same inputs)."""
+    from repro_torch.models import layers
+
+    q, k, v = _qkv(cuda, torch.float32, **shape, seed=len(name))
+    w = torch.randn(q.shape[:3] + (shape["dv"],), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1))
+    grads = {}
+    for impl in ("auto", "ref"):
+        prev = layers.set_attention_impl(impl)
+        try:
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            n0 = tfl.flash_attention.launches
+            out = layers.flash_attend(*leaves, **opts)
+            n1 = tfl.flash_attention.launches
+            (out * w).sum().backward()
+            torch.cuda.synchronize()
+            assert tfl.flash_attention.launches == n1
+            assert n1 - n0 == (1 if impl == "auto" else 0)
+            grads[impl] = (out.detach(), [x.grad for x in leaves],
+                           type(out.grad_fn).__name__)
+        finally:
+            layers.set_attention_impl(prev)
+    (got, g_k, fn_k), (want, g_r, fn_r) = grads["auto"], grads["ref"]
+    assert fn_k == "FlashAttentionFunctionBackward" != fn_r
+    assert float((got - want).abs().max()) <= TOL["float32"]
+    for a, b in zip(g_k, g_r):
+        assert bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0
+        assert float((a - b).abs().max()) <= 1e-5 * max(1.0, float(b.abs().max()))
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_refuse_inputs_that_require_grad(cuda):
+    """A kernel writing through a raw pointer leaves autograd no path back:
+    every wrapper but flash's Function refuses, so no gradient is silently
+    zero.  Under ``torch.no_grad`` the same call launches."""
+    from repro_torch.kernels.vta_alu import vta_alu
+    from repro_torch.kernels.vta_gemm import vta_gemm
+
+    q, k, v = _qkv(cuda, torch.float32, 1, 64, 64, 4, 2, 32, 32)
+    qg = q.clone().requires_grad_()
+    with pytest.raises(ValueError, match="no backward"):
+        tfl.flash_attention(qg, k, v)
+    with pytest.raises(ValueError, match="no backward"):
+        tdec.decode_attention(qg[:, :1], k, v, kv_len=64)
+    args, _ = _paged(cuda, torch.float32, 2, 1, 4, 2, 32, 32, 16, [5, 40])
+    with pytest.raises(ValueError, match="no backward"):
+        tdec.paged_decode_attention(args[0].requires_grad_(), *args[1:])
+    a = torch.randint(-127, 128, (8, 32), device=cuda, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (32, 16), device=cuda, dtype=torch.int8)
+    scale = torch.rand(16, device=cuda).requires_grad_()
+    with pytest.raises(ValueError, match="no backward"):
+        vta_gemm(a, wq, scale=scale, epilogue="dequant")
+    # the ALU takes integer tensors only, and those cannot require grad
+    with pytest.raises(TypeError, match="int8 or int32"):
+        vta_alu(torch.ones(4, device=cuda, requires_grad=True))
+    with torch.no_grad():
+        tfl.flash_attention(qg, k, v)
+        tdec.decode_attention(qg[:, :1], k, v, kv_len=64)
+        vta_gemm(a, wq, scale=scale, epilogue="dequant")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_supervised_decode_nan_on_card(cuda):
+    """``ServeSupervisor`` over the engine on the card: a decode_nan is
+    found by the probe and quarantined in place, the slots it never
+    touched decode exactly as in a clean run, the victim finishes, and the
+    drained pool is leak-free."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.ft.faults import FaultPlan
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.serve.supervisor import ServeSupervisor
+
+    cfg = get_config("qwen3_0p6b").scaled_down()
+    params = tf.init(cfg, generator=torch.Generator(device=cuda).manual_seed(0),
+                     dtype=torch.float32, device=cuda)
+    rng = np.random.default_rng(6)
+    reqs = [(rng.integers(0, cfg.vocab, (n,)).astype(np.int32), m)
+            for n, m in [(9, 12), (13, 10), (8, 8)]]
+    kw = dict(max_slots=2, max_len=128, page_size=8, prefill_chunk=8, prefix_cache=True)
+    eng = ServingEngine(params, cfg, **kw)
+    for p, m in reqs:
+        eng.submit(p, m)
+    clean = {r.rid: list(r.tokens) for r in eng.run()}
+    sup = ServeSupervisor(params, cfg, engine_kw=kw, devices=[0, 1, 2, 3],
+                          fault_plan=FaultPlan.parse("decode_nan:step=3"))
+    for p, m in reqs:
+        sup.submit(p, m)
+    done = {r.rid: r for r in sup.run()}
+    assert sup.stats()["events"] == {"quarantine": 1} and not sup.degraded
+    victims = set(sup.events[0].detail["rids"])
+    assert victims and all(len(done[rid].tokens) == m for rid, (_, m) in enumerate(reqs))
+    for rid in clean:
+        if rid not in victims:
+            assert list(done[rid].tokens) == clean[rid], rid
+    eng = sup.engine
+    eng.audit()
+    eng.prefix.clear()
+    assert eng.allocator.num_free == eng.num_pages - eng.allocator.num_quarantined

@@ -183,7 +183,7 @@ def test_launcher_runs_on_cpu_when_asked(capsys):
 
 def test_launcher_refuses_unported_options(capsys):
     with pytest.raises(SystemExit, match="ROADMAP"):
-        tlaunch.main(["--device", "cpu", "--smoke", "--supervise"])
+        tlaunch.main(["--device", "cpu", "--smoke", "--autotune"])
     # the static path ignores --kv-dtype, as the reference's does
     argv = ["--device", "cpu", "--smoke", "--batch", "1", "--prompt", "16",
             "--new-tokens", "3"]
@@ -198,3 +198,9 @@ def test_launcher_default_device_needs_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tlaunch.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tlaunch.main(["--smoke", "--engine", "paged", "--supervise"])
+    from repro_torch.launch import train as ttrain
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain.main(["--smoke", "--steps", "1"])
