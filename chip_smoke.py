@@ -36,6 +36,16 @@ qwen3_0p6b (f32, random weights from seed 0):
   remat recompute; the backward recomputes the plain version), the state
   saved after step 2 restored bitwise into a fresh state, and step 3 from
   it held to the uninterrupted step 3;
+* the pipeline runtime (``[pipeline]``): the same weights and batch (B 4,
+  seq 2048) through four stages on the one card
+  (``make_mesh_for([dev] * 4, model_axis=4)``, m 4 from
+  ``tune_microbatches``) on the planner's cuts and on an uneven cut with
+  stage 0 at half speed (padding rows at full width): the pipelined
+  forward against ``transformer.forward``, GPipe and 1F1B
+  ``loss_and_grad`` bitwise equal and held to the single-device
+  ``value_and_grad``, schedule counts against ``pipeline_bubble_counts``,
+  and three ``make_pipeline_train_step`` steps, each launching flash
+  3 x 28 x 4 times, timed against the single-device step;
 * the VTA path: ResNet-18's convolutions (batch 1, 224 x 224) as int8
   GEMMs through ``ops.vta_conv2d`` and ``ops.dense_requant_int8``, the
   conv weights packed K-major by ``ops.pack_conv_weight``;
@@ -2525,6 +2535,15 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS, TRAIN_SAVE_AT = 4, 2048, 2, 4,
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
 # the restored step 3 against the uninterrupted one
 TRAIN_RESUME_TOL = 1e-6
+# the [pipeline] phase: the same batch through four pipeline stages on the
+# one card; its steps run three forwards a layer (the forward unit, the
+# backward unit's re-run and its remat recompute) where the single-device
+# step runs two
+PIPE_STAGES, PIPE_STEPS = 4, 3
+# pipelined vs single-device on the same batch, both on the kernels: the
+# loss (f32 CE sums in microbatches of 1 vs one batch of 4) and each grad
+# leaf against its max (GEMMs at M 2048 vs 8192 sum in other orders)
+PIPE_LOSS_TOL, PIPE_GRAD_TOL, PIPE_LOGIT_TOL = 1e-5, 1e-4, 1e-4
 
 
 def drive_supervisor(torch, sup, reqs, deadline_ms=None, on_step=None):
@@ -2924,6 +2943,195 @@ def train_phase(torch, params, cfg, dev, card: str) -> int:
     return n_flash
 
 
+def pipeline_phase(torch, params, cfg, dev, card: str) -> int:
+    """The port's pipeline runtime at qwen3_0p6b's full width on the one
+    card: four stages (``make_mesh_for([dev] * 4, model_axis=4)``), B 4 x
+    (2048 + 1) ``SyntheticLM`` tokens (seed 0), the planner's cuts and an
+    uneven cut with stage 0 at half speed (so padding rows run at full
+    width), m from ``tune_microbatches``.  Gates: the pipelined forward
+    against ``transformer.forward`` on both cuts; GPipe and 1F1B
+    ``loss_and_grad`` bitwise equal; both against the single-device
+    ``value_and_grad`` (loss, every grad leaf after unpadding); attention
+    grads non-zero and padding rows' grads zero; schedule counts equal to
+    ``pipeline_bubble_counts``; ``unpad(pad(x))`` bitwise with padding
+    rows of their own storage; ``PIPE_STEPS`` finite train steps, each
+    launching flash 3 x layers x m times.  Readings: the pipelined step
+    against the single-device step on the same batch, peak memory, device
+    idle, the pipelined forward against ``transformer.forward``.  Returns
+    the flash launches of the pipelined train steps."""
+    import math
+
+    from repro_torch.core.autotune import tune_microbatches
+    from repro_torch.core.graph import config_graph
+    from repro_torch.core.partition import layer_costs, partition_layers
+    from repro_torch.core.placement import pipeline_boundaries
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist import pipeline as pl
+    from repro_torch.ft.elastic import make_mesh_for
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import step as st
+    from repro_torch.tree import flatten_with_path, leaves as tree_leaves
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "[pipeline] f32 matmuls, TF32 off")
+    mesh = make_mesh_for([dev] * PIPE_STAGES, model_axis=PIPE_STAGES)
+    check(mesh.shape == {"data": 1, "model": PIPE_STAGES}
+          and mesh.distinct_devices() == [dev], f"[pipeline] mesh {mesh}")
+    planner = pipeline_boundaries(cfg, TRAIN_SEQ, PIPE_STAGES)
+    costs = layer_costs(config_graph(cfg, TRAIN_SEQ))
+    uneven = partition_layers(costs, PIPE_STAGES,
+                              stage_weights=[0.5] + [1.0] * (PIPE_STAGES - 1))
+    depths = [b - a for a, b in zip(uneven, uneven[1:])]
+    check(planner == (0, 7, 14, 21, 28), f"[pipeline] planner cuts {planner}")
+    check(len(set(depths)) > 1, f"[pipeline] the half-speed cut {uneven} is uneven")
+    m = tune_microbatches(PIPE_STAGES, TRAIN_BATCH, "1f1b")
+    check(m == 4, f"[pipeline] tune_microbatches({PIPE_STAGES}, {TRAIN_BATCH}) = {m}")
+    data = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+
+    def batch(i):
+        return {"tokens": torch.from_numpy(data.batch(i)["tokens"]).long().to(dev)}
+
+    b0 = batch(0)
+    log(f"[pipeline] {ARCH} full width f32, {PIPE_STAGES} stages on one card ({mesh}); "
+        f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, m {m} (tune_microbatches); cuts: planner "
+        f"{planner}, stage 0 at half speed {uneven} (depths {depths}, "
+        f"{PIPE_STAGES * max(depths) - cfg.num_layers} padding rows)")
+
+    # pad / unpad: padding rows are clones, unpad(pad(x)) is x
+    padded = pl.pad_pipeline_params(params, cfg, uneven)
+    ptrs = [x.data_ptr() for x in tree_leaves(padded)]
+    back = pl.unpad_pipeline_params(padded, cfg, uneven)
+    check(len(set(ptrs)) == len(ptrs), "[pipeline] padding rows have storage of their own")
+    check(all(torch.equal(a, b) for a, b in zip(tree_leaves(back), tree_leaves(params))),
+          "[pipeline] unpad(pad(params)) bitwise")
+
+    # the forward pipe on both cuts against transformer.forward
+    tokens = b0["tokens"][:, :-1]
+    with torch.no_grad():
+        want, _ = tf.forward(params, cfg, tokens)
+        scale = float(want.abs().max())
+        fwd_ms = {}
+        for label, cut in (("planner", planner), ("half-speed", uneven)):
+            p = pl.pad_pipeline_params(params, cfg, cut)
+            fwd = pl.make_pipeline_forward(cfg, mesh, m, cut)
+            got = fwd(p, tokens)
+            err = float((got - want).abs().max()) / scale
+            check(fwd.counts == pl.pipeline_bubble_counts(PIPE_STAGES, m, "forward"),
+                  f"[pipeline] forward counts {fwd.counts}")
+            check(err <= PIPE_LOGIT_TOL, f"[pipeline] forward {label}: {err} of max|logit|")
+            del got
+            fwd_ms[label] = cuda_ms(torch, lambda _: fwd(p, tokens), reps=3, warmup=1)
+            log(f"[pipeline] forward, {label} cuts: logits within {err:.3e} of max|logit| "
+                f"{scale:.3f} of transformer.forward (tol {PIPE_LOGIT_TOL}); counts "
+                f"{fwd.counts} == pipeline_bubble_counts")
+        del want, p
+        plain_ms = cuda_ms(torch, lambda _: tf.forward(params, cfg, tokens), reps=3, warmup=1)
+    torch.cuda.empty_cache()
+
+    # loss_and_grad: GPipe == 1F1B bitwise, both against value_and_grad
+    outs = {}
+    for sched in ("gpipe", "1f1b"):
+        lg = pl.make_pipeline_loss_and_grad(cfg, mesh, m, uneven, sched)
+        outs[sched] = lg(padded, b0)
+        torch.cuda.synchronize()
+        want_counts = pl.pipeline_bubble_counts(PIPE_STAGES, m, sched)
+        check(lg.counts == want_counts, f"[pipeline] {sched} counts {lg.counts} vs "
+              f"{want_counts}")
+        log(f"[pipeline] {sched}: loss {float(outs[sched][0][0]):.6f}, counts (rounds, busy, "
+            f"idle) {lg.counts} == pipeline_bubble_counts")
+    (l1, _), g1 = outs.pop("gpipe")
+    (l2, met), g2 = outs.pop("1f1b")
+    check(torch.equal(l1, l2) and all(torch.equal(a, b) for a, b in
+                                      zip(tree_leaves(g1), tree_leaves(g2))),
+          "[pipeline] GPipe and 1F1B loss and grads bitwise equal")
+    del g1
+    (rl, _), rg = st.value_and_grad(st.make_loss_fn(cfg, remat=True), params, b0)
+    lerr = abs(float(l2) - float(rl)) / abs(float(rl))
+    check(lerr <= PIPE_LOSS_TOL, f"[pipeline] loss vs value_and_grad: {lerr}")
+    unpadded = pl.unpad_pipeline_params(g2, cfg, uneven)
+    worst, worst_at = -1.0, None
+    for (path, a), (_, w) in zip(flatten_with_path(unpadded), flatten_with_path(rg)):
+        err = float((a - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        if err > worst:
+            worst, worst_at = err, path
+        if path[0] == "blocks" and path[-2] in ("wq", "wk", "wv", "q_norm", "k_norm"):
+            check(float(a.abs().max()) > 0, f"[pipeline] zero gradient at {path}")
+    check(worst <= PIPE_GRAD_TOL, f"[pipeline] grad at {worst_at}: {worst} of its max")
+    real = {id(x) for x in tree_leaves(unpadded)}
+    pads = [x for x in tree_leaves(g2["blocks"]) if id(x) not in real]
+    check(pads and all(not x.any() for x in pads), "[pipeline] padding rows' grads zero")
+    log(f"[pipeline] GPipe == 1F1B bitwise (loss and {len(tree_leaves(g2))} grad leaves); "
+        f"vs single-device value_and_grad: loss {float(l2):.6f} vs {float(rl):.6f} (rel err "
+        f"{lerr:.3e}, tol {PIPE_LOSS_TOL}), worst grad leaf {worst:.3e} of its max at "
+        f"{'/'.join(map(str, worst_at))} (tol {PIPE_GRAD_TOL}); wq/wk/wv/q_norm/k_norm grads "
+        f"non-zero; {len(pads)} padding leaves exactly zero")
+    del g2, rg, unpadded, pads, padded
+    torch.cuda.empty_cache()
+
+    # the train step: pipelined, then single-device on the same batches
+    opt = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=PIPE_STEPS)
+    step = st.make_pipeline_train_step(cfg, opt, mesh, num_microbatches=m, boundaries=uneven)
+    state = st.make_state(pl.pad_pipeline_params(params, cfg, uneven))
+    expect = 3 * cfg.num_layers * m
+    n_flash, pipe_ms = 0, []
+    for i in range(PIPE_STEPS):
+        flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, mt = step(state, batch(i))
+        loss, gnorm = float(mt["loss"]), float(mt["grad_norm"])
+        torch.cuda.synchronize()
+        pipe_ms.append((time.perf_counter() - t0) * 1e3)
+        n = flash_attention.launches
+        n_flash += n
+        check(n == expect, f"[pipeline] step {i + 1}: flash launches {n}, expected {expect} "
+              f"(3 x {cfg.num_layers} layers x {m} microbatches)")
+        check(math.isfinite(loss) and math.isfinite(gnorm), f"[pipeline] step {i + 1}: "
+              f"loss {loss}, grad norm {gnorm}")
+        log(f"[pipeline] step {i + 1}: loss {loss:.6f}, grad_norm {gnorm:.4f}, "
+            f"{pipe_ms[-1]:.1f} ms, flash launches {n}")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state, _ = step(state, batch(PIPE_STEPS))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    wall, busy, top = device_breakdown(torch, lambda: step(state, batch(PIPE_STEPS + 1)), top=6)
+    del state
+    torch.cuda.empty_cache()
+    single = st.make_train_step(cfg, opt, remat=True)
+    sstate = st.make_state(params)
+    single_ms = []
+    for i in range(PIPE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sstate, sm = single(sstate, batch(i))
+        float(sm["loss"])
+        torch.cuda.synchronize()
+        single_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.reset_peak_memory_stats()
+    sbase = torch.cuda.memory_allocated()
+    sstate, _ = single(sstate, batch(PIPE_STEPS))
+    torch.cuda.synchronize()
+    speak = torch.cuda.max_memory_allocated()
+    del sstate
+    torch.cuda.empty_cache()
+    p_ms = sum(pipe_ms[1:]) / len(pipe_ms[1:])
+    s_ms = sum(single_ms[1:]) / len(single_ms[1:])
+    log(f"[time] pipelined train step ({PIPE_STAGES} stages, m {m}, 1f1b, steps 2-"
+        f"{PIPE_STEPS}): {p_ms:.1f} ms vs single-device step {s_ms:.1f} ms on the same batch "
+        f"({p_ms / s_ms:.3f}x); peak allocated {peak / 2 ** 30:.2f} GiB ({base / 2 ** 30:.2f} "
+        f"before the step) vs {speak / 2 ** 30:.2f} GiB ({sbase / 2 ** 30:.2f}); profiled "
+        f"pipelined step: wall {wall * 1e3:.1f} ms, device kernels {busy * 1e3:.1f} ms, "
+        f"device idle {100 * (1 - busy / wall):.1f} %; on {card}")
+    for name, us, calls in top:
+        log(f"[profile] pipeline {us / 1e3:9.3f} ms {calls:5d}x {name[:90]}")
+    log(f"[time] pipelined forward (B {TRAIN_BATCH} x {TRAIN_SEQ}, m {m}): planner cuts "
+        f"{fwd_ms['planner']:.1f} ms, half-speed cuts {fwd_ms['half-speed']:.1f} ms vs "
+        f"transformer.forward {plain_ms:.1f} ms")
+    return n_flash
+
+
 def leaves(tree):
     """The tensors of a param tree (nested dicts and lists)."""
     if isinstance(tree, dict):
@@ -3255,6 +3463,7 @@ def main() -> int:
     qparams = quantize_params(params)
     serve_ft_phase(torch, params, qparams, cfg, dev, f"{kind} ({smi})", engine_run)
     n_train_flash = train_phase(torch, params, cfg, dev, f"{kind} ({smi})")
+    n_train_flash += pipeline_phase(torch, params, cfg, dev, f"{kind} ({smi})")
     check(layers.attention_impl() == "auto" and layers.gemm_impl() == "auto",
           "the dispatch reads auto after the serving-fault and training phases")
 

@@ -1,5 +1,5 @@
 """Fault tolerance (the port of ``repro.ft``): straggler detection and
 plan re-cuts (``straggler``), heartbeats (``health``), atomic checkpoints
-(``checkpoint``) and seeded fault plans (``faults``).  The training
-supervisor and elastic restore (``ft/supervisor``, ``ft/elastic``) wait
-for the distributed runtime."""
+(``checkpoint``), seeded fault plans (``faults``) and meshes reformed
+from the surviving devices (``elastic.make_mesh_for``).  The training
+supervisor and the elastic restore wait for a later slice."""

@@ -21,7 +21,12 @@ path ignores it, as the reference's does.  ``--supervise`` (implied by
 ``--fault-plan`` and ``--deadline-ms``) runs the paged engine under the
 fault-tolerant ``serve.supervisor.ServeSupervisor`` and prints the
 reference's supervisor summary (steps, recoveries, every event with its
-recovery time, a degrade to the plain versions, cancelled requests).  Int8 weights come from ``optim.quant.quantize_params``
+recovery time, a degrade to the plain versions, cancelled requests).
+The params are placed per ``dist.sharding.param_specs`` under
+``--strategy`` (any of the four) on ``ft.elastic.make_mesh_for``'s mesh
+over the devices of ``--device``, and the static path's caches per
+``cache_specs``; a layout over distinct devices is refused (ROADMAP.md
+item 16).  Int8 weights come from ``optim.quant.quantize_params``
 (the reference launcher has no flag for them either).  Options of the
 JAX launcher that belong to later slices of the port exit with the
 ROADMAP.md item that ports them.
@@ -36,6 +41,9 @@ import time
 import torch
 
 from repro_torch.configs.base import get_config
+from repro_torch.dist.sharding import SHARDING_STRATEGIES, cache_specs, param_specs, place
+from repro_torch.ft.elastic import make_mesh_for
+from repro_torch.launch.mesh import mesh_devices
 from repro_torch.models import transformer as tf
 from repro_torch.serve.step import make_prefill_step, make_serve_step
 
@@ -43,7 +51,6 @@ from repro_torch.serve.step import make_prefill_step, make_serve_step
 _UNPORTED = {
     "autotune": ((False,), "queue 1, item 13 (measurement and tuning)"),
     "tuning_file": ((None,), "queue 1, item 13 (measurement and tuning)"),
-    "strategy": (("fused",), "queue 1, item 12 (distributed runtime)"),
 }
 
 
@@ -54,9 +61,10 @@ def _sync(device: torch.device) -> None:
 
 @torch.inference_mode()
 def run_static(params, cfg, prompts, *, new_tokens: int, chunk: int,
-               return_logits: bool = False):
+               return_logits: bool = False, mesh=None):
     """Prefill ``prompts`` (B, S) in chunks of ``chunk``, then decode
-    ``new_tokens - 1`` greedy steps.  Returns a dict with ``tokens``
+    ``new_tokens - 1`` greedy steps; with a ``mesh``, the caches are
+    placed on it per ``cache_specs``.  Returns a dict with ``tokens``
     (B, new_tokens), ``prefill_s``, ``decode_s`` (host clock around work
     that ends in a device sync) and, with ``return_logits``, ``logits``:
     the prefill head then every decode step's, each (B, V).  The caches
@@ -65,6 +73,8 @@ def run_static(params, cfg, prompts, *, new_tokens: int, chunk: int,
     b, s = prompts.shape
     max_len = -(-s // chunk) * chunk + new_tokens
     caches = tf.init_caches(cfg, b, max_len, params["embed"]["table"].dtype, device)
+    if mesh is not None:
+        caches = place(caches, cache_specs(caches, mesh), mesh)
     prefill = make_prefill_step(cfg, chunk, return_logits=return_logits)
     decode = make_serve_step(cfg, return_logits=return_logits)
     logits = []
@@ -233,8 +243,8 @@ def main(argv=None):
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; the CPU runs only when asked")
+    ap.add_argument("--strategy", default="fused", choices=list(SHARDING_STRATEGIES))
     # options of the JAX launcher that later slices of the port bring
-    ap.add_argument("--strategy", default="fused")
     ap.add_argument("--engine", choices=["static", "paged"], default="static")
     ap.add_argument("--page-size", type=int, default=None)
     ap.add_argument("--tuning-file", default=None)
@@ -277,13 +287,16 @@ def main(argv=None):
     # random weights from seed 0 and prompts from seed 1, as the reference
     gen = torch.Generator(device=device).manual_seed(0)
     params = tf.init(cfg, generator=gen, dtype=torch.float32, device=device)
+    mesh = make_mesh_for(mesh_devices(device))
+    params = place(params, param_specs(params, mesh, args.strategy), mesh)
+    print(f"mesh {mesh.shape}  arch {cfg.name}  strategy {args.strategy}")
     if args.engine == "paged":
         return run_paged_engine(params, cfg, args, device)
     gen = torch.Generator(device=device).manual_seed(1)
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt),
                             generator=gen, device=device)
     res = run_static(params, cfg, prompts, new_tokens=args.new_tokens,
-                     chunk=max(16, args.prompt // 4))
+                     chunk=max(16, args.prompt // 4), mesh=mesh)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"prefill {args.batch}x{args.prompt} in {res['prefill_s'] * 1e3:.1f} ms "
           f"on {name}")

@@ -1,21 +1,32 @@
-"""Training launcher, single device (PyTorch port of ``repro.launch.train``).
+"""Training launcher (PyTorch port of ``repro.launch.train``).
 
     python -m repro_torch.launch.train --arch qwen3_0p6b --steps 100 --seq 512
+    python -m repro_torch.launch.train --strategy pipeline --seq 512 --batch 4
     python -m repro_torch.launch.train --device cpu --smoke --steps 4 --seq 32 --batch 2
 
-Runs the reference's unsupervised loop with ``--strategy fused`` on one
-device: an f32 train state from seed 0 (``train.step.init_state``),
-``AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=steps)``,
-``SyntheticLM`` batches (seed 0) through a ``Prefetcher``, a resume from
-the latest checkpoint under ``--ckpt``, a line every 20 steps (loss,
-grad norm, stragglers), an ``AsyncCheckpointer`` save every
-``--ckpt-every`` steps, and ``done`` at the end.  It runs on the CUDA card
-by default; ``--device cpu`` runs the same path on the CPU with the
-kernels' plain versions, and nothing falls back.  On the card the
-attention of a sequence shorter than 512 tokens (``FLASH_MIN_SEQ``) runs
-no kernel: the reference's default ``--seq 128`` is one such.  Options of
-the JAX launcher that belong to later slices of the port exit with the
-ROADMAP.md item that ports them.
+Runs the reference's unsupervised loop: a mesh from
+``ft.elastic.make_mesh_for`` over the devices of ``--device`` (all the
+CUDA devices torch sees for ``cuda``; ``--production-mesh`` asks for the
+16 x 16 production mesh, which needs 256 devices), an f32 train state
+from seed 0 placed per ``dist.sharding.param_specs`` under
+``--strategy``, ``AdamWConfig(lr=1e-3, warmup_steps=10,
+total_steps=steps)``, ``SyntheticLM`` batches (seed 0) through a
+``Prefetcher``, a resume from the latest checkpoint under ``--ckpt``, a
+line every 20 steps (loss, grad norm, stragglers), an
+``AsyncCheckpointer`` save every ``--ckpt-every`` steps, and ``done`` at
+the end.  ``--strategy pipeline`` cuts the stack at the planner's
+cost-balanced boundaries (``core.placement.pipeline_boundaries``) over
+the mesh's 'model' axis, picks the microbatch count with
+``core.autotune.tune_microbatches`` unless ``--microbatches`` gives one,
+and runs ``train.step.make_pipeline_train_step`` under
+``--pipeline-schedule``; the other strategies run ``make_train_step``.
+A mesh whose layout spreads over distinct devices is refused (ROADMAP.md
+item 16).  It runs on the CUDA card by default; ``--device cpu`` runs the
+same path on the CPU with the kernels' plain versions, and nothing falls
+back.  On the card the attention of a sequence shorter than 512 tokens
+(``FLASH_MIN_SEQ``) runs no kernel: the reference's default ``--seq
+128`` is one such.  Options of the JAX launcher that belong to later
+slices of the port exit with the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -27,17 +38,21 @@ import torch
 
 from repro_torch.configs.base import get_config
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM
+from repro_torch.dist.sharding import SHARDING_STRATEGIES, param_specs, place
 from repro_torch.ft.checkpoint import AsyncCheckpointer
+from repro_torch.ft.elastic import make_mesh_for
 from repro_torch.ft.straggler import StragglerMonitor
+from repro_torch.launch.mesh import make_production_mesh, mesh_devices
 from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.train.step import init_state, make_train_step
+from repro_torch.train.step import (
+    init_pipeline_state,
+    init_state,
+    make_pipeline_train_step,
+    make_train_step,
+)
 
 # option -> (the values this slice runs, the ROADMAP.md item that ports the rest)
 _UNPORTED = {
-    "strategy": (("fused",), "queue 1, item 12 (distributed runtime)"),
-    "pipeline_schedule": ((None,), "queue 1, item 12 (distributed runtime)"),
-    "microbatches": ((0,), "queue 1, item 12 (distributed runtime)"),
-    "production_mesh": ((False,), "queue 1, item 12 (distributed runtime)"),
     "supervise": ((False,), "queue 1, item 11's remainder (TrainSupervisor)"),
     "fault_plan": (("",), "queue 1, item 11's remainder (TrainSupervisor)"),
     "autotune": ((False,), "queue 1, item 13 (measurement and tuning)"),
@@ -47,6 +62,15 @@ _UNPORTED = {
 
 def _batch(np_batch, device):
     return {k: torch.from_numpy(v).long().to(device) for k, v in np_batch.items()}
+
+
+def place_state(state, mesh, strategy: str):
+    """The train state with params and moments placed per ``param_specs``."""
+    specs = param_specs(state["params"], mesh, strategy)
+    opt = state["opt"]
+    return dict(state, params=place(state["params"], specs, mesh),
+                opt=opt._replace(mu=place(opt.mu, specs, mesh),
+                                 nu=place(opt.nu, specs, mesh)))
 
 
 def main(argv=None):
@@ -63,11 +87,12 @@ def main(argv=None):
                     help="checkpoint period in steps (with --ckpt)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; the CPU runs only when asked")
-    # options of the JAX launcher that later slices of the port bring
-    ap.add_argument("--strategy", default="fused")
-    ap.add_argument("--pipeline-schedule", default=None)
-    ap.add_argument("--microbatches", type=int, default=0)
+    ap.add_argument("--strategy", default="fused", choices=list(SHARDING_STRATEGIES))
+    ap.add_argument("--pipeline-schedule", default="1f1b", choices=["gpipe", "1f1b"])
+    ap.add_argument("--microbatches", type=int, default=0,
+                    help="pipeline microbatches (0 -> bubble-tuned)")
     ap.add_argument("--production-mesh", action="store_true")
+    # options of the JAX launcher that later slices of the port bring
     ap.add_argument("--supervise", action="store_true")
     ap.add_argument("--fault-plan", default="")
     ap.add_argument("--tuning-file", default=None)
@@ -94,12 +119,34 @@ def main(argv=None):
     # f32 matmuls in full f32, never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"device {name}  arch {cfg.name}  strategy {args.strategy}")
+    devices = mesh_devices(device)
+    mesh = (make_production_mesh(devices=devices) if args.production_mesh
+            else make_mesh_for(devices))
+    print(f"device {name}  arch {cfg.name}  strategy {args.strategy}  mesh {mesh.shape}")
 
     opt = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=args.steps)
-    step_fn = make_train_step(cfg, opt, grad_accum=args.grad_accum)
     gen = torch.Generator(device=device).manual_seed(0)
-    state = init_state(cfg, generator=gen, dtype=torch.float32, device=device)
+    if args.strategy == "pipeline":
+        # close the planner->runtime loop: cost-balanced cuts from the
+        # config's per-layer cost graph, bubble-tuned microbatch count
+        from repro_torch.core.autotune import tune_microbatches
+        from repro_torch.core.placement import pipeline_boundaries
+
+        stages = mesh.shape.get("model", 1)
+        boundaries = pipeline_boundaries(cfg, args.seq, stages)
+        microbatches = args.microbatches or tune_microbatches(
+            stages, args.batch, args.pipeline_schedule)
+        print(f"pipeline stages {stages}  boundaries {boundaries}  "
+              f"microbatches {microbatches}  schedule {args.pipeline_schedule}")
+        step_fn = make_pipeline_train_step(
+            cfg, opt, mesh, num_microbatches=microbatches, boundaries=boundaries,
+            schedule=args.pipeline_schedule)
+        state = init_pipeline_state(cfg, boundaries, generator=gen, dtype=torch.float32,
+                                    device=device)
+    else:
+        step_fn = make_train_step(cfg, opt, grad_accum=args.grad_accum)
+        state = init_state(cfg, generator=gen, dtype=torch.float32, device=device)
+    state = place_state(state, mesh, args.strategy)
 
     ckpt = AsyncCheckpointer(args.ckpt, keep=2) if args.ckpt else None
     start = 0

@@ -16,9 +16,12 @@ on the card runs the flash kernel forward in both the forward and the
 remat recompute; its backward is the plain version's
 (``kernels.flash_attention.FlashAttentionFunction``).
 
-The reference's pipeline-parallel siblings (``make_pipeline_train_step``,
-``init_pipeline_state`` and the pad / unpad helpers) wait for the port's
-distributed runtime.
+``make_pipeline_train_step`` is the pipeline-parallel sibling: the same
+microbatch grad accumulation, but *through* the pipe of
+:mod:`repro_torch.dist.pipeline` (uneven stage cuts, gpipe or 1f1b
+schedule).  Its state must be created with ``init_pipeline_state`` (or
+padded with ``pad_pipeline_state``) so the block list carries the padded
+per-stage layout.
 """
 
 from __future__ import annotations
@@ -143,4 +146,92 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *, grad_accum: int = 1,
         new_state = dict(state, params=new_params, opt=opt, step=state["step"] + 1)
         return new_state, {"loss": loss, **metrics, **opt_metrics}
 
+    return train_step
+
+
+def init_pipeline_state(cfg, boundaries, *, generator: torch.Generator,
+                        dtype=torch.bfloat16, moments_dtype=torch.float32,
+                        device="cuda"):
+    """Train state whose blocks are padded to the pipeline's uneven-cut
+    layout (the optimizer moments are images of the padded params)."""
+    from repro_torch.dist.pipeline import pad_pipeline_params
+
+    params = transformer.init(cfg, generator=generator, dtype=dtype, device=device)
+    return make_state(pad_pipeline_params(params, cfg, boundaries), moments_dtype)
+
+
+def unpad_pipeline_state(state, cfg, boundaries):
+    """Strip pipeline padding from a live train state: params AND the
+    optimizer moments return to the canonical ``num_layers`` block list.
+    This is the layout checkpoints store, so a restore can re-pad for ANY
+    later boundary vector or stage count."""
+    from repro_torch.dist.pipeline import unpad_pipeline_params
+
+    def un(tree):
+        return unpad_pipeline_params(tree, cfg, boundaries)
+
+    opt = state["opt"]
+    return dict(state, params=un(state["params"]),
+                opt=opt._replace(mu=un(opt.mu), nu=un(opt.nu)))
+
+
+def pad_pipeline_state(state, cfg, boundaries):
+    """Pad a canonical train state (params + optimizer moments) into the
+    pipeline's per-stage layout for ``boundaries`` — the restore-side twin
+    of :func:`unpad_pipeline_state`."""
+    from repro_torch.dist.pipeline import pad_pipeline_params
+
+    def pad(tree):
+        return pad_pipeline_params(tree, cfg, boundaries)
+
+    opt = state["opt"]
+    return dict(state, params=pad(state["params"]),
+                opt=opt._replace(mu=pad(opt.mu), nu=pad(opt.nu)))
+
+
+def repad_pipeline_state(state, cfg, old_boundaries, new_boundaries):
+    """Move a LIVE pipeline train state between boundary vectors: unpad
+    the old stage layout back to canonical layer order, re-pad for the new
+    cuts.  Parameter and moment values are untouched, so training
+    continues as if the new cuts had been used all along (the
+    straggler-driven re-cut path)."""
+    return pad_pipeline_state(
+        unpad_pipeline_state(state, cfg, old_boundaries), cfg, new_boundaries)
+
+
+def make_pipeline_train_step(cfg, opt_cfg: adamw.AdamWConfig, mesh, *,
+                             num_microbatches: int = 8, boundaries=None,
+                             schedule: str = "1f1b", aux_weight: float = 0.01,
+                             remat: bool = True, compress=None):
+    """Pipeline-parallel ``train_step(state, batch) -> (state, metrics)``.
+
+    Microbatch gradient accumulation runs *through* the pipe
+    (``repro_torch.dist.pipeline.make_pipeline_loss_and_grad``): layer
+    grads come out padded exactly like the params, so the AdamW update
+    takes them leaf by leaf.  ``boundaries`` are the planner's uneven
+    layer cuts (``Placement.layer_boundaries``); ``schedule`` is 'gpipe'
+    or '1f1b' (bitwise-equal results, fewer idle stage-rounds).  The
+    stages must share one device: AdamW's global grad norm over stages on
+    distinct cards is multi-card execution.
+    """
+    from repro_torch.dist.pipeline import make_pipeline_loss_and_grad
+    from repro_torch.dist.sharding import MULTI_CARD_ITEM, stage_devices
+
+    if len(set(stage_devices(mesh))) > 1:
+        raise NotImplementedError(f"a train step over stages on distinct devices is "
+                                  f"{MULTI_CARD_ITEM}")
+    loss_grad = make_pipeline_loss_and_grad(
+        cfg, mesh, num_microbatches=num_microbatches, boundaries=boundaries,
+        schedule=schedule, aux_weight=aux_weight, remat=remat)
+
+    def train_step(state, batch):
+        (loss, metrics), grads = loss_grad(state["params"], batch)
+        if compress is not None:
+            grads, state = compress.apply(grads, state)
+        new_params, opt, opt_metrics = adamw.apply(opt_cfg, state["params"], grads,
+                                                   state["opt"])
+        new_state = dict(state, params=new_params, opt=opt, step=state["step"] + 1)
+        return new_state, {"loss": loss, **metrics, **opt_metrics}
+
+    train_step.loss_and_grad = loss_grad
     return train_step

@@ -266,11 +266,33 @@ def test_paged_launcher_runs_int8_pools_on_cpu(capsys):
 @pytest.mark.parametrize("flags,item", [
     (["--autotune"], "queue 1, item 13"),
     (["--tuning-file", "t.json"], "queue 1, item 13"),
-    (["--strategy", "pipeline"], "queue 1, item 12"),
 ])
 def test_launcher_unported_flags_name_their_item(flags, item):
     with pytest.raises(SystemExit, match=item):
         tlaunch.main(["--engine", "paged", "--device", "cpu", "--smoke", *flags])
+
+
+@pytest.mark.parametrize("engine,strategy", [
+    ("paged", "pipeline"),
+    ("static", "scatter_gather"),
+    ("static", "ai_core_assignment"),
+    ("static", "fused"),
+    ("static", "pipeline"),
+])
+def test_launcher_strategy_runs_on_cpu(capsys, engine, strategy):
+    """Every --strategy places the params on make_mesh_for's mesh (one
+    CPU: the identity) and serves; the static path's caches go through
+    cache_specs."""
+    res = tlaunch.main(["--engine", engine, "--device", "cpu", "--smoke", "--batch", "2",
+                        "--prompt", "32", "--new-tokens", "4", "--strategy", strategy])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == f"mesh {{'data': 1, 'model': 1}}  arch qwen3_0p6b  strategy {strategy}"
+    if engine == "paged":
+        assert out[1].startswith("paged engine: 4 requests")
+        res["engine"].audit()
+    else:
+        assert out[1].startswith("prefill 2x32 in ") and out[2].startswith("decode 3 steps")
+        assert res["tokens"].shape == (2, 4)
 
 
 @pytest.mark.parametrize("flags", [
@@ -301,10 +323,6 @@ def test_supervised_launcher_runs_on_cpu(capsys, flags):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--strategy", "pipeline"], "queue 1, item 12"),
-    (["--pipeline-schedule", "gpipe"], "queue 1, item 12"),
-    (["--microbatches", "4"], "queue 1, item 12"),
-    (["--production-mesh"], "queue 1, item 12"),
     (["--supervise"], "queue 1, item 11's remainder"),
     (["--fault-plan", "kill:step=2"], "queue 1, item 11's remainder"),
     (["--autotune"], "queue 1, item 13"),
@@ -315,6 +333,42 @@ def test_train_launcher_unported_flags_name_their_item(flags, item):
 
     with pytest.raises(SystemExit, match=item):
         ttrain.main(["--device", "cpu", "--smoke", *flags])
+
+
+@pytest.mark.parametrize("flags,line", [
+    (["--strategy", "pipeline"],
+     "pipeline stages 1  boundaries (0, 2)  microbatches 1  schedule 1f1b"),
+    (["--strategy", "pipeline", "--pipeline-schedule", "gpipe"],
+     "pipeline stages 1  boundaries (0, 2)  microbatches 1  schedule gpipe"),
+    (["--strategy", "pipeline", "--microbatches", "2"],
+     "pipeline stages 1  boundaries (0, 2)  microbatches 2  schedule 1f1b"),
+    (["--strategy", "ai_core_assignment"], None),
+], ids=["strategy", "pipeline_schedule", "microbatches", "ai_core_assignment"])
+def test_train_launcher_distribution_flags_run_on_cpu(capsys, flags, line):
+    """The reference's distribution flags on one CPU: a (1, 1) mesh, the
+    pipeline's planner cuts and bubble-tuned (or given) microbatches, two
+    steps to ``done``."""
+    from repro_torch.launch import train as ttrain
+
+    state = ttrain.main(["--device", "cpu", "--smoke", "--steps", "2", "--seq", "32",
+                         "--batch", "2", *flags])
+    out = capsys.readouterr().out.splitlines()
+    strategy = flags[1]
+    assert out[0] == (f"device cpu  arch qwen3_0p6b  strategy {strategy}  "
+                      f"mesh {{'data': 1, 'model': 1}}")
+    if line is not None:
+        assert out[1] == line
+    assert out[-1] == "done" and int(state["step"]) == 2
+
+
+def test_train_launcher_production_mesh_needs_256_devices():
+    """As the reference's ``jax.make_mesh``: the 16 x 16 mesh refuses a
+    host with fewer devices."""
+    from repro_torch.launch import train as ttrain
+
+    with pytest.raises(ValueError, match=r"Number of devices 1 must be >= the product of "
+                                         r"mesh_shape \(16, 16\)"):
+        ttrain.main(["--device", "cpu", "--smoke", "--steps", "1", "--production-mesh"])
 
 
 def test_train_launcher_runs_on_cpu_when_asked(capsys):

@@ -1366,3 +1366,127 @@ def test_supervised_decode_nan_on_card(cuda):
     eng.audit()
     eng.prefix.clear()
     assert eng.allocator.num_free == eng.num_pages - eng.allocator.num_quarantined
+
+
+# ---------------------------------------------------------------------------
+# the distributed runtime: the pipeline on one card, the launchers' flags
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_pipeline_on_card_schedules_bitwise_through_flash(cuda):
+    """Four stages on the one card at seq 512 (attention on flash): GPipe
+    and 1F1B bitwise equal, flash launched 3 x layers x m times per
+    ``loss_and_grad`` (forward unit, the backward unit's re-run, its remat
+    recompute), loss and grads within tolerance of the single-device
+    ``value_and_grad``."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.dist import pipeline as pl
+    from repro_torch.ft.elastic import make_mesh_for
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import step as st
+    from repro_torch.tree import flatten_with_path, leaves
+
+    cfg = get_config("qwen3_0p6b").scaled_down(num_layers=6, vocab=512)
+    params = tf.init(cfg, generator=torch.Generator(device=cuda).manual_seed(0),
+                     dtype=torch.float32, device=cuda)
+    rng = np.random.default_rng(3)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (4, 513))).to(cuda)}
+    mesh = make_mesh_for([cuda] * 4, model_axis=4)
+    bounds = (0, 1, 3, 5, 6)
+    padded = pl.pad_pipeline_params(params, cfg, bounds)
+    outs = {}
+    for sched in ("gpipe", "1f1b"):
+        lg = pl.make_pipeline_loss_and_grad(cfg, mesh, 4, bounds, sched)
+        n0 = tfl.flash_attention.launches
+        outs[sched] = lg(padded, batch)
+        torch.cuda.synchronize()
+        assert tfl.flash_attention.launches - n0 == 3 * cfg.num_layers * 4
+        assert lg.counts == pl.pipeline_bubble_counts(4, 4, sched)
+    (l1, _), g1 = outs["gpipe"]
+    (l2, _), g2 = outs["1f1b"]
+    assert torch.equal(l1, l2) and all(torch.equal(a, b) for a, b in zip(leaves(g1), leaves(g2)))
+    (rl, _), rg = st.value_and_grad(st.make_loss_fn(cfg, remat=True), params, batch)
+    assert abs(float(l2) - float(rl)) <= 1e-5 * abs(float(rl))
+    for (path, a), (_, w) in zip(flatten_with_path(pl.unpad_pipeline_params(g2, cfg, bounds)),
+                                 flatten_with_path(rg)):
+        assert float((a - w).abs().max()) <= 1e-4 * float(w.abs().max()), path
+
+
+@pytest.mark.gpu
+def test_pipeline_stages_on_distinct_cards(cuda):
+    """With two or more cards, stage k on card k: the forward and the
+    train pipe equal the same pipe with every stage on card 0."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices")
+    from repro_torch.configs.base import get_config
+    from repro_torch.dist import pipeline as pl
+    from repro_torch.dist.sharding import param_specs, place
+    from repro_torch.ft.elastic import make_mesh_for
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import leaves
+
+    stages = min(n, 4)
+    cfg = get_config("qwen3_0p6b").scaled_down(num_layers=2 * stages, vocab=512)
+    params = tf.init(cfg, generator=torch.Generator(device=cuda).manual_seed(0),
+                     dtype=torch.float32, device=torch.device("cuda", 0))
+    rng = np.random.default_rng(4)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 513))).to("cuda:0")
+    one = make_mesh_for([torch.device("cuda", 0)] * stages, model_axis=stages)
+    many = make_mesh_for([torch.device("cuda", i) for i in range(stages)], model_axis=stages)
+    spread = place(params, param_specs(params, many, "pipeline"), many)
+    devs = [{x.device.index for x in leaves(layer)} for layer in spread["blocks"]]
+    assert devs == [{k} for k in range(stages) for _ in range(2)]
+    want = pl.make_pipeline_forward(cfg, one, 2)(params, tokens[:, :-1])
+    got = pl.make_pipeline_forward(cfg, many, 2)(spread, tokens[:, :-1])
+    assert float((got.to(want.device) - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    (wl, _), wg = pl.make_pipeline_loss_and_grad(cfg, one, 2)(params, {"tokens": tokens})
+    (gl, _), gg = pl.make_pipeline_loss_and_grad(cfg, many, 2)(spread, {"tokens": tokens})
+    assert abs(float(gl) - float(wl)) <= 1e-6 * abs(float(wl))
+    for a, b in zip(leaves(gg), leaves(wg)):
+        assert float((a.to(b.device) - b).abs().max()) <= 1e-5 * max(float(b.abs().max()), 1e-30)
+
+
+@pytest.mark.gpu
+def test_train_launcher_pipeline_on_card(cuda, capsys):
+    """``launch.train --strategy pipeline --steps 2 --seq 512 --batch 4``
+    on the card: a one-stage pipe over the card's (1, 1) mesh, flash in
+    every unit."""
+    from repro_torch.launch import train as ttrain
+
+    argv = ["--strategy", "pipeline", "--steps", "2", "--seq", "512", "--batch", "4"]
+    if torch.cuda.device_count() > 1:
+        # the cards' (data, model) mesh puts a data axis over distinct cards
+        with pytest.raises(NotImplementedError, match="item 16"):
+            ttrain.main(argv)
+        return
+    n0 = tfl.flash_attention.launches
+    state = ttrain.main(argv)
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].endswith("strategy pipeline  mesh {'data': 1, 'model': 1}")
+    assert out[1] == "pipeline stages 1  boundaries (0, 28)  microbatches 1  schedule 1f1b"
+    assert tfl.flash_attention.launches - n0 == 2 * 3 * 28
+    assert out[-1] == "done" and int(state["step"]) == 2
+    assert all(bool(torch.isfinite(x).all()) for x in state["params"]["blocks"][0]["mixer"]
+               ["wq"].values())
+
+
+@pytest.mark.gpu
+def test_serve_launcher_strategy_on_card(cuda, capsys):
+    """``launch.serve --strategy ai_core_assignment`` on the card: params
+    placed on the card's mesh, the static path through the decode kernel."""
+    from repro_torch.launch import serve as tserve
+
+    argv = ["--strategy", "ai_core_assignment", "--new-tokens", "8"]
+    if torch.cuda.device_count() > 1:
+        # TP shards over distinct cards are multi-card execution
+        with pytest.raises(NotImplementedError, match="item 16"):
+            tserve.main(argv)
+        return
+    n0 = tdec.decode_attention.launches
+    res = tserve.main(argv)
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "mesh {'data': 1, 'model': 1}  arch qwen3_0p6b  strategy ai_core_assignment"
+    assert tdec.decode_attention.launches - n0 == 28 * 7
+    assert res["tokens"].shape == (4, 8)
