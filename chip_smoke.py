@@ -26,8 +26,9 @@ qwen3_0p6b (f32, random weights from seed 0):
   planned events, the streams equal to the clean run's under the margin
   rule, no page leaked, no kernel launch after the degrade and ``auto``
   dispatch restored after it; decode_nan and device_loss again on int8
-  weights and pools, every token, counter and event equal to the same run
-  with the GEMMs on their plain version;
+  weights and pools over the first 7 layers (depth cut for run time),
+  every token, counter and event equal to the same run with the GEMMs on
+  their plain version;
 * single-device training (``[train]``): ``train.step.make_train_step`` on
   the same weights at batch 4, seq 2048, grad_accum 2, remat, with
   ``SyntheticLM`` batches, four steps through an ``AsyncCheckpointer``:
@@ -46,6 +47,25 @@ qwen3_0p6b (f32, random weights from seed 0):
   ``value_and_grad``, schedule counts against ``pipeline_bubble_counts``,
   and three ``make_pipeline_train_step`` steps, each launching flash
   3 x 28 x 4 times, timed against the single-device step;
+* the training supervisor (``[train-ft]``): ``ft.supervisor.TrainSupervisor``
+  on the same weights at batch 4, seq 512, checkpoints in a temporary
+  directory under ``build/``: fused, 8 steps, a NaN batch at data index 3
+  and a checkpoint write crash at step 4 (one rollback, one ``ckpt_retry``,
+  a latest checkpoint at step 8); the 1F1B pipeline on four stages of the
+  one card, 12 steps fault-free and with stage 2 three times slower from
+  step 3 (a live re-cut that shrinks stage 2, the final loss within 5e-2 of
+  the fault-free run's), and with a device lost at step 7 (a rescale to
+  three stages from the latest checkpoint, at most 2 steps lost); flash
+  launched exactly as the steps run imply, warm and replayed steps
+  included; each event's ``recovery_s`` and each run's mean step printed;
+* measured tuning (``[tune]``): ``core.autotune.tune_runtime`` at the main
+  path's shapes (flash's blocks at S 2048, the paged kernel's page size at
+  8 slots, the prefill chunk with the full-width params), the table saved,
+  loaded back and installed; flash and the paged kernel at the tuned knobs
+  held to their plain versions, then the engine trace with its page size
+  and prefill chunk from the table at the same pool bytes, tokens equal to
+  the untuned run's under the margin rule, both runs' tok/s printed; the
+  table uninstalled after;
 * the VTA path: ResNet-18's convolutions (batch 1, 224 x 224) as int8
   GEMMs through ``ops.vta_conv2d`` and ``ops.dense_requant_int8``, the
   conv weights packed K-major by ``ops.pack_conv_weight``;
@@ -78,17 +98,18 @@ qwen3_0p6b (f32, random weights from seed 0):
   the port's ``init``, seed 0, each freed before the next), after flash
   and dense decode are held and timed at their new shapes (G 1 at D 80,
   bidirectional S = T = 1024, S 512 and S 1 against 1024 frames, a
-  768-row first chunk at G 8): mamba2_2p7b (64 layers, the static path,
-  prompt 2048 in four 512-token chunks, 16 new tokens; its chunked
-  prefill against one pass, prefill(2047) + one decode step against
-  prefill(2048), and the chunked SSD against its recurrence in f64),
-  zamba2_2p7b (54 Mamba2 layers in 9 groups with the shared attention
-  block, the same static path, in f32 and on ``quantize_params`` weights,
-  bitwise to a plain-GEMM run), seamless_m4t_large_v2 (24 + 24 layers,
-  ``serve.step.generate`` with 1024 frames and a 1024-token prompt in two
-  chunks) and internvl2_76b (depth cut to 2, ``generate`` with 256 patch
-  embeddings before a 1536-token prompt), their f32 logits held to runs
-  on the plain versions.
+  768-row first chunk at G 8): mamba2_2p7b (depth cut 64 -> 16, the
+  static path, prompt 2048 in four 512-token chunks, 16 new tokens; its
+  chunked prefill against one pass, prefill(2047) + one decode step
+  against prefill(2048), and the chunked SSD against its recurrence in
+  f64), zamba2_2p7b (depth cut 54 -> 12 Mamba2 layers in 2 groups with
+  the shared attention block, the same static path, in f32 and on
+  ``quantize_params`` weights, bitwise to a plain-GEMM run),
+  seamless_m4t_large_v2 (decoder cut 24 -> 12, its 24 encoder layers
+  whole, ``serve.step.generate`` with 1024 frames and a 1024-token prompt
+  in two chunks) and internvl2_76b (depth cut to 2, ``generate`` with 256
+  patch embeddings before a 1536-token prompt), their f32 logits held to
+  runs on the plain versions.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after, and the counts must be exactly those the path's own
@@ -101,6 +122,8 @@ D 576, V the leading 512 columns of K); flash at one full-width layer of
 yi_34b, qwen2_72b and starcoder2_15b (G 7 / 8 / 12), mixtral_8x22b (G 6,
 window 4096) and MLA's prefill (G 1, D 192, Dv 128).  ``--timings`` times
 only the decode, paged and ALU kernels.
+
+Each phase's wall seconds are printed on a ``[phase]`` line.
 
 It imports no JAX and nothing of the JAX package.  It exits non-zero
 without a result when torch sees no CUDA device, when the repository's
@@ -190,6 +213,19 @@ def check(ok, what) -> None:
     """Fail the run (exit status 1, no result line) when ``ok`` is false."""
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+class Laps:
+    """A stopwatch over the run: each call logs, on a line of its own, the
+    wall seconds of the phase that just ended (since the previous call)."""
+
+    def __init__(self):
+        self.t0 = self.t = time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        log(f"[phase] {name}: {now - self.t:.1f} s (run {now - self.t0:.1f} s)")
+        self.t = now
 
 
 def nvidia_smi() -> str:
@@ -2050,8 +2086,12 @@ FAMILY_BATCH, FAMILY_CHUNK, FAMILY_NEW = 2, 512, 16
 # keeps the config's).  internvl2's 80 layers need ~274 GB in f32, more than
 # the card holds: 2, as the MoE slice.  mamba2 and zamba2 run the launcher's
 # static path; seamless and internvl2 ``serve.step.generate``
-FAMILIES = {"mamba2_2p7b": (2048, 0, None), "zamba2_2p7b": (2048, 0, None),
-            "seamless_m4t_large_v2": (1024, 1024, None), "internvl2_76b": (1536, 256, 2)}
+# (prompt, frames or patch embeddings, depth): the depth cuts keep the whole
+# run under 900 s (mamba2 64 -> 16 layers, zamba2 54 -> 12: two groups of
+# six around the shared block, seamless's decoder 24 -> 12 before its 24
+# encoder layers; internvl2 80 -> 2, as its f32 weights would not fit)
+FAMILIES = {"mamba2_2p7b": (2048, 0, 16), "zamba2_2p7b": (2048, 0, 12),
+            "seamless_m4t_large_v2": (1024, 1024, 12), "internvl2_76b": (1536, 256, 2)}
 # mamba2's gates: the four-chunk prefill against one 2048-token pass, and
 # prefill(2047) + one decode step against prefill(2048), relative to the
 # largest |logit|; the SSM and conv states relative to their largest
@@ -2455,7 +2495,7 @@ def family_phase(torch, params, cfg, dev, card: str, int8: bool = False) -> dict
 
 
 def family_phases(torch, dev, card: str) -> dict:
-    """The four families at full width (internvl2's depth cut to 2), random
+    """The four families at full width, depth cut per ``FAMILIES``, random
     f32 weights from the port's ``init`` on a seeded generator on the card,
     each freed before the next; zamba2 again on ``quantize_params`` weights.
     Returns {path: launch counts}."""
@@ -2495,7 +2535,8 @@ def family_phases(torch, dev, card: str) -> dict:
             del params
         torch.cuda.empty_cache()
         log(f"[{cfg.family}] {name}: peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB; "
+            f"{time.perf_counter() - t0:.1f} s")
         torch.cuda.reset_peak_memory_stats()
     return out
 
@@ -2527,6 +2568,10 @@ SERVE_FT_EVENTS = {
 SERVE_FT_INT8 = [("int8 decode_nan", None, {}, (20,)),
                  ("int8 device_loss", "device_loss:step=25,lose=1", {"devices": [0, 1, 2, 3]},
                   ())]
+# the int8 runs hold the kernels to the plain GEMM within the same runs, so
+# they take the first 7 of the 28 layers (depth cut to keep the whole run
+# under 900 s; every width and gate kept)
+SERVE_FT_INT8_LAYERS = 7
 # the [train] phase: qwen3_0p6b full width, f32, remat, SyntheticLM batches
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS, TRAIN_SAVE_AT = 4, 2048, 2, 4, 2
 # step 1 against the same step on the plain versions: the loss (f32 sums
@@ -2544,6 +2589,31 @@ PIPE_STAGES, PIPE_STEPS = 4, 3
 # loss (f32 CE sums in microbatches of 1 vs one batch of 4) and each grad
 # leaf against its max (GEMMs at M 2048 vs 8192 sum in other orders)
 PIPE_LOSS_TOL, PIPE_GRAD_TOL, PIPE_LOGIT_TOL = 1e-5, 1e-4, 1e-4
+# the [train-ft] phase: TrainSupervisor at full width on the one card, B 4 x
+# seq 512 (flash runs: FLASH_MIN_SEQ is 512); the fused run's plan is the
+# reference's TestSupervisorFused one, the pipeline's its TestSupervisorPipeline
+# ones; the re-cut run's final loss within FT_RECUT_RTOL of the fault-free
+# run's (the reference's gate: the re-pad is a pure gather, only the f32 sums
+# of re-cut stages move)
+FT_BATCH, FT_SEQ, FT_FUSED_STEPS, FT_PIPE_STEPS = 4, 512, 8, 12
+FT_FUSED_PLAN = "nan:step=3;ckpt_crash:step=4"
+FT_SLOW_PLAN, FT_KILL_PLAN = "slowdown:step=3,stage=2,factor=3", "kill:step=7,lose=1"
+FT_RECUT_RTOL = 5e-2
+# keep=2 checkpoints and one torn .tmp of the full-width state (6.7 GiB each)
+FT_DISK_BYTES = 3 * 7.2e9
+# the [tune] phase: tune_runtime at the main path's shapes (flash's prefill
+# call, the engine's decode at 8 slots, its prefill chunks with the full-width
+# params; a chunk below 512 rows runs no flash)
+TUNE_AUX = dict(heads=16, kv_heads=8, head_dim=128)
+TUNE_GRIDS = {
+    "flash_prefill": (dict(seq=PROMPT, batch=1, **TUNE_AUX), dict(block_q=64, block_k=64),
+                      [dict(block_q=bq, block_k=bk) for bq in (32, 64, 128, 256)
+                       for bk in (32, 64, 128)]),
+    "paged_decode": (dict(max_len=PROMPT, fill=PROMPT // 2, batch=8, **TUNE_AUX),
+                     dict(page_size=16), [dict(page_size=pg) for pg in (8, 16, 32, 64)]),
+    "prefill_chunk": (dict(tokens=PROMPT, batch=2), dict(chunk=512),
+                      [dict(chunk=c) for c in (256, 512, 1024)]),
+}
 
 
 def drive_supervisor(torch, sup, reqs, deadline_ms=None, on_step=None):
@@ -2607,9 +2677,12 @@ def serve_ft_phase(torch, params, qparams, cfg, dev, card: str, clean: dict) -> 
     counters, no event); each fault run records exactly its planned events,
     its streams equal the clean run's under the margin rule, and its drained
     pool leaks nothing; a degrade leaves no kernel launch behind it and
-    ``restore_dispatchers`` puts ``auto`` back; on int8 weights and pools,
-    decode_nan and device_loss hold every token, counter and event equal to
-    the same supervised run with the GEMMs on their plain version."""
+    ``restore_dispatchers`` puts ``auto`` back; on int8 weights and pools
+    (the first ``SERVE_FT_INT8_LAYERS`` layers), decode_nan and device_loss
+    hold every token, counter and event equal to the same supervised run
+    with the GEMMs on their plain version."""
+    import dataclasses
+
     from repro_torch.ft.faults import FaultPlan
     from repro_torch.models import layers
     from repro_torch.serve import kv_cache
@@ -2619,9 +2692,9 @@ def serve_ft_phase(torch, params, qparams, cfg, dev, card: str, clean: dict) -> 
     engine_kw = dict(prefix_cache=True, aging_s=None, num_pages=ENGINE_POOL,
                      prefill_budget=512, **ENGINE)
 
-    def supervise(plan=None, p=params, kw=engine_kw, **sup_kw):
+    def supervise(plan=None, p=params, kw=engine_kw, c=cfg, **sup_kw):
         fp = FaultPlan.parse(plan, seed=0) if plan else None
-        return ServeSupervisor(p, cfg, engine_kw=kw, fault_plan=fp, **sup_kw)
+        return ServeSupervisor(p, c, engine_kw=kw, fault_plan=fp, **sup_kw)
 
     def counts():
         return {k: v for k, v in kernel_counts().items() if v}
@@ -2734,15 +2807,17 @@ def serve_ft_phase(torch, params, qparams, cfg, dev, card: str, clean: dict) -> 
     del sup
 
     # int8 weights on int8 pools: kernels vs the plain GEMM, every token,
-    # counter and event equal
+    # counter and event equal, on the first SERVE_FT_INT8_LAYERS layers
     kw8 = dict(engine_kw, kv_dtype="int8")
+    cfg8 = dataclasses.replace(cfg, num_layers=SERVE_FT_INT8_LAYERS)
+    q8 = dict(qparams, blocks=qparams["blocks"][:SERVE_FT_INT8_LAYERS])
     for label, plan, sup_kw, nan_steps in SERVE_FT_INT8:
         runs = []
         for impl in ("auto", "ref"):
             prev = layers.set_gemm_impl(impl)
             try:
                 reset_counts()
-                sup = supervise(plan, p=qparams, kw=kw8, **sup_kw)
+                sup = supervise(plan, p=q8, kw=kw8, c=cfg8, **sup_kw)
                 planned = []
                 done, secs = drive_supervisor(torch, sup, reqs,
                                               on_step=arm_decode_nan(nan_steps, planned))
@@ -2762,8 +2837,8 @@ def serve_ft_phase(torch, params, qparams, cfg, dev, card: str, clean: dict) -> 
         check(same == len(reqs) and st8 == ref[1] and ev8 == ref[2] and planned == ref[6],
               f"[serve-ft] {label}: tokens ({same}/{len(reqs)}), counters and events equal "
               f"to the plain-GEMM run")
-        log(f"[serve-ft] {label}: plan {plan or ';'.join(planned)}; events {ev8}; "
-            f"{same}/{len(reqs)} requests, counters and "
+        log(f"[serve-ft] {label} ({SERVE_FT_INT8_LAYERS} of {cfg.num_layers} layers): plan "
+            f"{plan or ';'.join(planned)}; events {ev8}; {same}/{len(reqs)} requests, counters and "
             f"events equal to the plain-GEMM run; {secs:.2f} s (plain GEMM {ref[5]:.2f} s); "
             f"launches {n8}")
 
@@ -3132,6 +3207,305 @@ def pipeline_phase(torch, params, cfg, dev, card: str) -> int:
     return n_flash
 
 
+def train_ft_phase(torch, params, cfg, dev, card: str) -> int:
+    """``ft.supervisor.TrainSupervisor`` at qwen3_0p6b's full width on the one
+    card, B 4 x seq 512 ``SyntheticLM`` batches (seed 0), f32, from the main
+    path's weights (its ``init_fn``), checkpoints in a temporary directory
+    under ``build/`` removed afterwards.  (a) fused, 8 steps, a checkpoint
+    every 2, ``nan:step=3;ckpt_crash:step=4``: exactly one rollback skipping
+    data index 3 with at most 2 steps lost, exactly one ``ckpt_retry`` of a
+    ``CheckpointWriteCrash``, no torn ``.tmp`` left and a latest checkpoint
+    at step 8.  (b) the 1F1B pipeline on ``[dev] * 4`` (m from
+    ``tune_microbatches``), 12 steps, fault-free, then with stage 2 three
+    times slower from step 3: at least one re-cut, stage 2's share shrinks,
+    the final loss within ``FT_RECUT_RTOL`` of the fault-free run's.  (c) the
+    same pipeline with a checkpoint every 2 steps and one device lost at
+    step 7: one rescale 4 -> 3 stages, at most 2 steps lost, 4 cut points
+    last.  Every loss finite; flash launched exactly what the steps imply
+    (2 x layers a fused step, 3 x layers x m a pipelined one, the warm steps
+    after each (re)build and the poisoned / replayed steps included).
+    Readings: each run's mean step ms, each event's ``recovery_s``, the
+    blocking part of each checkpoint save, the device memory live before
+    each run and its peak.  Earlier phases' objects in reference cycles
+    (engines and their pools) hold device memory until a gc pass, so each
+    run starts after one.  Returns the flash launches."""
+    import gc
+    import math
+    import shutil
+    import tempfile
+
+    from repro_torch.ft import checkpoint as ckpt
+    from repro_torch.ft.faults import CheckpointWriteCrash, FaultPlan
+    from repro_torch.ft.supervisor import TrainSupervisor
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.train.step import make_state
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    free = shutil.disk_usage(build).free
+    check(free >= FT_DISK_BYTES, f"[train-ft] {free / 2 ** 30:.1f} GiB free under {build}, "
+          f"the checkpoints need {FT_DISK_BYTES / 2 ** 30:.1f}")
+    layers_n = cfg.num_layers
+    log(f"[train-ft] {ARCH} full width f32, batch {FT_BATCH} x seq {FT_SEQ}, SyntheticLM seed "
+        f"0, from the main path's weights; {free / 2 ** 30:.1f} GiB free for checkpoints")
+
+    def run(label, steps, plan, *, strategy, devices, ckpt_every=0):
+        with tempfile.TemporaryDirectory(dir=build) as root:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            live = torch.cuda.memory_allocated()
+            flash_attention.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sup = TrainSupervisor(cfg, steps=steps, seq=FT_SEQ, batch=FT_BATCH,
+                                  strategy=strategy, devices=devices,
+                                  fault_plan=FaultPlan.parse(plan) if plan else None,
+                                  ckpt_dir=root if ckpt_every else None,
+                                  ckpt_every=ckpt_every, init_fn=lambda: make_state(params))
+            m0 = getattr(sup, "microbatches", 1)
+            saves = []
+            if sup.ckpt is not None:
+                save = sup.ckpt.save
+
+                def timed_save(state, step):
+                    t = time.perf_counter()
+                    save(state, step)
+                    saves.append(time.perf_counter() - t)
+
+                sup.ckpt.save = timed_save
+            res = sup.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            latest = ckpt.latest_step(root) if ckpt_every else None
+            torn = ckpt.sweep_tmp(root) if ckpt_every else []
+        n = flash_attention.launches
+        check(all(math.isfinite(x) for x in res.losses) and len(res.losses) == steps,
+              f"[train-ft] {label}: {steps} finite losses, got {res.losses}")
+        mean_ms = 1e3 * sum(res.step_times) / len(res.step_times)
+        log(f"[train-ft] {label} on {card}: {steps} steps in {wall:.2f} s, mean step "
+            f"{mean_ms:.1f} ms, final loss {res.final_loss:.6f}, events {len(res.events)}, boundaries history "
+            f"{res.boundaries_history}, flash launches {n}; device memory {live / 2 ** 30:.2f} "
+            f"GiB live before, peak {peak / 2 ** 30:.2f} GiB")
+        for ev in res.events:
+            log(f"[train-ft]   [{ev.kind}] at step {ev.step}: lost {ev.steps_lost} steps, "
+                f"recovery_s {ev.recovery_s:.4f}  {ev.detail}")
+        if saves:
+            log(f"[train-ft]   checkpoint saves (blocking: snapshot + the previous write): "
+                f"{', '.join(f'{1e3 * x:.0f}' for x in saves)} ms")
+        return res, sup, m0, n, latest, torn
+
+    # (a) fused: NaN rollback and checkpoint-crash retry
+    res, sup, _, n_a, latest, torn = run("fused", FT_FUSED_STEPS, FT_FUSED_PLAN,
+                                         strategy="fused", devices=[dev], ckpt_every=2)
+    rbs, retries = res.events_of("rollback"), res.events_of("ckpt_retry")
+    check(len(rbs) == 1 and rbs[0].detail["skipped_data_index"] == 3 and rbs[0].steps_lost <= 2,
+          f"[train-ft] fused: one rollback skipping data index 3, <= 2 steps lost: {rbs}")
+    check(len(retries) == 1 and retries[0].detail["error"].startswith(
+        CheckpointWriteCrash.__name__), f"[train-ft] fused: one ckpt_retry of a "
+        f"CheckpointWriteCrash: {retries}")
+    check(torn == [] and latest == FT_FUSED_STEPS, f"[train-ft] fused: no torn .tmp ({torn}), "
+          f"latest checkpoint {latest}")
+    expect = 2 * layers_n * (1 + FT_FUSED_STEPS + rbs[0].steps_lost + 1)
+    check(n_a == expect, f"[train-ft] fused: flash launches {n_a}, expected {expect} (2 x "
+          f"{layers_n} x (warm + {FT_FUSED_STEPS} + {rbs[0].steps_lost} replayed + 1 poisoned))")
+    del sup
+    torch.cuda.empty_cache()
+
+    # (b) the pipeline: fault-free, then a 3x slow stage 2 re-cut live
+    pipe = [dev] * PIPE_STAGES
+    base, sup, m, n_b, _, _ = run("pipeline fault-free", FT_PIPE_STEPS, "",
+                                  strategy="pipeline", devices=pipe)
+    check(base.events == [] and len(base.boundaries_history) == 1,
+          f"[train-ft] fault-free pipeline: no event, {base.events}")
+    expect = 3 * layers_n * m * (1 + FT_PIPE_STEPS)
+    check(n_b == expect, f"[train-ft] fault-free pipeline: flash launches {n_b}, expected "
+          f"{expect} (3 x {layers_n} x m {m} x (warm + {FT_PIPE_STEPS}))")
+    del sup
+    res, sup, m, n_c, _, _ = run("pipeline slowdown", FT_PIPE_STEPS, FT_SLOW_PLAN,
+                                 strategy="pipeline", devices=pipe)
+    recuts = res.events_of("recut")
+    check(recuts and all(e.kind == "recut" for e in res.events),
+          f"[train-ft] slowdown: at least one recut and nothing else: {res.events}")
+    old, new = recuts[0].detail["old"], recuts[0].detail["new"]
+    check(new[3] - new[2] < old[3] - old[2], f"[train-ft] slowdown: stage 2 shrinks, {old} -> "
+          f"{new}")
+    rel = abs(res.final_loss - base.final_loss) / abs(base.final_loss)
+    check(rel <= FT_RECUT_RTOL, f"[train-ft] slowdown: final loss {res.final_loss} vs "
+          f"fault-free {base.final_loss}, rel {rel} > {FT_RECUT_RTOL}")
+    expect = 3 * layers_n * m * (1 + len(recuts) + FT_PIPE_STEPS)
+    check(n_c == expect, f"[train-ft] slowdown: flash launches {n_c}, expected {expect} "
+          f"(3 x {layers_n} x m {m} x (warm + {len(recuts)} re-cut warms + {FT_PIPE_STEPS}))")
+    log(f"[train-ft] slowdown: stage 2 {old[3] - old[2]} -> {new[3] - new[2]} layers; final "
+        f"loss {res.final_loss:.6f} vs fault-free {base.final_loss:.6f}: rel diff {rel:.3e} "
+        f"(gate {FT_RECUT_RTOL})")
+    del sup
+    torch.cuda.empty_cache()
+
+    # (c) the pipeline loses a device: rescale 4 -> 3 stages from the checkpoint
+    res, sup, m4, n_d, _, _ = run("pipeline kill", FT_PIPE_STEPS, FT_KILL_PLAN,
+                                  strategy="pipeline", devices=pipe, ckpt_every=2)
+    evs = res.events_of("rescale")
+    check(len(evs) == 1 and len(res.events) == 1 and evs[0].detail["devices"] == "4->3"
+          and evs[0].detail["stages"] == 3 and evs[0].steps_lost <= 2,
+          f"[train-ft] kill: one rescale 4->3 stages, <= 2 steps lost: {res.events}")
+    check(len(res.boundaries_history[-1]) == 4, f"[train-ft] kill: last cuts "
+          f"{res.boundaries_history[-1]}")
+    ev = evs[0]
+    expect = (3 * layers_n * m4 * (1 + ev.step + 1)
+              + 3 * layers_n * sup.microbatches * (1 + FT_PIPE_STEPS - ev.detail["restored_step"]))
+    check(n_d == expect, f"[train-ft] kill: flash launches {n_d}, expected {expect} (3 x "
+          f"{layers_n} x m (warm + steps run) on 4 stages, then on 3 from step "
+          f"{ev.detail['restored_step']})")
+    del sup
+    torch.cuda.empty_cache()
+    return n_a + n_b + n_c + n_d
+
+
+def tune_phase(torch, params, cfg, dev, card: str, untuned: dict) -> dict:
+    """``core.autotune.tune_runtime`` on the card at the main path's shapes
+    (``TUNE_GRIDS``: flash's prefill call at B 1, S 2048, the paged kernel
+    at 8 slots over page sizes 8-64, the prefill chunk 256 / 512 / 1024 with
+    the full-width params at 2048 tokens, batch 2), flash blocks the kernel
+    refuses for shared memory dropped first.  The table is saved, loaded
+    back (its device names this card) and installed; then flash through
+    ``flash_attend`` at the tuned blocks equals an explicit call at them and
+    is held to its plain version (``TOL``, map == ``flash_tile_counts`` at
+    those blocks), the paged kernel at the tuned page size likewise, and the
+    ``[engine]`` trace runs with ``page_size`` and ``prefill_chunk`` left
+    unset at the same pool bytes: launches exact, audits green, tokens equal
+    to the untuned run's under the margin rule, both runs' tok/s printed.
+    The table is uninstalled after.  Returns the tuned engine run's flash and
+    paged launches."""
+    import gc
+    import tempfile
+
+    from repro_torch.core.autotune import TuningTable, tune_runtime
+    from repro_torch.core.measure import device_signature
+    from repro_torch.kernels.decode_attention import (
+        paged_decode_attention, paged_decode_attention_ref)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_ref, flash_tile_counts, flash_tile_map)
+    from repro_torch.models import layers
+    from repro_torch.models.attention import FLASH_MIN_SEQ
+    from repro_torch.serve import kv_cache
+    from repro_torch.serve.engine import ServingEngine, latency_stats
+
+    check(layers.tuning_table() is None, "[tune] no table installed before the phase")
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    t0 = time.perf_counter()
+    rep = tune_runtime(params, cfg, kinds=tuple(TUNE_GRIDS), grids=TUNE_GRIDS,
+                       verbose=True, device=dev)
+    torch.cuda.synchronize()
+    log(f"[tune] tune_runtime over {list(TUNE_GRIDS)} in {time.perf_counter() - t0:.2f} s "
+        f"({len(rep.entries)} points measured; their launches: flash "
+        f"{flash_attention.launches}, paged {paged_decode_attention.launches})")
+    for r in rep.results:
+        log(f"[tune] {r.kind}: default {r.default_s * 1e3:.4f} ms -> best "
+            f"{r.best_s * 1e3:.4f} ms {r.best} ({r.speedup:.3f}x; {r.measured}/{r.candidates} "
+            f"measured) on {card}")
+    for e in rep.entries:
+        log(f"[tune]   {e['kind']} {e['params']}: {e['t_s'] * 1e3:.4f} ms")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        path = str(Path(d) / "tuning.json")
+        rep.table.save(path)
+        table = TuningTable.load(path)
+    sig = device_signature(dev)
+    check(table.device == sig and torch.cuda.get_device_name(dev) in sig
+          and table.entries == rep.table.entries, f"[tune] the loaded table names this card: "
+          f"{table.device}")
+    knobs = table.get("flash_prefill")
+    serving = table.get("serving")
+    log(f"[tune] table for {table.device}: {table.entries}")
+
+    b, s, h, hkv, d, t = BATCH, CHUNK, 16, 8, 128, PROMPT + NEW_TOKENS
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    q = torch.randn((b, s, h, d), generator=gen, device=dev)
+    k = torch.randn((b, t, hkv, d), generator=gen, device=dev)
+    v = torch.randn((b, t, hkv, d), generator=gen, device=dev)
+    opts = dict(q_offset=PROMPT - CHUNK, kv_len=PROMPT)
+    prev = layers.set_tuning(table)
+    try:
+        got = layers.flash_attend(q, k, v, **opts)
+        want, counts = flash_attention(q, k, v, block_q=knobs["block_q"],
+                                       block_k=knobs["block_k"], return_counts=True, **opts)
+        plain = flash_attention_ref(q, k, v, **opts)
+        torch.cuda.synchronize()
+        err = (got - plain).abs().max().item()
+        check(torch.equal(got, want), "[tune] flash_attend at the tuned blocks equals the "
+              "explicit call at them")
+        check(err <= TOL["float32"], f"[tune] flash at {knobs}: max|err| {err}")
+        tile_map = flash_tile_map(s, t, block_q=knobs["block_q"], block_k=knobs["block_k"],
+                                  **opts).to(dev)
+        executed, total = flash_tile_counts(s, t, block_q=knobs["block_q"],
+                                            block_k=knobs["block_k"], **opts)
+        check(torch.equal(counts, tile_map.expand_as(counts)) and int(counts[0, 0].sum())
+              == executed and counts[0, 0].numel() == total,
+              f"[tune] flash map at {knobs} vs flash_tile_counts")
+        log(f"[tune] flash at the tuned blocks {knobs} (q_offset {PROMPT - CHUNK}): "
+            f"flash_attend == explicit call, max|err| {err:.3e} vs plain (tol "
+            f"{TOL['float32']}), map == flash_tile_counts ({executed}/{total} tiles)")
+        pg = serving["page_size"]
+        kv_lens = [0, 1, pg - 1, pg, pg + 1, 2064]
+        args, kw = paged_inputs(torch, gen, dev, torch.float32, 6, 1, h, hkv, d, d, pg, kv_lens)
+        got, pmap = paged_decode_attention(*args, return_counts=True, **kw)
+        want, wmap = paged_decode_attention_ref(*args, return_counts=True, **kw)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(err <= TOL["float32"] and torch.equal(pmap, wmap) and not got[0].any(),
+              f"[tune] paged at the tuned page size {pg}: max|err| {err}, maps")
+        log(f"[tune] paged at the tuned page size {pg} kv_lens {kv_lens}: max|err| {err:.3e} "
+            f"(tol {TOL['float32']}), map == plain version's")
+        del q, k, v, got, want, plain, args
+
+        # the engine trace with its knobs from the table, at the same pool bytes
+        reqs = engine_trace(cfg.vocab)
+        pool_bytes = ENGINE_POOL * kv_cache.page_bytes(cfg, ENGINE["page_size"], "f32")
+        reset_counts()
+        eng = ServingEngine(params, cfg, max_slots=ENGINE["max_slots"],
+                            max_len=ENGINE["max_len"], pool_bytes=pool_bytes, prefix_cache=True,
+                            prefill_budget=512, aging_s=None)
+        check((eng.page_size, eng._prefill_chunk) == (serving["page_size"],
+                                                      serving["prefill_chunk"]),
+              f"[tune] the engine took page {eng.page_size}, chunk {eng._prefill_chunk} from "
+              f"the table {serving}")
+        toks, done, secs = drive_engine(eng, reqs)
+        est = eng.stats()
+        n_flash, n_paged = flash_attention.launches, paged_decode_attention.launches
+        want_flash = (cfg.num_layers * est["prefill_chunk_calls"]
+                      if eng._prefill_chunk >= FLASH_MIN_SEQ else 0)
+        check(n_paged == cfg.num_layers * est["steps"] and n_flash == want_flash,
+              f"[tune] tuned engine launches: paged {n_paged} (expect {cfg.num_layers} x "
+              f"{est['steps']}), flash {n_flash} (expect {want_flash})")
+        eng.audit()
+        check(eng.allocator.num_free + len(eng.prefix.pages()) == eng.num_pages
+              and (eng.block_tables == -1).all(), "[tune] tuned engine: no page leaked")
+        check(len(done) == len(reqs) and all(len(r.tokens) == r.max_new for r in done),
+              "[tune] tuned engine: every request finished")
+        lat = latency_stats(done)
+        del eng
+    finally:
+        layers.set_tuning(prev)
+    check(layers.tuning_table() is None, "[tune] the table is uninstalled after the phase")
+    diverged = margin_check(torch, params, cfg, dev, reqs, toks, untuned["toks"],
+                            "tuned engine vs untuned", LOGIT_TOL)
+    n_tok = lat["tokens"]
+    ut = sum(len(x) for x in untuned["toks"].values())
+    log(f"[tune] tuned engine (page {serving['page_size']}, chunk {serving['prefill_chunk']}, "
+        f"{est['steps']} decode steps, {est['prefill_chunk_calls']} chunks, "
+        f"{est['preemptions']} preemptions, {est['prefix_hits']} prefix hits): "
+        f"{len(toks) - diverged}/{len(toks)} requests equal to the untuned run, {diverged} "
+        f"diverge where the reference's margin <= {LOGIT_TOL}; audits green")
+    log(f"[time] engine tuned {n_tok / secs:.1f} tok/s ({n_tok} tokens in {secs:.3f} s, TTFT "
+        f"p50 {lat['ttft_p50_s'] * 1e3:.1f} ms) vs untuned {ut / untuned['seconds']:.1f} tok/s "
+        f"({ut} tokens in {untuned['seconds']:.3f} s, page {ENGINE['page_size']}, chunk "
+        f"{ENGINE['prefill_chunk']}) on {card}")
+    return {"flash_attention": n_flash, "paged_decode_attention": n_paged}
+
+
 def leaves(tree):
     """The tensors of a param tree (nested dicts and lists)."""
     if isinstance(tree, dict):
@@ -3215,7 +3589,9 @@ def main() -> int:
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]} (only --timings)")
 
     # ---- build -----------------------------------------------------------
+    lap = Laps()
     build_kernels()
+    lap("build")
 
     gen = torch.Generator(device=dev).manual_seed(1234)
 
@@ -3364,6 +3740,7 @@ def main() -> int:
 
     # the VTA GEMM, all three epilogues
     errs.update({f"vta_gemm_{epi}": err for epi, err in vta_parity(torch, gen, dev).items()})
+    lap("kernel parity")
 
     # ---- the main path -----------------------------------------------------
     cfg = get_config(ARCH)
@@ -3454,28 +3831,42 @@ def main() -> int:
         for name, us, calls in top:
             log(f"[profile]   {us / 1e3:9.3f} ms {calls:5d}x {name[:90]}")
     del caches, state
+    lap("static path")
 
     # ---- the paged engine: the second main path ------------------------------
     engine_run = engine_phases(torch, params, cfg, dev, f"{kind} ({smi})")
     n_paged = engine_run["n_paged"]
+    lap("engine")
 
     # ---- fault-tolerant serving and training on the same weights ---------------
     qparams = quantize_params(params)
     serve_ft_phase(torch, params, qparams, cfg, dev, f"{kind} ({smi})", engine_run)
+    lap("serve-ft")
     n_train_flash = train_phase(torch, params, cfg, dev, f"{kind} ({smi})")
+    lap("train")
     n_train_flash += pipeline_phase(torch, params, cfg, dev, f"{kind} ({smi})")
-    check(layers.attention_impl() == "auto" and layers.gemm_impl() == "auto",
-          "the dispatch reads auto after the serving-fault and training phases")
+    lap("pipeline")
+    n_train_flash += train_ft_phase(torch, params, cfg, dev, f"{kind} ({smi})")
+    lap("train-ft")
+    tuned = tune_phase(torch, params, cfg, dev, f"{kind} ({smi})", engine_run)
+    n_train_flash += tuned["flash_attention"]
+    n_paged += tuned["paged_decode_attention"]
+    lap("tune")
+    check(layers.attention_impl() == "auto" and layers.gemm_impl() == "auto"
+          and layers.tuning_table() is None,
+          "the dispatch reads auto, untuned, after the serving-fault, training and tuning phases")
 
     # ---- the VTA path and int8 serving: the third ------------------------------
     n_none, n_req, vta_operands = vta_phase(torch, gen, dev)
     n_deq = int8_static_phase(torch, params, qparams, cfg, prompts, dev, f"{kind} ({smi})")
     int8_engine_phase(torch, qparams, cfg, dev, f"{kind} ({smi})")
+    lap("vta and int8")
 
     # ---- the VTA ALU, ResNet-18 and the planner: the fourth --------------------
     alu_counts, alu_errs, alu_pairs = alu_phase(torch, gen, dev, vta_operands)
     resnet_phase(torch, dev, f"{kind} ({smi})")
     planner_phase()
+    lap("alu, resnet and planner")
 
     q = randn(b, s, h, d)
     k = randn(b, t, hkv, d)
@@ -3577,6 +3968,7 @@ def main() -> int:
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"])
     check(len(rows) == 8, "eight kernels in the record")
+    lap("kernel timings")
 
     # ---- the MoE family: deepseek_v2_236b and mixtral_8x22b, the fifth ---------
     del params, qparams, prompts, res, warm
@@ -3584,6 +3976,7 @@ def main() -> int:
     moe = moe_phases(torch, dev, f"{kind} ({smi})")
     for path, counts in moe.items():
         log(f"[moe] launches on {path}: {counts}")
+    lap("moe")
 
     # ---- the remaining families: mamba2, zamba2, seamless, internvl2 ----------
     # the kernels at the families' new shapes first, then the models
@@ -3594,6 +3987,7 @@ def main() -> int:
         log(f"[family] launches on {path}: {counts}")
         for name in ("flash_attention", "decode_attention", "vta_gemm_dequant"):
             rows[name]["launches"] += counts[name]
+    lap("families")
 
     print(json.dumps({"kernels": [dict(name=n, **r) for n, r in rows.items()]}))
     print(smi)

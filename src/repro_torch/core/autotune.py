@@ -14,11 +14,20 @@ from the bubble oracle.  :class:`TuningTable` is the versioned knob
 table (the reference's JSON format, so each package loads the other's
 files), and ``choose_pattern()`` the InTAR-style execution-pattern
 selector on a fitted :class:`repro_torch.core.cost_model.RuntimeCostModel`.
-The measured search (``tune_runtime``) needs the port's measurement
-harness and is not here yet.
 
-The port's copy of the reference module's planner half: pure Python,
-same names, same numbers; no torch.
+``tune_runtime()`` is the measured twin: ``core.measure`` times a seed
+grid of each hot path's knob space, a ``RuntimeCostModel`` is fitted to
+the measurements, the fit ranks the remaining candidates, the top
+predictions are measured to confirm, and the measured-best knobs land in
+a :class:`TuningTable` that ``models.layers.set_tuning`` installs for
+``flash_attend`` and the serving engine.  It searches only the knobs the
+port's kernels honour (flash's blocks, the engine's page size and
+prefill chunk): the dense decode kernel and the GEMM pick their own
+tiles, so ``decode`` and ``gemm_int8`` are refused.
+
+The planner half is the port's copy of the reference module's: pure
+Python, same names, same numbers; ``tune_runtime`` imports torch (through
+``core.measure``) when called.
 """
 
 from __future__ import annotations
@@ -173,12 +182,13 @@ class TuningTable:
 
 
 #: knob candidates per kind: (base point, default knobs, candidate knobs).
-#: The default knobs mirror the reference dispatchers' untuned behavior
-#: (flash DEFAULT_BLOCK_Q/K = 128, decode DEFAULT_BLOCK_K = 512, GEMM
-#: "table1" preset, engine page_size=16 / prefill_chunk=64).
+#: The default knobs mirror the dispatchers' untuned behavior: the port's
+#: flash kernel's own 64 / 64 (the reference's is 128 / 128), decode
+#: DEFAULT_BLOCK_K = 512, GEMM "table1" preset, engine page_size=16 /
+#: prefill_chunk=64.
 def default_grid(kind: str) -> tuple[dict, dict, list[dict]]:
     if kind == "flash_prefill":
-        return (dict(seq=256), dict(block_q=128, block_k=128),
+        return (dict(seq=256), dict(block_q=64, block_k=64),
                 [dict(block_q=bq, block_k=bk) for bq, bk in
                  ((32, 32), (64, 64), (128, 128), (256, 256),
                   (64, 256), (256, 64), (128, 256), (256, 128))])
@@ -223,6 +233,130 @@ class TuneReport:
 
     def result(self, kind: str) -> KindResult:
         return next(r for r in self.results if r.kind == kind)
+
+
+#: kinds whose knobs the port's kernels ignore: the dense decode kernel
+#: splits its keys by ``decode_plan`` and the GEMM keeps its own tiles
+UNTUNABLE = {
+    "decode": "the dense decode kernel picks its spans itself (decode_plan); "
+              "block_k changes nothing",
+    "gemm_int8": "the VTA GEMM keeps its own tiles; BLOCK_PRESETS change nothing",
+}
+
+
+def _fits(kind: str, base: dict, knobs: dict) -> bool:
+    """Whether the kernel takes ``knobs`` at ``base``: a flash candidate
+    must pass the wrapper's shared-memory check (f32, as measured)."""
+    if kind != "flash_prefill":
+        return True
+    import torch
+
+    from repro_torch.core.measure import DEFAULT_AUX
+    from repro_torch.kernels.flash_attention import flash_blocks_fit
+
+    p = dict(DEFAULT_AUX, **base, **knobs)
+    s = p["seq"]
+    return flash_blocks_fit(torch.float32, p["heads"] // p["kv_heads"],
+                            min(p["block_q"], s), min(p["block_k"], s), p["head_dim"])
+
+
+def tune_runtime(model_params=None, cfg=None, *,
+                 kinds=("flash_prefill", "paged_decode"),
+                 grids: dict | None = None,
+                 confirm_top: int = 2,
+                 warmup: int = 2, reps: int = 3,
+                 save_path: str | None = None,
+                 verbose: bool = False,
+                 device="cuda") -> TuneReport:
+    """Cost-model-pruned, measurement-confirmed knob search on ``device``.
+
+    Per kind: (0) drop the candidates the kernel would refuse (flash
+    blocks past its shared memory); (1) time a seed subset of the
+    candidate grid (always including the dispatcher defaults) via
+    ``core.measure``; (2) fit a :class:`RuntimeCostModel` to everything
+    measured so far; (3) rank the unmeasured candidates by predicted time
+    and measure only the ``confirm_top`` best predictions; (4) deploy the
+    measured-best knobs into the returned :class:`TuningTable` (saved to
+    ``save_path`` when given; ``--tuning-file`` loads it back).
+    ``prefill_chunk`` tuning needs ``model_params``/``cfg`` and runs on
+    the params' device; ``grids`` overrides ``default_grid`` per kind with
+    ``(base, default_knobs, candidates)`` triples.  ``decode`` and
+    ``gemm_int8`` raise ``ValueError``: the port's kernels ignore their
+    knobs.
+    """
+    from repro_torch.core import measure
+
+    for kind in kinds:
+        if kind in UNTUNABLE:
+            raise ValueError(f"tune_runtime: {kind!r} is not tuned in the port: "
+                             f"{UNTUNABLE[kind]}")
+    table = TuningTable(device=measure.device_signature(device))
+    if cfg is not None:
+        table.meta["config_hash"] = measure.config_hash(cfg)
+    all_entries: list = []
+    results: list[KindResult] = []
+
+    for kind in kinds:
+        base, default, cands = (grids or {}).get(kind) or default_grid(kind)
+        if kind == "prefill_chunk" and (model_params is None or cfg is None):
+            raise ValueError("tune_runtime: prefill_chunk needs "
+                             "model_params and cfg")
+        kept = [c for c in cands if _fits(kind, base, c)]
+        dropped = len(cands) - len(kept)
+        cands = kept
+
+        def meas(knobs):
+            e = measure.measure_point(
+                kind, dict(base, **knobs), model_params=model_params,
+                cfg=cfg, warmup=warmup, reps=reps, device=device)
+            all_entries.append(e)
+            return e
+
+        timed: dict[tuple, dict] = {}
+
+        def key(knobs):
+            return tuple(sorted(knobs.items()))
+
+        # (1) seed: defaults + every other candidate
+        seeds = [default] + cands[::2]
+        for knobs in seeds:
+            if key(knobs) not in timed:
+                timed[key(knobs)] = meas(knobs)
+        # (2) fit on the seed measurements
+        model = RuntimeCostModel.fit(list(timed.values()),
+                                     device=table.device)
+        # (3) rank the rest by prediction; confirm only the top few
+        rest = [c for c in cands if key(c) not in timed]
+        rest.sort(key=lambda c: model.predict(kind, **dict(base, **c)))
+        for knobs in rest[:confirm_top]:
+            timed[key(knobs)] = meas(knobs)
+        # (4) measured-best wins
+        best_key = min(timed, key=lambda k: timed[k]["t_s"])
+        best = dict(best_key)
+        default_s = timed[key(default)]["t_s"]
+        best_s = timed[best_key]["t_s"]
+        table.put(kind, **best)
+        # serving-level knobs double into the engine's "serving" entry
+        if kind == "paged_decode":
+            table.put("serving", page_size=best["page_size"])
+        if kind == "prefill_chunk":
+            table.put("serving", prefill_chunk=best["chunk"])
+        table.meta.setdefault("measured", {})[kind] = {
+            "default_s": default_s, "best_s": best_s}
+        results.append(KindResult(kind, default_s, best_s, best,
+                                  measured=len(timed),
+                                  candidates=len(cands) + 1))
+        if verbose:
+            print(f"tune_runtime[{kind}]: default {default_s*1e6:.0f}us -> "
+                  f"best {best_s*1e6:.0f}us {best} "
+                  f"({len(timed)}/{len(cands) + 1} measured"
+                  + (f", {dropped} refused by the kernel" if dropped else "") + ")")
+
+    final = RuntimeCostModel.fit(all_entries, device=table.device)
+    if save_path:
+        table.save(save_path)
+    return TuneReport(table=table, model=final, entries=all_entries,
+                      results=results)
 
 
 # ---------------------------------------------------------------------------

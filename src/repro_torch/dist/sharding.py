@@ -382,7 +382,9 @@ def stage_devices(mesh) -> list:
 
 def place(tree, specs, mesh):
     """``tree`` with every tensor on the mesh's devices per ``specs``
-    (from :func:`param_specs` or :func:`cache_specs`).
+    (from :func:`param_specs`, :func:`cache_specs` or
+    ``ft.elastic.state_shardings``; a named tuple's spec is the same named
+    tuple of specs).
 
     On a mesh of one device (however often it is listed) every tensor
     moves there — the identity for a tree already on it.  On a mesh over
@@ -400,6 +402,8 @@ def place(tree, specs, mesh):
     def walk(node, spec):
         if isinstance(node, dict):
             return {k: walk(v, spec[k]) for k, v in node.items()}
+        if _is_named_tuple(node):
+            return type(node)(*[walk(getattr(node, f), getattr(spec, f)) for f in node._fields])
         if isinstance(node, list):
             if stages > 1 and spec.layer != MDL:
                 raise NotImplementedError(
@@ -418,9 +422,15 @@ def place(tree, specs, mesh):
     return walk(tree, specs)
 
 
+def _is_named_tuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
 def _place_all(tree, device):
     if isinstance(tree, dict):
         return {k: _place_all(v, device) for k, v in tree.items()}
+    if _is_named_tuple(tree):
+        return type(tree)(*[_place_all(v, device) for v in tree])
     if isinstance(tree, list):
         return [_place_all(v, device) for v in tree]
     if isinstance(tree, torch.Tensor):

@@ -1,5 +1,5 @@
 """Fault tolerance (the port of ``repro.ft``): straggler detection and
 plan re-cuts (``straggler``), heartbeats (``health``), atomic checkpoints
-(``checkpoint``), seeded fault plans (``faults``) and meshes reformed
-from the surviving devices (``elastic.make_mesh_for``).  The training
-supervisor and the elastic restore wait for a later slice."""
+(``checkpoint``), seeded fault plans (``faults``), meshes reformed from
+the surviving devices and the placed restore onto them (``elastic``),
+and the training supervisor that closes the loop (``supervisor``)."""

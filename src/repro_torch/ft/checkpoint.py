@@ -206,7 +206,10 @@ class AsyncCheckpointer:
             self._thread = None
         if self._error is not None:
             err, self._error = self._error, None
-            raise err
+            try:
+                raise err
+            finally:
+                del err  # the traceback holds this frame: no cycle through it
 
     def _rotate(self) -> None:
         for s in sorted(_step_dirs(self.root))[: -self.keep]:

@@ -5,8 +5,8 @@ the same strict grammar and the same seeded choices; ``one_shot_write_fault``
 hooks the port's ``ft.checkpoint``.
 
 A :class:`FaultPlan` is a seeded list of :class:`FaultEvent`s that a
-supervisor consults every step (the reference's training supervisor for
-the first four kinds, not ported yet), so a recovery run is exactly
+supervisor consults every step (:class:`repro_torch.ft.supervisor.TrainSupervisor`
+for the first four kinds), so a recovery run is exactly
 reproducible — the point of the harness is to
 *prove* the detect -> replan -> reshard -> resume loop, and a proof you
 can't replay is not a proof.  Four fault kinds cover the taxonomy the

@@ -10,7 +10,7 @@ Mitigation is the paper's: *reconfigure* rather than wait or drop —
     rebalance` (slow nodes get fewer op-slices / later pipeline stages),
   * on a device mesh, persistent stragglers trigger the elastic path
     instead (checkpoint -> reform mesh without the sick host -> resume;
-    the reference's ft/elastic.py, not ported yet), since SPMD steps are
+    ``ft.elastic`` and ``ft.supervisor``), since SPMD steps are
     collectively synchronized and one slow chip gates every step.
 
 The port's copy of ``repro.ft.straggler`` (pure Python): the planner it

@@ -37,6 +37,7 @@ DEFAULT_BLOCK_Q = 64
 DEFAULT_BLOCK_K = 64
 SMEM_LIMIT = 232_448  # bytes of shared memory one CTA may use on Hopper
 MAX_DV = 128  # the kernel keeps a 16-row slab's output in registers
+_PANEL, _SUB = 128, 64  # csrc's kPanel (rows a CTA takes) and kSub (keys a sub-step)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -56,6 +57,30 @@ def _tile_bounds(q_lo: int, kvlen: int, *, qc: int, kc: int, window: int,
         c = q_lo - window + 2 - kc
         first = max(0, -((-c) // kc))
     return first, last
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def flash_smem_bytes(dtype, g: int, qc: int, kc: int, d: int) -> int:
+    """Dynamic shared memory one CTA needs: the layout of csrc's ``Smem``
+    (a query panel of up to 128 rows, two K/V stages of ``kc`` keys
+    rounded up to 64, rows padded by 16 bytes), equal to the kernel's own
+    ``flash_attention_smem_bytes``.  ``qc`` / ``kc`` are the blocks after
+    clamping to S / T; values take ``MAX_DV`` columns whatever Dv is."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    pad = 16 // esize
+    rows = _round_up(min(g * qc, _PANEL), 16)
+    qk_row = _round_up(d, 32) + pad
+    stage = _round_up(kc, _SUB) * (qk_row + MAX_DV + pad)
+    return esize * (rows * qk_row + 2 * stage)
+
+
+def flash_blocks_fit(dtype, g: int, qc: int, kc: int, d: int) -> bool:
+    """Whether the kernel takes these (clamped) blocks: the wrapper's shared
+    memory check, which the tuner also applies to drop a candidate."""
+    return flash_smem_bytes(dtype, g, qc, kc, d) <= SMEM_LIMIT
 
 
 def _grid(s: int, t: int, block_q: int, block_k: int):
@@ -224,12 +249,12 @@ def flash_attention(q, k, v, *, q_offset: int = 0, kv_len: int | None = None,
     _build.check_rows4("flash_attention", q, k, v)
     if dv > MAX_DV:
         raise ValueError(f"flash_attention's kernel takes Dv <= {MAX_DV}, got {dv}")
-    lib = _lib()
-    smem = lib.flash_attention_smem_bytes(_DTYPES[q.dtype], h // hkv, qc, kc, d, dv)
-    if smem > SMEM_LIMIT:
+    if not flash_blocks_fit(q.dtype, h // hkv, qc, kc, d):
+        smem = flash_smem_bytes(q.dtype, h // hkv, qc, kc, d)
         raise ValueError(f"a (G*block_q={h // hkv * qc})-row panel at D={d}, "
                          f"Dv={dv}, block_k={kc} needs {smem} B of shared "
                          f"memory (> {SMEM_LIMIT}); lower block_q or block_k")
+    lib = _lib()
     out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
     counts = (torch.zeros((b, hkv, nq, nk), dtype=torch.int32, device=q.device)
               if return_counts else None)
@@ -260,11 +285,12 @@ class FlashAttentionFunction(torch.autograd.Function):
     options are constants with no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_offset, kv_len, window, bidirectional, scale):
+    def forward(ctx, q, k, v, q_offset, kv_len, window, bidirectional, scale,
+                block_q, block_k):
         ctx.save_for_backward(q, k, v)
         ctx.opts = dict(q_offset=q_offset, kv_len=kv_len, window=window,
                         bidirectional=bidirectional, scale=scale)
-        return flash_attention(q, k, v, **ctx.opts)
+        return flash_attention(q, k, v, block_q=block_q, block_k=block_k, **ctx.opts)
 
     @staticmethod
     def backward(ctx, grad):
@@ -273,16 +299,18 @@ class FlashAttentionFunction(torch.autograd.Function):
             leaves = [x.detach().requires_grad_() for x in (q, k, v)]
             out = flash_attention_ref(*leaves, **ctx.opts)
             dq, dk, dv = torch.autograd.grad(out, leaves, grad)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def flash_attention_diff(q, k, v, *, q_offset: int = 0, kv_len: int | None = None,
                          window: int = 0, bidirectional: bool = False,
-                         scale: float | None = None):
+                         scale: float | None = None, block_q: int = DEFAULT_BLOCK_Q,
+                         block_k: int = DEFAULT_BLOCK_K):
     """:func:`flash_attention` with a gradient to q, k and v
-    (:class:`FlashAttentionFunction`)."""
+    (:class:`FlashAttentionFunction`); the blocks set the forward kernel's
+    grid."""
     return FlashAttentionFunction.apply(q, k, v, int(q_offset), kv_len, window,
-                                        bidirectional, scale)
+                                        bidirectional, scale, block_q, block_k)
 
 
 def _lib():

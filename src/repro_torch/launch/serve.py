@@ -27,9 +27,13 @@ The params are placed per ``dist.sharding.param_specs`` under
 over the devices of ``--device``, and the static path's caches per
 ``cache_specs``; a layout over distinct devices is refused (ROADMAP.md
 item 16).  Int8 weights come from ``optim.quant.quantize_params``
-(the reference launcher has no flag for them either).  Options of the
-JAX launcher that belong to later slices of the port exit with the
-ROADMAP.md item that ports them.
+(the reference launcher has no flag for them either).  ``--autotune``
+tunes flash's blocks (and, under ``--engine paged``, the paged kernel's
+page size, which the engine's ``serving`` entry takes) with
+``core.autotune.tune_runtime`` on the device before serving, saving the
+table to ``--tuning-file`` when one is given; ``--tuning-file`` alone
+installs a saved table (``launch.tuning``).  An explicit ``--page-size``
+wins over the table, as in the reference.
 """
 
 from __future__ import annotations
@@ -44,14 +48,9 @@ from repro_torch.configs.base import get_config
 from repro_torch.dist.sharding import SHARDING_STRATEGIES, cache_specs, param_specs, place
 from repro_torch.ft.elastic import make_mesh_for
 from repro_torch.launch.mesh import mesh_devices
+from repro_torch.launch.tuning import tuning_from
 from repro_torch.models import transformer as tf
 from repro_torch.serve.step import make_prefill_step, make_serve_step
-
-# option -> (the values this slice runs, the ROADMAP.md item that ports the rest)
-_UNPORTED = {
-    "autotune": ((False,), "queue 1, item 13 (measurement and tuning)"),
-    "tuning_file": ((None,), "queue 1, item 13 (measurement and tuning)"),
-}
 
 
 def _sync(device: torch.device) -> None:
@@ -113,9 +112,11 @@ def run_paged_engine(params, cfg, args, device):
     request shares the first half of its prompt), then the engine summary
     is printed.  Returns ``{"done": [Request], "engine": ServingEngine,
     "seconds": float, "supervisor": ServeSupervisor or None}``."""
+    from repro_torch.models.layers import tuned
     from repro_torch.serve.engine import ServingEngine, latency_stats
 
-    page_size = args.page_size or 16
+    # explicit flag > tuning table (--autotune / --tuning-file) > default
+    page_size = args.page_size or int(tuned("serving").get("page_size", 16))
     max_len = args.prompt + args.new_tokens
     draft_params = draft_cfg = None
     if args.draft:
@@ -244,11 +245,14 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; the CPU runs only when asked")
     ap.add_argument("--strategy", default="fused", choices=list(SHARDING_STRATEGIES))
-    # options of the JAX launcher that later slices of the port bring
     ap.add_argument("--engine", choices=["static", "paged"], default="static")
     ap.add_argument("--page-size", type=int, default=None)
-    ap.add_argument("--tuning-file", default=None)
-    ap.add_argument("--autotune", action="store_true")
+    ap.add_argument("--tuning-file", default=None,
+                    help="TuningTable JSON to install (tuned flash blocks, page "
+                         "size); with --autotune, where to save the search result")
+    ap.add_argument("--autotune", action="store_true",
+                    help="run the measured knob search (core.autotune."
+                         "tune_runtime) on the device before serving")
     ap.add_argument("--kv-dtype", choices=["f32", "bf16", "int8"], default="f32")
     ap.add_argument("--prefix-cache", action="store_true")
     ap.add_argument("--draft", default=None)
@@ -262,10 +266,6 @@ def main(argv=None):
     ap.add_argument("--deadline-ms", type=float, default=None)
     args = ap.parse_args(argv)
 
-    for name, (ported, item) in _UNPORTED.items():
-        if getattr(args, name) not in ported:
-            raise SystemExit(f"--{name.replace('_', '-')} {getattr(args, name)} is "
-                             f"not ported yet: ROADMAP.md {item}")
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.scaled_down()
@@ -284,6 +284,14 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
 
     tf.check_supported(cfg)
+    kinds = ("flash_prefill", "paged_decode") if args.engine == "paged" else ("flash_prefill",)
+    with tuning_from(args.autotune, args.tuning_file, cfg=cfg, kinds=kinds, device=device):
+        return run(cfg, args, device)
+
+
+def run(cfg, args, device):
+    """Serve per the options (module docstring): the paged engine's result
+    (``run_paged_engine``) or the static path's (``run_static``)."""
     # random weights from seed 0 and prompts from seed 1, as the reference
     gen = torch.Generator(device=device).manual_seed(0)
     params = tf.init(cfg, generator=gen, dtype=torch.float32, device=device)

@@ -25,8 +25,17 @@ item 16).  It runs on the CUDA card by default; ``--device cpu`` runs the
 same path on the CPU with the kernels' plain versions, and nothing falls
 back.  On the card the attention of a sequence shorter than 512 tokens
 (``FLASH_MIN_SEQ``) runs no kernel: the reference's default ``--seq
-128`` is one such.  Options of the JAX launcher that belong to later
-slices of the port exit with the ROADMAP.md item that ports them.
+128`` is one such.
+
+``--supervise`` (implied by ``--fault-plan``) runs the same training
+under ``ft.supervisor.TrainSupervisor`` over the devices of
+``--device`` (straggler re-cut, elastic restore, NaN rollback,
+checkpoint-crash retry; checkpoints under ``--ckpt`` every
+``--ckpt-every`` steps) and prints the reference's summary: the final
+loss, the mean step ms and one line per recovery event, then ``done``.
+``--autotune`` tunes flash's blocks with ``core.autotune.tune_runtime``
+on the device before training (saved to ``--tuning-file`` when given);
+``--tuning-file`` alone installs a saved table (``launch.tuning``).
 """
 
 from __future__ import annotations
@@ -38,11 +47,12 @@ import torch
 
 from repro_torch.configs.base import get_config
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM
-from repro_torch.dist.sharding import SHARDING_STRATEGIES, param_specs, place
+from repro_torch.dist.sharding import SHARDING_STRATEGIES, place
 from repro_torch.ft.checkpoint import AsyncCheckpointer
-from repro_torch.ft.elastic import make_mesh_for
+from repro_torch.ft.elastic import make_mesh_for, state_shardings
 from repro_torch.ft.straggler import StragglerMonitor
 from repro_torch.launch.mesh import make_production_mesh, mesh_devices
+from repro_torch.launch.tuning import tuning_from
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.step import (
     init_pipeline_state,
@@ -51,26 +61,40 @@ from repro_torch.train.step import (
     make_train_step,
 )
 
-# option -> (the values this slice runs, the ROADMAP.md item that ports the rest)
-_UNPORTED = {
-    "supervise": ((False,), "queue 1, item 11's remainder (TrainSupervisor)"),
-    "fault_plan": (("",), "queue 1, item 11's remainder (TrainSupervisor)"),
-    "autotune": ((False,), "queue 1, item 13 (measurement and tuning)"),
-    "tuning_file": ((None,), "queue 1, item 13 (measurement and tuning)"),
-}
-
 
 def _batch(np_batch, device):
     return {k: torch.from_numpy(v).long().to(device) for k, v in np_batch.items()}
 
 
 def place_state(state, mesh, strategy: str):
-    """The train state with params and moments placed per ``param_specs``."""
-    specs = param_specs(state["params"], mesh, strategy)
-    opt = state["opt"]
-    return dict(state, params=place(state["params"], specs, mesh),
-                opt=opt._replace(mu=place(opt.mu, specs, mesh),
-                                 nu=place(opt.nu, specs, mesh)))
+    """The train state placed per ``ft.elastic.state_shardings``."""
+    return place(state, state_shardings(state, mesh, strategy), mesh)
+
+
+def run_supervised(cfg, args, devices):
+    """The reference's supervised branch: a ``TrainSupervisor`` run, its
+    summary and ``done``.  Returns the ``SupervisorResult``."""
+    from repro_torch.ft.faults import FaultPlan
+    from repro_torch.ft.supervisor import TrainSupervisor
+
+    plan = FaultPlan.parse(args.fault_plan) if args.fault_plan else None
+    sup = TrainSupervisor(
+        cfg, AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=args.steps),
+        steps=args.steps, seq=args.seq, batch=args.batch,
+        strategy=args.strategy, schedule=args.pipeline_schedule,
+        microbatches=args.microbatches, grad_accum=args.grad_accum,
+        ckpt_dir=args.ckpt or None, ckpt_every=args.ckpt_every,
+        fault_plan=plan, devices=devices, verbose=True)
+    res = sup.run()
+    print(f"final loss {res.final_loss:.4f}  "
+          f"mean step {1e3 * sum(res.step_times) / len(res.step_times):.1f}ms  "
+          f"events {len(res.events)}")
+    for ev in res.events:
+        print(f"  [{ev.kind}] at step {ev.step}: lost {ev.steps_lost} "
+              f"steps, recovered in {ev.recovery_s * 1e3:.0f}ms  "
+              f"{ev.detail}")
+    print("done")
+    return res
 
 
 def main(argv=None):
@@ -92,17 +116,21 @@ def main(argv=None):
     ap.add_argument("--microbatches", type=int, default=0,
                     help="pipeline microbatches (0 -> bubble-tuned)")
     ap.add_argument("--production-mesh", action="store_true")
-    # options of the JAX launcher that later slices of the port bring
-    ap.add_argument("--supervise", action="store_true")
-    ap.add_argument("--fault-plan", default="")
-    ap.add_argument("--tuning-file", default=None)
-    ap.add_argument("--autotune", action="store_true")
+    ap.add_argument("--supervise", action="store_true",
+                    help="run under the fault-tolerant TrainSupervisor "
+                         "(straggler re-cut, elastic restore, NaN rollback)")
+    ap.add_argument("--fault-plan", default="",
+                    help="injected faults, e.g. "
+                         "'slowdown:step=6,stage=2,factor=3;kill:step=20'")
+    ap.add_argument("--tuning-file", default=None,
+                    help="TuningTable JSON to install before building the step "
+                         "(tuned flash blocks); with --autotune, where to save "
+                         "the search result")
+    ap.add_argument("--autotune", action="store_true",
+                    help="run the measured knob search (core.autotune."
+                         "tune_runtime) on the device before training")
     args = ap.parse_args(argv)
 
-    for name, (ported, item) in _UNPORTED.items():
-        if getattr(args, name) not in ported:
-            raise SystemExit(f"--{name.replace('_', '-')} {getattr(args, name)} is "
-                             f"not ported yet: ROADMAP.md {item}")
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.scaled_down()
@@ -118,8 +146,18 @@ def main(argv=None):
                          "frames: train it through repro_torch.train.step")
     # f32 matmuls in full f32, never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
-    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    with tuning_from(args.autotune, args.tuning_file, cfg=cfg, kinds=("flash_prefill",),
+                     device=device):
+        if args.supervise or args.fault_plan:
+            return run_supervised(cfg, args, mesh_devices(device))
+        return run(cfg, args, device)
+
+
+def run(cfg, args, device):
+    """The reference's unsupervised loop (module docstring); returns the
+    final state."""
     devices = mesh_devices(device)
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     mesh = (make_production_mesh(devices=devices) if args.production_mesh
             else make_mesh_for(devices))
     print(f"device {name}  arch {cfg.name}  strategy {args.strategy}  mesh {mesh.shape}")

@@ -19,6 +19,14 @@ Quantized dense layers (``{"qw", "qscale"}`` dicts from
 ``set_gemm_impl``: "auto" sends a CUDA tensor to the VTA GEMM kernel
 (dequant epilogue) and a CPU tensor to its plain version; "kernel" on a
 CPU tensor raises; "ref" runs the plain version on any device.
+
+Measured tuning (``set_tuning``): a ``core.autotune.TuningTable`` whose
+``flash_prefill`` entry gives ``flash_attend`` its ``block_q`` /
+``block_k`` where the caller leaves them unset, and whose ``serving``
+entry gives ``serve.engine.ServingEngine`` its ``page_size`` /
+``prefill_chunk``.  A table comes in only through ``set_tuning``, which
+the launchers call (``--autotune``, ``--tuning-file``); there is no
+environment switch.
 """
 
 from __future__ import annotations
@@ -33,6 +41,8 @@ from repro_torch.kernels.decode_attention import (
     paged_decode_attention_ref,
 )
 from repro_torch.kernels.flash_attention import (
+    DEFAULT_BLOCK_K,
+    DEFAULT_BLOCK_Q,
     flash_attention,
     flash_attention_diff,
     flash_attention_ref,
@@ -100,6 +110,35 @@ def use_gemm_kernel(x: torch.Tensor) -> bool:
     """True when an int8 GEMM on ``x`` goes to the VTA GEMM's wrapper
     under ``set_gemm_impl``; False sends it to the plain version."""
     return _to_wrapper(_GEMM_IMPL, "gemm", x)
+
+
+# ---------------------------------------------------------------------------
+# measured-cost tuning dispatch
+# ---------------------------------------------------------------------------
+
+# The active ``core.autotune.TuningTable`` (``tune_runtime``'s output), or
+# None for the kernels' own defaults.  Explicit call-site arguments always
+# win over the table.  Only ``flash_prefill`` and ``serving`` are read:
+# the dense decode kernel and the GEMM pick their own tiles.
+_TUNING = None
+
+
+def set_tuning(table) -> object:
+    """Install a ``TuningTable`` (or None to untune); returns the
+    previous table so callers can restore it."""
+    global _TUNING
+    prev, _TUNING = _TUNING, table
+    return prev
+
+
+def tuning_table():
+    """The active ``TuningTable`` (None = defaults)."""
+    return _TUNING
+
+
+def tuned(kind: str) -> dict:
+    """Tuned knobs for one cost kind ({} when untuned)."""
+    return _TUNING.get(kind) if _TUNING is not None else {}
 
 
 # ---------------------------------------------------------------------------
@@ -268,19 +307,29 @@ def softmax_attend(q, k, v, mask=None, *, scale: float | None = None):
 
 def flash_attend(q, k, v, *, q_offset: int = 0, window: int = 0,
                  bidirectional: bool = False, scale: float | None = None,
-                 kv_len: int | None = None):
+                 kv_len: int | None = None, block_q: int | None = None,
+                 block_k: int | None = None):
     """Tiled online-softmax attention; never materialises (S, T) logits.
 
     q: (B,S,H,D); k/v: (B,T,Hkv,Dv).  ``q_offset``: absolute position of
     query 0; ``kv_len``: live prefix of a padded cache (host ints).
-    Dispatches to the flash kernel's wrapper or its plain version
+    ``block_q`` / ``block_k`` set the kernel's grid; left None they
+    resolve through the tuning table (``set_tuning``), else the kernel's
+    defaults (64 / 64).  The plain version's result does not depend on
+    them.  Dispatches to the flash kernel's wrapper or its plain version
     (``set_attention_impl``); with grad enabled and an input that requires
     it, the kernel's route is ``flash_attention_diff`` (the kernel forward,
     the plain version's backward).
     """
     if _use_kernel(q):
+        t = tuned("flash_prefill")
+        if block_q is None:
+            block_q = int(t.get("block_q", DEFAULT_BLOCK_Q))
+        if block_k is None:
+            block_k = int(t.get("block_k", DEFAULT_BLOCK_K))
         kw = dict(q_offset=q_offset, kv_len=kv_len, window=window,
-                  bidirectional=bidirectional, scale=scale)
+                  bidirectional=bidirectional, scale=scale, block_q=block_q,
+                  block_k=block_k)
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
             return flash_attention_diff(q, k, v, **kw)

@@ -81,9 +81,9 @@ rolling buffer (which cannot absorb pad rows or pause mid-prompt), so it
 refuses ``prefill_budget`` and ``prefix_cache`` as the reference does.  Step
 functions are plain closures built per engine: PyTorch runs eagerly,
 so the reference's cross-engine jit cache has
-nothing to keep.  Knobs left unset take the reference's untuned
-defaults, ``page_size=16`` and ``prefill_chunk=64`` (the tuning table
-is ROADMAP.md queue 1, item 13).
+nothing to keep.  Knobs left unset resolve through the tuning table's
+``serving`` entry (``models.layers.set_tuning``), else take the
+reference's untuned defaults, ``page_size=16`` and ``prefill_chunk=64``.
 """
 
 from __future__ import annotations
@@ -95,6 +95,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import transformer as tf
+from repro_torch.models.layers import tuned
 from repro_torch.serve import kv_cache
 from repro_torch.serve.step import (
     make_prefill_step,
@@ -232,12 +233,14 @@ class ServingEngine:
                 f"ServingEngine: {cfg.name} ({cfg.family}) has recurrent/"
                 "enc-dec caches — use the static loop")
         tf.check_supported(cfg)
-        # the reference's untuned defaults (its tuning table is ROADMAP.md
-        # queue 1, item 13)
+        # knobs the caller left unset resolve through the tuning table
+        # (core.autotune.tune_runtime -> layers.set_tuning), falling back
+        # to the reference's untuned defaults
+        serving_knobs = tuned("serving")
         if page_size is None:
-            page_size = 16
+            page_size = int(serving_knobs.get("page_size", 16))
         if prefill_chunk is None:
-            prefill_chunk = 64
+            prefill_chunk = int(serving_knobs.get("prefill_chunk", 64))
 
         self.params, self.cfg = params, cfg
         self.max_slots, self.max_len = max_slots, max_len

@@ -29,19 +29,20 @@ def leaves(tree) -> list:
 def unflatten(like, new_leaves):
     """A tree shaped as ``like`` whose leaves are ``new_leaves`` (a
     sequence in :func:`leaves`' order)."""
-    it = iter(new_leaves)
+    return _build(like, iter(new_leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            out = {k: build(node[k]) for k in sorted(node)}
-            return {k: out[k] for k in node}
-        if isinstance(node, tuple) and hasattr(node, "_fields"):
-            return type(node)(*[build(getattr(node, f)) for f in node._fields])
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v) for v in node)
-        return next(it)
 
-    return build(like)
+def _build(node, it):
+    # a module-level function: a recursive closure would form a reference
+    # cycle that keeps the leaves (device memory) alive until a gc pass
+    if isinstance(node, dict):
+        out = {k: _build(node[k], it) for k in sorted(node)}
+        return {k: out[k] for k in node}
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*[_build(getattr(node, f), it) for f in node._fields])
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(v, it) for v in node)
+    return next(it)
 
 
 def tree_map(fn, tree, *rest):

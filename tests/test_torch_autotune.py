@@ -138,8 +138,12 @@ def test_choose_pattern_pipeline_decision():
 
 
 def test_default_grid_and_reports_equal():
-    for kind in ("flash_prefill", "decode", "gemm_int8", "paged_decode", "prefill_chunk"):
+    for kind in ("decode", "gemm_int8", "paged_decode", "prefill_chunk"):
         assert tat.default_grid(kind) == jat.default_grid(kind)
+    # flash: the same base and candidates around the port kernel's own
+    # default blocks (64 / 64; the reference's are 128 / 128)
+    (tb, td, tc), (jb, jd, jc) = tat.default_grid("flash_prefill"), jat.default_grid("flash_prefill")
+    assert (tb, tc) == (jb, jc) and td == dict(block_q=64, block_k=64) != jd
     for mod in (tat, jat):
         with pytest.raises(ValueError, match="no default grid"):
             mod.default_grid("nope")

@@ -263,13 +263,53 @@ def test_paged_launcher_runs_int8_pools_on_cpu(capsys):
     eng.audit()
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--autotune"], "queue 1, item 13"),
-    (["--tuning-file", "t.json"], "queue 1, item 13"),
-])
-def test_launcher_unported_flags_name_their_item(flags, item):
-    with pytest.raises(SystemExit, match=item):
-        tlaunch.main(["--engine", "paged", "--device", "cpu", "--smoke", *flags])
+def _table_file(path, device, **entries):
+    from repro_torch.core.autotune import TuningTable
+
+    t = TuningTable(device=device)
+    for kind, knobs in entries.items():
+        t.put(kind, **knobs)
+    t.save(str(path))
+    return str(path)
+
+
+@pytest.mark.parametrize("case", ["autotune", "load", "foreign"])
+def test_launcher_tuning_flags_run_on_cpu(capsys, tmp_path, case):
+    """--autotune tunes flash and the paged kernel on the CPU and writes a
+    table the engine then takes its page size from; --tuning-file installs
+    a table for the run (uninstalled after); one measured on another
+    device exits."""
+    from repro_torch.core.autotune import TuningTable
+    from repro_torch.models.layers import tuning_table
+
+    path = tmp_path / "t.json"
+    if case == "autotune":
+        flags = ["--autotune", "--tuning-file", str(path)]
+    elif case == "load":
+        flags = ["--tuning-file", _table_file(path, "cpu/cpu/attn=auto,gemm=auto",
+                                              serving=dict(page_size=8))]
+    else:
+        flags = ["--tuning-file", _table_file(path, "cuda/NVIDIA H100 80GB HBM3/attn=auto,gemm=auto",
+                                              serving=dict(page_size=8))]
+        with pytest.raises(SystemExit, match="measured on 'cuda/NVIDIA H100"):
+            tlaunch.main(["--engine", "paged", "--device", "cpu", "--smoke", *flags])
+        assert tuning_table() is None
+        return
+    res = tlaunch.main(["--engine", "paged", "--device", "cpu", "--smoke", "--batch", "2",
+                        "--prompt", "32", "--new-tokens", "4", *flags])
+    out = capsys.readouterr().out
+    table = TuningTable.load(str(path))
+    if case == "autotune":
+        assert "tune_runtime[flash_prefill]" in out and "tune_runtime[paged_decode]" in out
+        assert f"autotune: saved tuning table to {path}" in out
+        assert table.device == "cpu/cpu/attn=auto,gemm=auto"
+        assert set(table.entries) == {"flash_prefill", "paged_decode", "serving"}
+    else:
+        assert f"loaded tuning table {path}" in out
+    assert res["engine"].page_size == table.get("serving")["page_size"]
+    assert "paged engine: 4 requests" in out
+    res["engine"].audit()
+    assert tuning_table() is None
 
 
 @pytest.mark.parametrize("engine,strategy", [
@@ -322,17 +362,52 @@ def test_supervised_launcher_runs_on_cpu(capsys, flags):
     res["engine"].audit()
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--supervise"], "queue 1, item 11's remainder"),
-    (["--fault-plan", "kill:step=2"], "queue 1, item 11's remainder"),
-    (["--autotune"], "queue 1, item 13"),
-    (["--tuning-file", "t.json"], "queue 1, item 13"),
-])
-def test_train_launcher_unported_flags_name_their_item(flags, item):
+@pytest.mark.parametrize("case", ["supervise", "fault_plan", "autotune", "load", "foreign"])
+def test_train_launcher_supervise_and_tuning_flags_run_on_cpu(capsys, tmp_path, case):
+    """--supervise prints the reference's summary; --fault-plan 'nan:step=3'
+    one rollback to the start (no --ckpt) and done; --autotune writes a
+    flash table that --tuning-file installs; a foreign table exits."""
+    from repro_torch.core.autotune import TuningTable
     from repro_torch.launch import train as ttrain
+    from repro_torch.models.layers import tuning_table
 
-    with pytest.raises(SystemExit, match=item):
-        ttrain.main(["--device", "cpu", "--smoke", *flags])
+    path = tmp_path / "t.json"
+    base = ["--device", "cpu", "--smoke", "--seq", "32", "--batch", "4"]
+    if case in ("supervise", "fault_plan"):
+        flags = ["--supervise"] if case == "supervise" else ["--fault-plan", "nan:step=3"]
+        res = ttrain.main([*base, "--steps", "8", *flags])
+        out = capsys.readouterr().out.splitlines()
+        assert out[-1] == "done" and len(res.losses) == 8
+        assert out[-3 if case == "fault_plan" else -2].startswith(
+            f"final loss {res.final_loss:.4f}  mean step ")
+        if case == "supervise":
+            assert res.events == [] and out[-2].endswith("events 0")
+        else:
+            ev, = res.events
+            assert ev.kind == "rollback" and ev.detail == {"skipped_data_index": 3,
+                                                           "restored_step": 0}
+            assert out[-3].endswith("events 1")
+            assert out[-2].startswith("  [rollback] at step 3: lost 3 steps, recovered in ")
+            assert "{'skipped_data_index': 3, 'restored_step': 0}" in out[-2]
+        return
+    if case == "foreign":
+        t = TuningTable(device="tpu/TPU v5 lite/attn=auto,gemm=auto")
+        t.put("flash_prefill", block_q=128, block_k=128)
+        t.save(str(path))
+        with pytest.raises(SystemExit, match="not on this process's 'cpu/cpu/"):
+            ttrain.main([*base, "--steps", "1", "--tuning-file", str(path)])
+        return
+    ttrain.main([*base, "--steps", "2", "--autotune", "--tuning-file", str(path)])
+    out = capsys.readouterr().out
+    assert "tune_runtime[flash_prefill]" in out and out.endswith("done\n")
+    table = TuningTable.load(str(path))
+    assert set(table.entries) == {"flash_prefill"}
+    assert table.device == "cpu/cpu/attn=auto,gemm=auto"
+    if case == "load":
+        ttrain.main([*base, "--steps", "2", "--tuning-file", str(path)])
+        out = capsys.readouterr().out
+        assert out.startswith(f"loaded tuning table {path}") and out.endswith("done\n")
+    assert tuning_table() is None
 
 
 @pytest.mark.parametrize("flags,line", [

@@ -1490,3 +1490,79 @@ def test_serve_launcher_strategy_on_card(cuda, capsys):
     assert out[0] == "mesh {'data': 1, 'model': 1}  arch qwen3_0p6b  strategy ai_core_assignment"
     assert tdec.decode_attention.launches - n0 == 28 * 7
     assert res["tokens"].shape == (4, 8)
+
+
+@pytest.mark.gpu
+def test_flash_smem_formula_equals_the_kernels_export(cuda):
+    """``flash_smem_bytes`` (the wrapper's and the tuner's check) equals
+    the kernel's own ``flash_attention_smem_bytes`` over dtypes, group
+    sizes, blocks and head dims."""
+    lib = tfl._lib()
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for g in (1, 2, 7, 16):
+            for qc in (1, 16, 32, 64, 100, 128, 256):
+                for kc in (8, 32, 48, 64, 128, 256):
+                    for d, dv in ((24, 8), (64, 64), (128, 128), (192, 128)):
+                        want = lib.flash_attention_smem_bytes(code, g, qc, kc, d, dv)
+                        assert tfl.flash_smem_bytes(dtype, g, qc, kc, d) == want
+
+
+@pytest.mark.gpu
+def test_tuned_flash_blocks_reach_the_kernel_on_card(cuda):
+    """A tuning table's flash blocks reach the kernel's grid: the output
+    and execution map equal an explicit call at those blocks, bitwise; a
+    block the kernel would refuse for shared memory raises."""
+    from repro_torch.core.autotune import TuningTable
+    from repro_torch.models import layers
+
+    q, k, v = _qkv(cuda, torch.float32, 2, 512, 512, 16, 8, 128, 128, seed=3)
+    want, wmap = tfl.flash_attention(q, k, v, block_q=128, block_k=32, return_counts=True)
+    t = TuningTable()
+    t.put("flash_prefill", block_q=128, block_k=32)
+    prev = layers.set_tuning(t)
+    try:
+        n0 = tfl.flash_attention.launches
+        got = layers.flash_attend(q, k, v)
+        assert tfl.flash_attention.launches == n0 + 1
+        assert torch.equal(got, want)
+        np.testing.assert_array_equal(wmap[0, 0].cpu().numpy(),
+                                      tfl.flash_tile_map(512, 512, block_q=128, block_k=32).numpy())
+        base = tfl.flash_attention(q, k, v)
+        assert float((got - base).abs().max()) <= TOL["float32"]
+        t.put("flash_prefill", block_k=128)  # 128-key f32 stages at D 128 do not fit
+        with pytest.raises(ValueError, match="shared memory"):
+            layers.flash_attend(q, k, v)
+    finally:
+        layers.set_tuning(prev)
+
+
+@pytest.mark.gpu
+def test_fused_supervisor_on_card(cuda, tmp_path):
+    """``TrainSupervisor`` on the card at seq 512 (flash in every layer):
+    a NaN rollback and a checkpoint-crash retry, finite losses, a latest
+    checkpoint at the last step, and flash launched 2 x layers for every
+    step the run executed (the warm step, the poisoned one and the
+    replayed ones included)."""
+    import math
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.ft import checkpoint as ckpt
+    from repro_torch.ft.faults import CheckpointWriteCrash, FaultPlan
+    from repro_torch.ft.supervisor import TrainSupervisor
+
+    cfg = get_config("qwen3_0p6b").scaled_down(num_layers=2, d_model=128, vocab=512)
+    n0 = tfl.flash_attention.launches
+    sup = TrainSupervisor(cfg, steps=8, seq=512, batch=2, strategy="fused",
+                          fault_plan=FaultPlan.parse("nan:step=3;ckpt_crash:step=4"),
+                          ckpt_dir=str(tmp_path / "ck"), ckpt_every=2)
+    assert sup.devices == [torch.device("cuda", 0)] and sup.device.type == "cuda"
+    res = sup.run()
+    rb, = res.events_of("rollback")
+    retry, = res.events_of("ckpt_retry")
+    assert rb.detail == {"skipped_data_index": 3, "restored_step": 2} and rb.steps_lost == 1
+    assert retry.detail["error"].startswith(CheckpointWriteCrash.__name__)
+    assert all(math.isfinite(x) for x in res.losses) and len(res.losses) == 8
+    assert ckpt.sweep_tmp(str(tmp_path / "ck")) == [] and ckpt.latest_step(str(tmp_path / "ck")) == 8
+    executed = 8 + rb.steps_lost + 1 + 1  # + the poisoned step + the warm step
+    assert tfl.flash_attention.launches - n0 == 2 * cfg.num_layers * executed
+    assert all(x.device.type == "cuda" for x in sup.state["params"]["blocks"][0]["mixer"]["wq"].values())

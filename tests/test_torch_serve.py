@@ -181,9 +181,14 @@ def test_launcher_runs_on_cpu_when_asked(capsys):
     assert res["tokens"].shape == (2, 4)
 
 
-def test_launcher_refuses_unported_options(capsys):
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        tlaunch.main(["--device", "cpu", "--smoke", "--autotune"])
+def test_launcher_refuses_unported_options(capsys, tmp_path):
+    # every option of the reference's launcher is ported; a tuning table
+    # measured on another device is refused
+    from repro_torch.core.autotune import TuningTable
+
+    TuningTable(device="tpu/TPU v5 lite/attn=auto,gemm=auto").save(str(tmp_path / "t.json"))
+    with pytest.raises(SystemExit, match="re-run with --autotune"):
+        tlaunch.main(["--device", "cpu", "--smoke", "--tuning-file", str(tmp_path / "t.json")])
     # the static path ignores --kv-dtype, as the reference's does
     argv = ["--device", "cpu", "--smoke", "--batch", "1", "--prompt", "16",
             "--new-tokens", "3"]
