@@ -66,6 +66,18 @@ qwen3_0p6b (f32, random weights from seed 0):
   and prefill chunk from the table at the same pool bytes, tokens equal to
   the untuned run's under the margin rule, both runs' tok/s printed; the
   table uninstalled after;
+* multi-card execution over the data axes (``[multi]``): two processes,
+  one per data position (``dist.collective``: spawned fresh, gloo as they
+  share the one card; again over NCCL on distinct cards where there are
+  two or more), each on its row of the global batch (B 2 x 512, f32):
+  two train steps each under scatter_gather and fused on the (2, 1) mesh
+  and pipeline on the (2, 2) mesh (two stages a process), then the static
+  path (8 new tokens); every process's loss and grad norm, and the
+  gathered params, within 1e-5 of the same work in one process, the
+  gathered tokens equal to its tokens where the margin is clear, flash
+  and decode launches a process exact, each process's placed state bytes
+  equal to the dry-run stand-in's arithmetic (fused's below
+  scatter_gather's), each step's time and its collectives' printed;
 * the VTA path: ResNet-18's convolutions (batch 1, 224 x 224) as int8
   GEMMs through ``ops.vta_conv2d`` and ``ops.dense_requant_int8``, the
   conv weights packed K-major by ``ops.pack_conv_weight``;
@@ -3506,6 +3518,337 @@ def tune_phase(torch, params, cfg, dev, card: str, untuned: dict) -> dict:
     return {"flash_attention": n_flash, "paged_decode_attention": n_paged}
 
 
+# multi-card execution over the data axes ([multi]): 2 processes, one per
+# data position, at full width; B 2 x 512 (one row a process), f32
+MULTI_PROCS, MULTI_SEQ, MULTI_BATCH, MULTI_STEPS, MULTI_NEW = 2, 512, 2, 2, 8
+# across processes the gradient sums run in another order (all_reduce)
+MULTI_TOL = 1e-5
+# the plain one-process step (grad_accum 1: the global batch in one GEMM,
+# one mean) sums in yet another order, which AdamW's first update
+# g / (|g| + eps) amplifies where gradients are near zero: its params are
+# held at this distance, its loss and grad norm at MULTI_TOL
+MULTI_PLAIN_TOL = 1e-4
+MULTI_TIMEOUT = 600
+
+
+def _multi_meshes(torch, rows):
+    """The (positions, 1) data mesh over each row's first device and the
+    (positions, 2) pipeline mesh over the rows' two stage devices."""
+    import numpy as np
+
+    from repro_torch.dist.sharding import Mesh
+
+    def mesh(devs, m):
+        return Mesh(np.array([torch.device(d) for d in devs], dtype=object).reshape(-1, m),
+                    ("data", "model"))
+
+    return mesh([r[0] for r in rows], 1), mesh([d for r in rows for d in r], 2)
+
+
+def multi_child(rank, nprocs, init_method, job):
+    """One data position of the ``[multi]`` phase (a spawned process): the
+    port's train steps under scatter_gather, fused and pipeline and the
+    static path, each on this process's rows of the global batch; process
+    0 then runs the same work in one process (no group) for reference.
+    Writes its record as JSON to ``job["out"]/multi_<rank>.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist import collective
+    from repro_torch.dist.sharding import data_shards, place
+    from repro_torch.ft.elastic import state_shardings
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.dryrun import tree_bytes
+    from repro_torch.launch.serve import run_static
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import step as st
+    from repro_torch.tree import flatten_with_path, leaves as tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, rows, seq, batch, steps, new = (job[k] for k in ("cfg", "rows", "seq", "batch",
+                                                          "steps", "new"))
+    dmesh, pmesh = _multi_meshes(torch, rows)
+    group = collective.data_group(dmesh, init_method=init_method, rank=rank,
+                                  world_size=nprocs)
+    dev = torch.device(rows[rank][0])
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    # every collective timed on the host clock between device syncs
+    coll = {"s": 0.0, "calls": 0}
+
+    def timed(fn):
+        def run(*a, **kw):
+            sync()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                sync()
+                coll["s"] += time.perf_counter() - t0
+                coll["calls"] += 1
+        return run
+
+    for name in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor"):
+        setattr(tdist, name, timed(getattr(tdist, name)))
+
+    params = tf.init(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                     dtype=torch.float32, device=dev)
+    data = SyntheticLM(cfg.vocab, seq, batch, seed=0)
+    batches = [{"tokens": torch.from_numpy(data.batch(i)["tokens"]).long().to(dev)}
+               for i in range(steps)]
+    opt = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=steps)
+    bounds = (0, cfg.num_layers // 2, cfg.num_layers)
+    rec = {"rank": rank, "backend": group.backend, "device": str(dev), "runs": {}}
+
+    # one process runs the pipeline's data shards in turn on row 0's stages
+    _, one_pmesh = _multi_meshes(torch, [rows[0]] * len(rows))
+
+    def make(strategy, grp, shards):
+        if strategy == "pipeline":
+            return st.make_pipeline_train_step(cfg, opt, pmesh if grp else one_pmesh,
+                                               num_microbatches=1,
+                                               boundaries=bounds, schedule="1f1b",
+                                               group=grp, shards=shards)
+        # one process takes each process's row as a microbatch of its own
+        # (the same per-row GEMMs, as the one-process pipeline runs its data
+        # shards in turn), so the comparison isolates the cross-process mean
+        return st.make_train_step(cfg, opt, grad_accum=1 if grp else nprocs, group=grp,
+                                  shards=shards)
+
+    def train(step_fn, state, grp):
+        out = []
+        for b in batches:
+            flash_attention.launches = 0
+            coll.update(s=0.0, calls=0)
+            sync()
+            collective.barrier(grp)
+            t0 = time.perf_counter()
+            state, met = step_fn(state, b)
+            loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+            sync()
+            out.append(dict(loss=loss, grad_norm=gnorm,
+                            ms=(time.perf_counter() - t0) * 1e3,
+                            collective_ms=coll["s"] * 1e3, collectives=coll["calls"],
+                            flash=flash_attention.launches))
+        return state, out
+
+    def param_err(got, ref):
+        """(max |difference|, its leaf's path) of two param trees."""
+        return max((float((a - b).abs().max()), "/".join(map(str, path)))
+                   for (path, a), (_, b) in zip(flatten_with_path(got), flatten_with_path(ref)))
+
+    one = {}
+    for strategy in ("scatter_gather", "fused", "pipeline"):
+        mesh = pmesh if strategy == "pipeline" else dmesh
+        state = st.make_state(params)
+        specs = state_shardings(state, mesh, strategy)
+        shards = data_shards(specs["params"], mesh)
+        mine = place(state, specs, mesh, group)
+        # the process's bytes: the stand-in's per-position arithmetic, its
+        # row's stage positions summed (the data mesh's 'model' axis is 1)
+        placed = sum(t.untyped_storage().nbytes() for t in tree_leaves(mine)
+                     if isinstance(t, torch.Tensor))
+        expect = tree_bytes(state, specs, dmesh)
+        del state
+        mine, steps_rec = train(make(strategy, group, shards), mine, group)
+        whole = collective.gather_tree(mine["params"], shards, group)
+        run = {"placed_bytes": placed, "expect_bytes": expect, "steps": steps_rec}
+        del mine
+        if rank == 0:
+            key = "pipeline" if strategy == "pipeline" else "data"
+            if key not in one:
+                ref_state, ref_steps = train(make(strategy, None, None),
+                                             st.make_state(params), None)
+                one[key] = (ref_state["params"], ref_steps)
+                del ref_state
+                if key == "data":
+                    # the step a user runs in one process: grad_accum 1
+                    ref_state, ref_steps = train(st.make_train_step(cfg, opt),
+                                                 st.make_state(params), None)
+                    one["plain"] = (ref_state["params"], ref_steps)
+                    del ref_state
+            ref_params, run["one_process"] = one[key]
+            run["param_err"], run["param_err_leaf"] = param_err(whole, ref_params)
+            if key == "data":
+                ref_params, run["plain"] = one["plain"]
+                run["plain_param_err"], run["plain_param_err_leaf"] = param_err(whole,
+                                                                                ref_params)
+        del whole
+        rec["runs"][strategy] = run
+        if cuda:
+            torch.cuda.empty_cache()
+    one.clear()
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (batch, seq), generator=gen, device=dev)
+    flash_attention.launches = decode_attention.launches = 0
+    res = run_static(params, cfg, prompts, new_tokens=new, chunk=seq, mesh=dmesh, group=group)
+    serve = {"flash": flash_attention.launches, "decode": decode_attention.launches,
+             "prefill_ms": res["prefill_s"] * 1e3, "decode_ms": res["decode_s"] * 1e3,
+             "tokens": res["tokens"].tolist()}
+    if rank == 0:
+        ref = run_static(params, cfg, prompts, new_tokens=new, chunk=seq, return_logits=True)
+        top2 = torch.stack(ref["logits"], dim=1).topk(2, dim=-1).values
+        serve["one_process_tokens"] = ref["tokens"].tolist()
+        serve["one_process_margin"] = (top2[..., 0] - top2[..., 1]).tolist()
+        serve["one_process_decode_ms"] = ref["decode_s"] * 1e3
+    rec["serve"] = serve
+    with open(Path(job["out"]) / f"multi_{rank}.json", "w") as f:
+        json.dump(rec, f)
+    group.close()
+
+
+def multi_phase(torch, cfg, dev, card: str) -> dict:
+    """Multi-card execution over the data axes at qwen3_0p6b's full width:
+    ``MULTI_PROCS`` processes, one per data position (``dist.collective``,
+    spawned fresh, a file store under ``build/``), each on its rows of the
+    global batch (B 2 x 512, f32): two train steps each under
+    scatter_gather and fused on the (2, 1) mesh and pipeline on the (2, 2)
+    mesh (2 stages a process, 1F1B, m 1), then the static path (8 new
+    tokens).  On one card both processes share it (gloo); with two or more
+    cards the phase runs again over distinct cards (NCCL; the pipeline's
+    stages on distinct cards where there are four).  Gates: every
+    process reads the same loss and grad norm, within ``MULTI_TOL`` of the
+    same work in one process, and the gathered params too; each process's
+    flash and decode launches equal the analytic counts; each process's
+    placed state bytes equal the dry-run stand-in's arithmetic
+    (``launch.dryrun.tree_bytes``), fused's below scatter_gather's; the
+    gathered tokens equal the one-process run's where its top-2 margin
+    clears the tolerance.  The data strategies are also held to the plain
+    one-process step (grad_accum 1), params within ``MULTI_PLAIN_TOL``.  A
+    failed child, collective or join fails the phase; nothing falls back
+    to one process.  Returns the kernels' launches in the
+    multi-process runs, summed over processes."""
+    import shutil
+
+    from repro_torch.dist import collective
+
+    # each process's row: its pipeline stage devices (the data mesh takes
+    # the first); one card shared by both processes, then distinct cards
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    layouts = [("gloo, one card shared", [[str(dev)] * 2] * MULTI_PROCS)]
+    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if n >= 2:
+        cards = [f"cuda:{i}" for i in range(n)]
+        rows = [cards[0:2], cards[2:4]] if n >= 4 else [[cards[0]] * 2, [cards[1]] * 2]
+        layouts.append(("nccl, distinct cards", rows))
+    total = {"flash_attention": 0, "decode_attention": 0}
+    L = cfg.num_layers
+    for label, rows in layouts:
+        out = ROOT / "build" / "multi"
+        shutil.rmtree(out, ignore_errors=True)
+        out.mkdir(parents=True)
+        job = dict(cfg=cfg, rows=rows, seq=MULTI_SEQ, batch=MULTI_BATCH, steps=MULTI_STEPS,
+                   new=MULTI_NEW, out=str(out))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        collective.spawn(multi_child, MULTI_PROCS, (job,), timeout=MULTI_TIMEOUT,
+                         workdir=str(out))
+        log(f"[multi] {label}: {MULTI_PROCS} processes, rows {rows}, done in "
+            f"{time.perf_counter() - t0:.1f} s (spawn, params, 3 strategies x "
+            f"{MULTI_STEPS} steps, the static path, process 0's one-process runs)")
+        recs = [json.loads((out / f"multi_{r}.json").read_text()) for r in range(MULTI_PROCS)]
+        want_backend = "nccl" if label.startswith("nccl") else "gloo"
+        check(all(r["backend"] == want_backend for r in recs),
+              f"[multi] {label}: backend {[r['backend'] for r in recs]}")
+        for strategy in ("scatter_gather", "fused", "pipeline"):
+            runs = [r["runs"][strategy] for r in recs]
+            ref = runs[0]["one_process"]
+            flash_per = (3 if strategy == "pipeline" else 2) * L
+            for i in range(MULTI_STEPS):
+                got = [(run["steps"][i]["loss"], run["steps"][i]["grad_norm"]) for run in runs]
+                check(len(set(got)) == 1, f"[multi] {label} {strategy} step {i + 1}: "
+                      f"processes read {got}")
+                loss, gnorm = got[0]
+                rl, rg = ref[i]["loss"], ref[i]["grad_norm"]
+                check(abs(loss - rl) <= MULTI_TOL * abs(rl)
+                      and abs(gnorm - rg) <= MULTI_TOL * abs(rg),
+                      f"[multi] {label} {strategy} step {i + 1}: loss {loss} / grad_norm "
+                      f"{gnorm} vs one process {rl} / {rg}")
+                for r, run in enumerate(runs):
+                    check(run["steps"][i]["flash"] == flash_per,
+                          f"[multi] {label} {strategy} process {r} step {i + 1}: flash "
+                          f"{run['steps'][i]['flash']} launches, expect {flash_per}")
+                    total["flash_attention"] += run["steps"][i]["flash"]
+                ms = [run["steps"][i]["ms"] for run in runs]
+                cms = [run["steps"][i]["collective_ms"] for run in runs]
+                calls = runs[0]["steps"][i]["collectives"]
+                log(f"[multi] {label} {strategy} step {i + 1}: loss {loss:.6f} (one process "
+                    f"{rl:.6f}), grad_norm {gnorm:.6f} ({rg:.6f}); step ms per process "
+                    f"{[round(x, 1) for x in ms]} vs one process {ref[i]['ms']:.1f} ms; "
+                    f"collectives {calls} calls, {[round(x, 1) for x in cms]} ms; flash "
+                    f"{flash_per} a process; on {card}")
+            check(runs[0]["param_err"] <= MULTI_TOL,
+                  f"[multi] {label} {strategy}: params {runs[0]['param_err']} from one process")
+            if "plain" in runs[0]:
+                plain = runs[0]["plain"]
+                for i in range(MULTI_STEPS):
+                    got, want = runs[0]["steps"][i], plain[i]
+                    check(all(abs(got[k] - want[k]) <= MULTI_TOL * abs(want[k])
+                              for k in ("loss", "grad_norm")),
+                          f"[multi] {label} {strategy} step {i + 1}: loss {got['loss']} / "
+                          f"grad_norm {got['grad_norm']} vs the plain one-process step "
+                          f"{want['loss']} / {want['grad_norm']}")
+                check(runs[0]["plain_param_err"] <= MULTI_PLAIN_TOL,
+                      f"[multi] {label} {strategy}: params {runs[0]['plain_param_err']} from "
+                      f"the plain one-process step")
+                log(f"[multi] {label} {strategy}: against the plain one-process step "
+                    f"(grad_accum 1, {plain[-1]['ms']:.1f} ms a step): loss "
+                    f"{plain[-1]['loss']:.6f}, grad_norm {plain[-1]['grad_norm']:.6f} at step "
+                    f"{MULTI_STEPS}; params within {runs[0]['plain_param_err']:.3e} (tol "
+                    f"{MULTI_PLAIN_TOL}; worst leaf {runs[0]['plain_param_err_leaf']})")
+            for r, run in enumerate(runs):
+                check(run["placed_bytes"] == run["expect_bytes"],
+                      f"[multi] {label} {strategy} process {r}: placed {run['placed_bytes']} B "
+                      f"vs the stand-in's {run['expect_bytes']} B")
+            log(f"[multi] {label} {strategy}: params after {MULTI_STEPS} steps within "
+                f"{runs[0]['param_err']:.3e} of one process (tol {MULTI_TOL}; worst leaf "
+                f"{runs[0]['param_err_leaf']}); placed state "
+                f"{[run['placed_bytes'] for run in runs]} B a process == the stand-in's "
+                f"arithmetic")
+        check(recs[0]["runs"]["fused"]["placed_bytes"]
+              < recs[0]["runs"]["scatter_gather"]["placed_bytes"],
+              f"[multi] {label}: fused holds less than scatter_gather")
+        serves = [r["serve"] for r in recs]
+        for r, sv in enumerate(serves):
+            # the prompt is one 512-token chunk: one flash call a layer
+            check(sv["flash"] == L and sv["decode"] == L * (MULTI_NEW - 1),
+                  f"[multi] {label} static process {r}: flash {sv['flash']}, decode "
+                  f"{sv['decode']} launches")
+            total["flash_attention"] += sv["flash"]
+            total["decode_attention"] += sv["decode"]
+        toks, one = serves[0]["tokens"], serves[0]["one_process_tokens"]
+        margin = serves[0]["one_process_margin"]
+        check(all(sv["tokens"] == toks for sv in serves), f"[multi] {label}: gathered tokens "
+              "differ between processes")
+        equal = 0
+        for row, (a, b) in enumerate(zip(toks, one)):
+            first = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+            equal += len(a) if first is None else first
+            if first is not None:
+                log(f"[multi] {label} static row {row}: first token differing from one process "
+                    f"at {first}, one-process top-2 margin {margin[row][first]:.3e}")
+                check(margin[row][first] < MULTI_TOL,
+                      f"[multi] {label} static row {row}: token differs at a clear margin")
+        log(f"[multi] {label} static path: {MULTI_BATCH} rows x {MULTI_NEW} tokens gathered, "
+            f"{equal}/{MULTI_BATCH * MULTI_NEW} equal to one process; decode "
+            f"{serves[0]['decode_ms']:.1f} ms on process 0 vs "
+            f"{serves[0]['one_process_decode_ms']:.1f} ms in one process; flash "
+            f"{serves[0]['flash']}, decode {serves[0]['decode']} launches a process")
+    return total
+
+
 def leaves(tree):
     """The tensors of a param tree (nested dicts and lists)."""
     if isinstance(tree, dict):
@@ -3852,6 +4195,10 @@ def main() -> int:
     n_train_flash += tuned["flash_attention"]
     n_paged += tuned["paged_decode_attention"]
     lap("tune")
+    multi = multi_phase(torch, cfg, dev, f"{kind} ({smi})")
+    n_train_flash += multi["flash_attention"]
+    n_multi_decode = multi["decode_attention"]
+    lap("multi")
     check(layers.attention_impl() == "auto" and layers.gemm_impl() == "auto"
           and layers.tuning_table() is None,
           "the dispatch reads auto, untuned, after the serving-fault, training and tuning phases")
@@ -3936,7 +4283,8 @@ def main() -> int:
     row = time_decode(torch, gen, dev)[DECODE_TIMED[0][0]]
     rows["decode_attention"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
-        replaces="src/repro/kernels/decode_attention.py:215", launches=n_decode,
+        replaces="src/repro/kernels/decode_attention.py:215",
+        launches=n_decode + n_multi_decode,
         max_abs_err=errs["decode_attention"], **row)
     row = time_paged(torch, gen, dev)[PAGED_TIMED[0][0]]
     del row["eager_ms"]

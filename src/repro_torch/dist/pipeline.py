@@ -17,14 +17,16 @@ layer count (:func:`pad_pipeline_params`), so the block list has
 slice.  Padding rows are clones of the stage's last real layer that the
 executors never run: they get exactly zero gradient.
 
-**Execution.**  One process drives every stage.  Stage k's layers run on
-the device of the mesh's k-th 'model' column (every column of a mesh
+**Execution.**  One process drives a row's stages.  Stage k's layers run
+on the device of the row's k-th 'model' column (every column of a mesh
 that lists one card several times is that card); activations move to
-the next stage with ``.to()``.  The data axis runs in the same process:
-each microbatch's rows are split over the data shards where
-``fix_spec`` keeps the split, each shard runs its own units, and the
-shards' gradients and losses are averaged in shard order, as the
-reference's ``pmean`` does.
+the next stage with ``.to()``.  Without a data group the data axis runs
+in the same process: each microbatch's rows are split over the data
+shards where ``fix_spec`` keeps the split, each shard runs its own
+units, and the shards' gradients and losses are averaged in shard order,
+as the reference's ``pmean`` does.  With one (one process per data
+position, ``dist.collective``) each process runs its own shard on its
+own row, and the train step averages across processes.
 
 **Schedules.**  The forward pipe is fill-and-drain (``m + S - 1``
 rounds).  The pipelined train loop (:func:`make_pipeline_loss_and_grad`)
@@ -71,12 +73,14 @@ from repro_torch.core.partition import (  # noqa: F401  (bubble oracle re-export
     pipeline_bubble_counts,
     stage_depths,
 )
+from repro_torch.dist.collective import shard_rows
 from repro_torch.dist.sharding import (
     MDL,
     _axis_size,
     _dp,
     _place_all,
     fix_spec,
+    local_mesh,
     stage_devices,
 )
 from repro_torch.models import transformer as tf
@@ -343,7 +347,8 @@ def _leaves_grad(tree):
 
 def make_pipeline_loss_and_grad(cfg, mesh, num_microbatches: int = 8,
                                 boundaries=None, schedule: str = "1f1b",
-                                aux_weight: float = 0.01, remat: bool = True):
+                                aux_weight: float = 0.01, remat: bool = True,
+                                group=None):
     """Build ``loss_and_grad(params, batch) -> ((loss, metrics), grads)``
     with microbatch gradient accumulation *through* the pipe.
 
@@ -366,6 +371,14 @@ def make_pipeline_loss_and_grad(cfg, mesh, num_microbatches: int = 8,
     :func:`pipeline_bubble_counts`.  ``loss_and_grad.counts`` is
     ``(rounds, busy, idle)`` of the last call.  Homogeneous token-only
     decoder stacks.
+
+    With a ``group`` (one process per data position) the data axis runs
+    across processes: the process takes its data shard of the GLOBAL
+    batch (``dist.collective.shard_rows``; shard ``p // (count / ndp)``
+    where the microbatch splits in ``ndp`` effective shards) through the
+    stages of its own row (``dist.sharding.local_mesh``) and returns that
+    shard's loss and grads; ``train.step.make_pipeline_train_step``
+    averages them across processes.
     """
     stages = num_stages(mesh)
     if cfg.attn_every or cfg.is_enc_dec:
@@ -390,7 +403,10 @@ def make_pipeline_loss_and_grad(cfg, mesh, num_microbatches: int = 8,
     lag = (stages - 1) if schedule == "1f1b" else (m + stages - 1)
     rounds = lag + m + stages - 1
     tied = cfg.tie_embeddings
-    devices = stage_devices(mesh)
+    # across processes the rows are split before the pipe, which then runs
+    # on this process's row: one data shard
+    row_mesh = local_mesh(mesh, group) if group is not None else mesh
+    devices = stage_devices(row_mesh)
     f32 = torch.float32
 
     def head_loss(hp, y, tg):
@@ -462,6 +478,10 @@ def make_pipeline_loss_and_grad(cfg, mesh, num_microbatches: int = 8,
         return gblocks, ghead, dxq, ce_acc, aux_acc
 
     def loss_and_grad(params, batch):
+        if group is not None:
+            b = batch["tokens"].shape[0]
+            ndp = _data_shards(mesh, m, b // m, batch["tokens"].shape[1] - 1, cfg.d_model)
+            batch = shard_rows(batch, m, ndp, group.rank // (group.size // ndp))
         tokens = batch["tokens"]
         inp_tok, tgt = tokens[:, :-1], tokens[:, 1:]
         table = params["embed"]["table"].detach().requires_grad_()
@@ -476,7 +496,7 @@ def make_pipeline_loss_and_grad(cfg, mesh, num_microbatches: int = 8,
         # the dp factor that survives spec repair: a microbatch that does
         # not divide the data axes replicates, and the dX normalizer is
         # the EFFECTIVE shard count
-        ndp = _data_shards(mesh, m, mb, s, d)
+        ndp = _data_shards(row_mesh, m, mb, s, d)
         r = mb // ndp
         layers = _stage_layers(params["blocks"], depths, max_d, 1)
         head_tree = {"final_norm": params["final_norm"]}

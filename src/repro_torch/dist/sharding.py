@@ -34,9 +34,12 @@ without its leading entry) and, in ``.layer``, the leading entry itself
 (``"model"`` under ``pipeline`` where the stage count divides the
 list's length, else ``None``).
 
-:func:`place` puts a tree on a mesh's devices.  Eager PyTorch has no
-sharding constraint, so the reference's activation hints (``hint``,
-``hint_dp``, ``manual_mode``) have no counterpart here.
+:func:`place` puts a tree on a mesh's devices: with a data group
+(``dist.collective``: one process per data position, each owning its
+mesh row, :func:`local_mesh`) this process's FSDP slices
+(:func:`data_shards`) on its row.  Eager PyTorch has no sharding
+constraint, so the reference's activation hints (``hint``, ``hint_dp``,
+``manual_mode``) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -68,7 +71,9 @@ _STACKED_SUBTREES = frozenset({"blocks", "encoder", "decoder"})
 SHARDING_STRATEGIES = ("scatter_gather", "ai_core_assignment", "fused",
                        "pipeline")
 
-#: what the port's refusals of a layout spread over distinct devices cite
+#: what the port's refusals of a layout it cannot run over distinct devices
+#: cite (tensor / expert parallelism there, a data axis over distinct
+#: devices in one process)
 MULTI_CARD_ITEM = "ROADMAP.md queue 1, item 16 (multi-card execution)"
 
 
@@ -360,10 +365,68 @@ def _axes(spec) -> set:
     return {a for e in spec if e is not None for a in (e if isinstance(e, tuple) else (e,))}
 
 
+def data_positions(mesh) -> int:
+    """The mesh's data positions: the product of its data axes."""
+    return _axis_size(mesh, dp_axes(mesh))
+
+
+def row_devices(mesh) -> list:
+    """Each data position's row (row-major over the data axes): the list
+    of its devices along 'model' (one device without a 'model' axis)."""
+    devs = mesh.devices
+    if MDL in mesh.shape:
+        devs = np.moveaxis(devs, mesh.axis_names.index(MDL), -1)
+    else:
+        devs = devs[..., None]
+    return [list(row) for row in devs.reshape(-1, devs.shape[-1])]
+
+
+def local_mesh(mesh, group) -> Mesh:
+    """This process's row of ``mesh``: a mesh over its 'model' devices with
+    every data axis of size 1.  The process count must equal the mesh's
+    data positions."""
+    positions = data_positions(mesh)
+    count = 1 if group is None else group.size
+    if count != positions:
+        raise ValueError(f"{count} processes for a mesh with {positions} data positions "
+                         f"{mesh.shape}: run one process per data position")
+    row = row_devices(mesh)[0 if group is None else group.rank]
+    names = mesh.axis_names + (() if MDL in mesh.shape else (MDL,))
+    shape = [len(row) if a == MDL else 1 for a in names]
+    return Mesh(np.asarray(row, dtype=object).reshape(shape), names)
+
+
+def data_shards(specs, mesh):
+    """The FSDP layout a spec tree gives on ``mesh``: per leaf ``(dim, n)``
+    when dim ``dim`` is split ``n`` ways over the data axes, else None; a
+    per-layer list (:class:`LayerSpecs`) gives a list."""
+    dp = set(dp_axes(mesh))
+
+    def one(spec):
+        for dim, entry in enumerate(spec):
+            axes = entry if isinstance(entry, tuple) else (entry,)
+            n = _axis_size(mesh, tuple(a for a in axes if a in dp))
+            if n > 1:
+                return (dim, n)
+        return None
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if _is_named_tuple(node):
+            return type(node)(*[walk(getattr(node, f)) for f in node._fields])
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return one(node)
+
+    return walk(specs)
+
+
 def stage_devices(mesh) -> list:
     """The device of each pipeline stage: slice k of the mesh along
     'model'.  A slice that spans distinct devices (a data axis over
-    several cards) raises: that is multi-card execution."""
+    several cards in one process) raises: each data position is a process
+    of its own (:func:`local_mesh`)."""
     if MDL in mesh.shape:
         axis = mesh.axis_names.index(MDL)
         cols = [np.take(mesh.devices, k, axis=axis) for k in range(mesh.shape[MDL])]
@@ -374,29 +437,55 @@ def stage_devices(mesh) -> list:
         devs = _distinct(col.flat)
         if len(devs) > 1:
             raise NotImplementedError(
-                f"stage {k} spans devices {devs}: a data axis over several "
-                f"devices is {MULTI_CARD_ITEM}")
+                f"stage {k} spans devices {devs}: a data axis over several devices runs "
+                f"one process per data position (torchrun; dist.collective.data_group), "
+                f"not in one process ({MULTI_CARD_ITEM})")
         out.append(devs[0])
     return out
 
 
-def place(tree, specs, mesh):
+def _mentions_model(specs) -> bool:
+    if isinstance(specs, dict):
+        return any(_mentions_model(v) for v in specs.values())
+    if isinstance(specs, list):
+        return specs.layer == MDL or any(_mentions_model(v) for v in specs)
+    if _is_named_tuple(specs):
+        return any(_mentions_model(v) for v in specs)
+    return MDL in _axes(specs)
+
+
+def place(tree, specs, mesh, group=None):
     """``tree`` with every tensor on the mesh's devices per ``specs``
     (from :func:`param_specs`, :func:`cache_specs` or
     ``ft.elastic.state_shardings``; a named tuple's spec is the same named
     tuple of specs).
 
-    On a mesh of one device (however often it is listed) every tensor
-    moves there — the identity for a tree already on it.  On a mesh over
-    distinct devices only the pipeline layout is placed: each per-layer
-    list whose layer axis is on 'model' sends its contiguous slice k to
-    stage k's device, everything else goes to stage 0's.  Any other
-    layout over distinct devices raises ``NotImplementedError``.
+    With a ``group`` (``dist.collective.data_group``: one process per data
+    position) each leaf first keeps this process's slice of its dim split
+    over the data axes (:func:`data_shards`), every replicated leaf whole,
+    and the rest is placed on this process's row (:func:`local_mesh`).
+
+    On a mesh (or row) of one device, however often it is listed, every
+    tensor moves there — the identity for a tree already on it.  On a row
+    over distinct devices a tree with nothing on 'model' (scatter_gather's
+    replicas) is placed, and computed, once on the row's first device;
+    the pipeline layout sends each per-layer list whose layer axis is on
+    'model' its contiguous slice k to stage k's device, everything else to
+    stage 0's.  A tensor dim on 'model' over distinct devices (tensor or
+    expert parallelism), or a data axis over distinct devices in one
+    process, raises ``NotImplementedError``.
     """
+    if group is not None:
+        from repro_torch.dist.collective import slice_tree
+
+        tree = slice_tree(tree, data_shards(specs, mesh), group)
+        mesh = local_mesh(mesh, group)
     devs = mesh.distinct_devices()
     if len(devs) == 1:
         return _place_all(tree, devs[0])
     stage_dev = stage_devices(mesh)
+    if not _mentions_model(specs):
+        return _place_all(tree, stage_dev[0])
     stages = len(stage_dev)
 
     def walk(node, spec):

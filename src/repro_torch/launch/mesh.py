@@ -12,7 +12,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.dist.sharding import Mesh
+from repro_torch.dist.sharding import Mesh, data_positions
 
 
 def cuda_devices() -> list:
@@ -52,3 +52,24 @@ def make_smoke_mesh(data: int = 1, model: int = 1, devices=None) -> Mesh:
     data = min(data, n)
     model = max(1, min(model, n // data))
     return _make_mesh((data, model), ("data", "model"), devices)
+
+
+def launch_mesh(device: torch.device, group_size: int, production: bool = False) -> Mesh:
+    """A launcher's global mesh: ``ft.elastic.make_mesh_for`` (or, with
+    ``production``, the production mesh) over the devices of ``--device``;
+    on the CPU, one CPU position per process of the group."""
+    from repro_torch.ft.elastic import make_mesh_for
+
+    devices = mesh_devices(device)
+    if device.type == "cpu" and group_size > 1:
+        devices = devices * group_size
+    return make_production_mesh(devices=devices) if production else make_mesh_for(devices)
+
+
+def refuse_lone_process(mesh, module: str) -> None:
+    """One process on a mesh with several data positions over distinct
+    devices would leave cards idle: exit naming the torchrun command."""
+    n = data_positions(mesh)
+    if n > 1 and len(mesh.distinct_devices()) > 1:
+        raise SystemExit(f"the mesh {mesh.shape} has {n} data positions: run one process "
+                         f"per position, torchrun --nproc-per-node {n} -m {module} ...")

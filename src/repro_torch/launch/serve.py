@@ -2,6 +2,7 @@
 
     python -m repro_torch.launch.serve --arch qwen3_0p6b --prompt 2048
     python -m repro_torch.launch.serve --engine paged --prefix-cache
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --batch 4
 
 ``--engine static`` (default) runs one fixed batch through chunked
 prefill and greedy decode and prints the prefill time and decode tok/s.
@@ -25,8 +26,18 @@ recovery time, a degrade to the plain versions, cancelled requests).
 The params are placed per ``dist.sharding.param_specs`` under
 ``--strategy`` (any of the four) on ``ft.elastic.make_mesh_for``'s mesh
 over the devices of ``--device``, and the static path's caches per
-``cache_specs``; a layout over distinct devices is refused (ROADMAP.md
-item 16).  Int8 weights come from ``optim.quant.quantize_params``
+``cache_specs``.  Across cards the static path runs one process per data
+position under ``torchrun --nproc-per-node <positions>``: each process
+serves its rows of the same global prompts (FSDP slices gathered whole
+once at load), the tokens are gathered, and process 0 prints the
+reference's lines, its decode tok/s over the global rows timed after a
+barrier.  Run alone on a mesh with several data positions over distinct
+cards it exits naming the torchrun command; ``--engine paged``,
+``--supervise``, ``--fault-plan`` and ``--deadline-ms`` run in one
+process only (the paged engine serves from one device, as the
+reference's does); tensor parallelism over distinct cards raises
+``NotImplementedError`` (ROADMAP.md item 16).  Int8 weights come from
+``optim.quant.quantize_params``
 (the reference launcher has no flag for them either).  ``--autotune``
 tunes flash's blocks (and, under ``--engine paged``, the paged kernel's
 page size, which the engine's ``serving`` entry takes) with
@@ -45,12 +56,27 @@ import time
 import torch
 
 from repro_torch.configs.base import get_config
-from repro_torch.dist.sharding import SHARDING_STRATEGIES, cache_specs, param_specs, place
-from repro_torch.ft.elastic import make_mesh_for
-from repro_torch.launch.mesh import mesh_devices
+from repro_torch.dist.collective import (
+    barrier,
+    data_group,
+    gather_rows,
+    gather_tree,
+    process_index,
+    requested_world,
+)
+from repro_torch.dist.sharding import (
+    MULTI_CARD_ITEM,
+    SHARDING_STRATEGIES,
+    cache_specs,
+    data_shards,
+    param_specs,
+    place,
+)
+from repro_torch.launch.mesh import launch_mesh, refuse_lone_process
 from repro_torch.launch.tuning import tuning_from
 from repro_torch.models import transformer as tf
 from repro_torch.serve.step import make_prefill_step, make_serve_step
+from repro_torch.tree import leaves
 
 
 def _sync(device: torch.device) -> None:
@@ -60,31 +86,54 @@ def _sync(device: torch.device) -> None:
 
 @torch.inference_mode()
 def run_static(params, cfg, prompts, *, new_tokens: int, chunk: int,
-               return_logits: bool = False, mesh=None):
+               return_logits: bool = False, mesh=None, group=None):
     """Prefill ``prompts`` (B, S) in chunks of ``chunk``, then decode
-    ``new_tokens - 1`` greedy steps; with a ``mesh``, the caches are
-    placed on it per ``cache_specs``.  Returns a dict with ``tokens``
+    ``new_tokens - 1`` greedy steps.  The caches follow the params: made
+    on the prompts' device, and with a ``mesh`` over whose devices the
+    params are spread, placed on it per ``cache_specs``; params whole on
+    one device (scatter_gather's replicas, computed once on a row's first
+    device) keep their caches beside them.  Returns a dict with ``tokens``
     (B, new_tokens), ``prefill_s``, ``decode_s`` (host clock around work
     that ends in a device sync) and, with ``return_logits``, ``logits``:
     the prefill head then every decode step's, each (B, V).  The caches
-    take the params' dtype and hold the right-padded final chunk."""
+    take the params' dtype and hold the right-padded final chunk.
+
+    With a ``group`` (one process per data position) the process serves
+    its contiguous block of ``B / count`` rows of the global ``prompts``
+    (the data axes split the batch), its caches on its row of ``mesh``;
+    the tokens and logits are gathered from every process, and each
+    timing ends after a barrier, so process 0's covers every row."""
+    if group is not None:
+        from repro_torch.dist.sharding import local_mesh
+
+        b = prompts.shape[0]
+        if b % group.size:
+            raise ValueError(f"batch {b} does not split over {group.size} processes")
+        r = b // group.size
+        prompts = prompts[group.rank * r:(group.rank + 1) * r]
+        mesh = local_mesh(mesh, group) if mesh is not None else None
     device = prompts.device
     b, s = prompts.shape
     max_len = -(-s // chunk) * chunk + new_tokens
     caches = tf.init_caches(cfg, b, max_len, params["embed"]["table"].dtype, device)
-    if mesh is not None:
+    homes = {t.device for t in leaves(params) if isinstance(t, torch.Tensor)}
+    if mesh is not None and len(homes) > 1:
         caches = place(caches, cache_specs(caches, mesh), mesh)
     prefill = make_prefill_step(cfg, chunk, return_logits=return_logits)
     decode = make_serve_step(cfg, return_logits=return_logits)
     logits = []
 
-    _sync(device)
+    def fence():
+        _sync(device)
+        barrier(group)
+
+    fence()
     t0 = time.perf_counter()
     res = prefill(params, prompts, caches)
     tok, caches = res[0][:, None], res[-1]
     if return_logits:
         logits.append(res[1][:, -1])
-    _sync(device)
+    fence()
     prefill_s = time.perf_counter() - t0
     out = [tok]
     t0 = time.perf_counter()
@@ -94,12 +143,12 @@ def run_static(params, cfg, prompts, *, new_tokens: int, chunk: int,
         caches = res[-1]
         if return_logits:
             logits.append(res[1][:, -1])
-    _sync(device)
+    fence()
     decode_s = time.perf_counter() - t0
-    result = {"tokens": torch.cat(out, dim=1), "prefill_s": prefill_s,
+    result = {"tokens": gather_rows(torch.cat(out, dim=1), group), "prefill_s": prefill_s,
               "decode_s": decode_s}
     if return_logits:
-        result["logits"] = logits
+        result["logits"] = [gather_rows(x, group) for x in logits]
     return result
 
 
@@ -284,6 +333,10 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
 
     tf.check_supported(cfg)
+    world = requested_world()
+    if (args.supervise or args.fault_plan or args.deadline_ms) and world and world[1] > 1:
+        raise SystemExit(f"--supervise / --fault-plan / --deadline-ms run in one process; "
+                         f"across {world[1]} processes they are {MULTI_CARD_ITEM}")
     kinds = ("flash_prefill", "paged_decode") if args.engine == "paged" else ("flash_prefill",)
     with tuning_from(args.autotune, args.tuning_file, cfg=cfg, kinds=kinds, device=device):
         return run(cfg, args, device)
@@ -292,25 +345,42 @@ def main(argv=None):
 def run(cfg, args, device):
     """Serve per the options (module docstring): the paged engine's result
     (``run_paged_engine``) or the static path's (``run_static``)."""
+    world = requested_world()
+    if args.engine == "paged" and world and world[1] > 1:
+        raise SystemExit(f"--engine paged serves from one device, as the reference's does: "
+                         f"run it in one process, not {world[1]}")
+    mesh = launch_mesh(device, world[1] if world else 1)
+    group = data_group(mesh)
+    if group is None and args.engine == "static":
+        refuse_lone_process(mesh, "repro_torch.launch.serve")
+    lead = process_index(group) == 0
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
     # random weights from seed 0 and prompts from seed 1, as the reference
     gen = torch.Generator(device=device).manual_seed(0)
     params = tf.init(cfg, generator=gen, dtype=torch.float32, device=device)
-    mesh = make_mesh_for(mesh_devices(device))
-    params = place(params, param_specs(params, mesh, args.strategy), mesh)
-    print(f"mesh {mesh.shape}  arch {cfg.name}  strategy {args.strategy}")
+    specs = param_specs(params, mesh, args.strategy)
+    params = place(params, specs, mesh, group)
+    # the FSDP slices gathered once at load: serving computes on whole weights
+    params = gather_tree(params, data_shards(specs, mesh), group)
+    if lead:
+        print(f"mesh {mesh.shape}  arch {cfg.name}  strategy {args.strategy}")
     if args.engine == "paged":
         return run_paged_engine(params, cfg, args, device)
     gen = torch.Generator(device=device).manual_seed(1)
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt),
                             generator=gen, device=device)
     res = run_static(params, cfg, prompts, new_tokens=args.new_tokens,
-                     chunk=max(16, args.prompt // 4), mesh=mesh)
+                     chunk=max(16, args.prompt // 4), mesh=mesh, group=group)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"prefill {args.batch}x{args.prompt} in {res['prefill_s'] * 1e3:.1f} ms "
-          f"on {name}")
     steps = args.new_tokens - 1
     rate = args.batch * steps / res["decode_s"] if steps else 0.0
-    print(f"decode {steps} steps: {rate:.1f} tok/s on {name}")
+    if lead:
+        print(f"prefill {args.batch}x{args.prompt} in {res['prefill_s'] * 1e3:.1f} ms "
+              f"on {name}")
+        print(f"decode {steps} steps: {rate:.1f} tok/s on {name}")
+    if group is not None:
+        group.close()
     return res
 
 

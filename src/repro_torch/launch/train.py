@@ -3,6 +3,7 @@
     python -m repro_torch.launch.train --arch qwen3_0p6b --steps 100 --seq 512
     python -m repro_torch.launch.train --strategy pipeline --seq 512 --batch 4
     python -m repro_torch.launch.train --device cpu --smoke --steps 4 --seq 32 --batch 2
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train --seq 512 --batch 4
 
 Runs the reference's unsupervised loop: a mesh from
 ``ft.elastic.make_mesh_for`` over the devices of ``--device`` (all the
@@ -20,10 +21,21 @@ the mesh's 'model' axis, picks the microbatch count with
 ``core.autotune.tune_microbatches`` unless ``--microbatches`` gives one,
 and runs ``train.step.make_pipeline_train_step`` under
 ``--pipeline-schedule``; the other strategies run ``make_train_step``.
-A mesh whose layout spreads over distinct devices is refused (ROADMAP.md
-item 16).  It runs on the CUDA card by default; ``--device cpu`` runs the
-same path on the CPU with the kernels' plain versions, and nothing falls
-back.  On the card the attention of a sequence shorter than 512 tokens
+
+Across cards it runs one process per data position of the mesh, under
+``torchrun --nproc-per-node <positions>`` (``dist.collective.data_group``
+reads torchrun's environment): each process owns its mesh row, draws the
+same global batch and trains on its rows, and only process 0 prints the
+reference's lines (the ``mesh`` line shows the global mesh) and writes
+checkpoints, in today's format, of the state gathered whole; every
+process restores a checkpoint whole and keeps its slice.  Run alone on a
+mesh with several data positions over distinct cards it exits naming the
+torchrun command; ``--device cpu`` under torchrun lists the CPU once per
+process.  Tensor parallelism over distinct cards (``ai_core_assignment``
+or ``fused`` with a 'model' axis over several cards) raises
+``NotImplementedError`` (ROADMAP.md item 16).  It runs on the CUDA card
+by default; ``--device cpu`` runs the same path on the CPU with the
+kernels' plain versions, and nothing falls back.  On the card the attention of a sequence shorter than 512 tokens
 (``FLASH_MIN_SEQ``) runs no kernel: the reference's default ``--seq
 128`` is one such.
 
@@ -41,17 +53,30 @@ on the device before training (saved to ``--tuning-file`` when given);
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
 
 from repro_torch.configs.base import get_config
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM
-from repro_torch.dist.sharding import SHARDING_STRATEGIES, place
-from repro_torch.ft.checkpoint import AsyncCheckpointer
-from repro_torch.ft.elastic import make_mesh_for, state_shardings
+from repro_torch.dist.collective import (
+    barrier,
+    data_group,
+    gather_tree,
+    process_index,
+    requested_world,
+)
+from repro_torch.dist.sharding import (
+    MULTI_CARD_ITEM,
+    SHARDING_STRATEGIES,
+    data_shards,
+    place,
+)
+from repro_torch.ft.checkpoint import AsyncCheckpointer, latest_step, restore
+from repro_torch.ft.elastic import state_shardings
 from repro_torch.ft.straggler import StragglerMonitor
-from repro_torch.launch.mesh import make_production_mesh, mesh_devices
+from repro_torch.launch.mesh import launch_mesh, mesh_devices, refuse_lone_process
 from repro_torch.launch.tuning import tuning_from
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.step import (
@@ -64,11 +89,6 @@ from repro_torch.train.step import (
 
 def _batch(np_batch, device):
     return {k: torch.from_numpy(v).long().to(device) for k, v in np_batch.items()}
-
-
-def place_state(state, mesh, strategy: str):
-    """The train state placed per ``ft.elastic.state_shardings``."""
-    return place(state, state_shardings(state, mesh, strategy), mesh)
 
 
 def run_supervised(cfg, args, devices):
@@ -149,18 +169,28 @@ def main(argv=None):
     with tuning_from(args.autotune, args.tuning_file, cfg=cfg, kinds=("flash_prefill",),
                      device=device):
         if args.supervise or args.fault_plan:
+            world = requested_world()
+            if world and world[1] > 1:
+                raise SystemExit(f"--supervise / --fault-plan run in one process; across "
+                                 f"{world[1]} processes they are {MULTI_CARD_ITEM}")
             return run_supervised(cfg, args, mesh_devices(device))
         return run(cfg, args, device)
 
 
 def run(cfg, args, device):
     """The reference's unsupervised loop (module docstring); returns the
-    final state."""
-    devices = mesh_devices(device)
+    final state (this process's slices under ``fused`` across processes)."""
+    world = requested_world()
+    mesh = launch_mesh(device, world[1] if world else 1, args.production_mesh)
+    group = data_group(mesh)
+    if group is None:
+        refuse_lone_process(mesh, "repro_torch.launch.train")
+    lead = process_index(group) == 0
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    mesh = (make_production_mesh(devices=devices) if args.production_mesh
-            else make_mesh_for(devices))
-    print(f"device {name}  arch {cfg.name}  strategy {args.strategy}  mesh {mesh.shape}")
+    if lead:
+        print(f"device {name}  arch {cfg.name}  strategy {args.strategy}  mesh {mesh.shape}")
 
     opt = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=args.steps)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -174,25 +204,37 @@ def run(cfg, args, device):
         boundaries = pipeline_boundaries(cfg, args.seq, stages)
         microbatches = args.microbatches or tune_microbatches(
             stages, args.batch, args.pipeline_schedule)
-        print(f"pipeline stages {stages}  boundaries {boundaries}  "
-              f"microbatches {microbatches}  schedule {args.pipeline_schedule}")
-        step_fn = make_pipeline_train_step(
-            cfg, opt, mesh, num_microbatches=microbatches, boundaries=boundaries,
-            schedule=args.pipeline_schedule)
+        if lead:
+            print(f"pipeline stages {stages}  boundaries {boundaries}  "
+                  f"microbatches {microbatches}  schedule {args.pipeline_schedule}")
         state = init_pipeline_state(cfg, boundaries, generator=gen, dtype=torch.float32,
                                     device=device)
     else:
-        step_fn = make_train_step(cfg, opt, grad_accum=args.grad_accum)
         state = init_state(cfg, generator=gen, dtype=torch.float32, device=device)
-    state = place_state(state, mesh, args.strategy)
+    specs = state_shardings(state, mesh, args.strategy)
+    shards = data_shards(specs, mesh) if group is not None else None
+    pshards = shards["params"] if shards is not None else None
+    if args.strategy == "pipeline":
+        step_fn = make_pipeline_train_step(
+            cfg, opt, mesh, num_microbatches=microbatches, boundaries=boundaries,
+            schedule=args.pipeline_schedule, group=group, shards=pshards)
+    else:
+        step_fn = make_train_step(cfg, opt, grad_accum=args.grad_accum, group=group,
+                                  shards=pshards)
 
-    ckpt = AsyncCheckpointer(args.ckpt, keep=2) if args.ckpt else None
+    # process 0 writes the canonical (gathered) state; every process
+    # restores it whole and keeps its slice
+    ckpt = AsyncCheckpointer(args.ckpt, keep=2) if args.ckpt and lead else None
+    barrier(group)
     start = 0
-    if ckpt:
-        restored, at = ckpt.restore_latest(state)
-        if restored is not None:
-            state, start = restored, at
-            print(f"resumed at step {start}")
+    if args.ckpt:
+        at = latest_step(args.ckpt)
+        if at is not None:
+            state = restore(os.path.join(args.ckpt, f"step_{at}"), state)
+            start = at
+            if lead:
+                print(f"resumed at step {start}")
+    state = place(state, specs, mesh, group)
 
     data = SyntheticLM(cfg.vocab, args.seq, args.batch, seed=0)
     pf = Prefetcher(data, start_step=start)
@@ -203,17 +245,24 @@ def run(cfg, args, device):
             state, metrics = step_fn(state, _batch(pf.next(), device))
             loss = float(metrics["loss"])  # reads the step's result back
             mon.record(0, time.perf_counter() - t0)
-            if (step + 1) % 20 == 0:
+            if (step + 1) % 20 == 0 and lead:
                 print(f"step {step+1:>5} loss {loss:.4f} "
                       f"gnorm {float(metrics['grad_norm']):.2f} "
                       f"stragglers {mon.report().stragglers}")
-            if ckpt and (step + 1) % args.ckpt_every == 0:
-                ckpt.save(state, step + 1)
+            if args.ckpt and (step + 1) % args.ckpt_every == 0:
+                whole = gather_tree(state, shards, group)
+                if ckpt:
+                    ckpt.save(whole, step + 1)
+                del whole
     finally:
         pf.close()
         if ckpt:
             ckpt.wait()
-    print("done")
+    barrier(group)
+    if lead:
+        print("done")
+    if group is not None:
+        group.close()
     return state
 
 

@@ -73,8 +73,10 @@ def attention_impl() -> str:
 
 
 def _to_wrapper(impl: str, what: str, x: torch.Tensor) -> bool:
-    """True when the call goes to the kernel's wrapper under ``impl``."""
-    if impl == "ref":
+    """True when the call goes to the kernel's wrapper under ``impl``.  A
+    ``meta`` tensor (shapes only: the dry-run stand-in) takes the plain
+    version."""
+    if impl == "ref" or x.device.type == "meta":
         return False
     if impl == "kernel" and x.device.type != "cuda":
         raise RuntimeError(f"{what} impl 'kernel' needs a CUDA tensor, "

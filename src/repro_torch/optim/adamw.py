@@ -62,22 +62,28 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(tree) -> torch.Tensor:
+    """The L2 norm over every leaf, summed on the first leaf's device
+    (pipeline stages may sit on distinct cards)."""
+    flat = leaves(tree)
+    dev = flat[0].device
     total = 0
-    for leaf in leaves(tree):
-        total = total + leaf.float().square().sum()
+    for leaf in flat:
+        total = total + leaf.float().square().sum().to(dev)
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, norm_fn=global_norm):
+    norm = norm_fn(grads)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-    return tree_map(lambda g: g.float() * scale, grads), norm
+    return tree_map(lambda g: g.float() * scale.to(g.device), grads), norm
 
 
 @torch.no_grad()
-def apply(cfg: AdamWConfig, params, grads, state: OptState):
-    """One AdamW update.  Returns (new_params, new_state, metrics)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+def apply(cfg: AdamWConfig, params, grads, state: OptState, norm_fn=global_norm):
+    """One AdamW update.  Returns (new_params, new_state, metrics).
+    ``norm_fn`` computes the clipping norm (``dist.collective.global_norm``
+    where the grads are FSDP slices held across processes)."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, norm_fn)
     step = state.step + 1
     lr = schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
@@ -91,10 +97,11 @@ def apply(cfg: AdamWConfig, params, grads, state: OptState):
     bc2 = 1 - torch.full_like(stepf, b2) ** stepf
 
     def upd(p, m, v):
-        mhat = m.float() / bc1
-        vhat = v.float() / bc2
+        dev = p.device
+        mhat = m.float() / bc1.to(dev)
+        vhat = v.float() / bc2.to(dev)
         delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.float()
-        return (p.float() - lr * delta).to(p.dtype)
+        return (p.float() - lr.to(dev) * delta).to(p.dtype)
 
     new_params = tree_map(upd, params, mu, nu)
     return new_params, OptState(mu, nu, step), {"grad_norm": gnorm, "lr": lr}

@@ -115,14 +115,72 @@ def value_and_grad(loss_fn, params, batch):
     return (loss.detach(), metrics), unflatten(params, grads)
 
 
+def _refuse_moe_across_processes(cfg, group) -> None:
+    """The reference routes a microbatch's tokens globally; dispatching
+    each process's rows alone would drop other tokens once an expert
+    overflows, so MoE configs do not train across processes yet."""
+    if group is not None and cfg.moe_experts:
+        from repro_torch.dist.sharding import MULTI_CARD_ITEM
+
+        raise ValueError(f"{cfg.name} is MoE: its router dispatches a microbatch's "
+                         f"tokens globally, and training it across processes is "
+                         f"{MULTI_CARD_ITEM}")
+
+
+def _update(opt_cfg, state, loss, metrics, grads, compress, group, shards):
+    """The step's tail after its (process-local) loss and grads: across
+    processes the loss, metrics and grads are ``pmean``ed (each FSDP leaf's
+    grad kept as this process's slice of the mean), then the compressor
+    runs on the global gradient and AdamW updates this process's slices
+    with the global norm.  Returns (new_state, metrics)."""
+    norm_fn = adamw.global_norm
+    if group is not None:
+        from repro_torch.dist import collective
+
+        loss, metrics = collective.pmean((loss, metrics), group)
+        if compress is not None:
+            grads = collective.pmean(grads, group)
+            grads, state = compress.apply(grads, state)
+            grads = collective.slice_tree(grads, shards, group)
+        else:
+            grads = collective.pmean_scatter(grads, shards, group)
+
+        def norm_fn(g):
+            return collective.global_norm(g, shards, group)
+    elif compress is not None:
+        grads, state = compress.apply(grads, state)
+
+    new_params, opt, opt_metrics = adamw.apply(opt_cfg, state["params"], grads, state["opt"],
+                                               norm_fn)
+    new_state = dict(state, params=new_params, opt=opt, step=state["step"] + 1)
+    return new_state, {"loss": loss, **metrics, **opt_metrics}
+
+
 def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *, grad_accum: int = 1,
-                    aux_weight: float = 0.01, remat: bool = True, compress=None):
+                    aux_weight: float = 0.01, remat: bool = True, compress=None,
+                    group=None, shards=None):
     """``compress``: an optional ``optim.compress`` compressor applied to
-    the (mean-reduced) grads before the optimizer."""
+    the (mean-reduced) grads before the optimizer.
+
+    ``group`` (``dist.collective.data_group``) runs the step as one of the
+    mesh's data positions: it takes the GLOBAL batch and computes on its
+    rows of each microbatch (``collective.shard_rows``: rows ``[i*mb +
+    p*r, i*mb + (p+1)*r)`` of microbatch ``i``), so that each microbatch
+    holds the reference's rows; loss, aux and grads are averaged across
+    processes before the update.  ``shards`` (``dist.sharding.data_shards``
+    of the params' specs) names the FSDP leaves the state holds as this
+    process's slices (``fused``): the step gathers them whole, and AdamW
+    updates only the slices under the global grad norm."""
     loss_fn = make_loss_fn(cfg, aux_weight, remat)
+    _refuse_moe_across_processes(cfg, group)
 
     def train_step(state, batch):
         params = state["params"]
+        if group is not None:
+            from repro_torch.dist import collective
+
+            batch = collective.shard_rows(batch, grad_accum, group.size, group.rank)
+            params = collective.gather_tree(params, shards, group)
         if grad_accum == 1:
             (loss, metrics), grads = value_and_grad(loss_fn, params, batch)
         else:
@@ -138,13 +196,7 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *, grad_accum: int = 1,
                 ms.append(m)
             loss = torch.stack(losses).mean()
             metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
-
-        if compress is not None:
-            grads, state = compress.apply(grads, state)
-
-        new_params, opt, opt_metrics = adamw.apply(opt_cfg, params, grads, state["opt"])
-        new_state = dict(state, params=new_params, opt=opt, step=state["step"] + 1)
-        return new_state, {"loss": loss, **metrics, **opt_metrics}
+        return _update(opt_cfg, state, loss, metrics, grads, compress, group, shards)
 
     return train_step
 
@@ -202,7 +254,7 @@ def repad_pipeline_state(state, cfg, old_boundaries, new_boundaries):
 def make_pipeline_train_step(cfg, opt_cfg: adamw.AdamWConfig, mesh, *,
                              num_microbatches: int = 8, boundaries=None,
                              schedule: str = "1f1b", aux_weight: float = 0.01,
-                             remat: bool = True, compress=None):
+                             remat: bool = True, compress=None, group=None, shards=None):
     """Pipeline-parallel ``train_step(state, batch) -> (state, metrics)``.
 
     Microbatch gradient accumulation runs *through* the pipe
@@ -210,28 +262,29 @@ def make_pipeline_train_step(cfg, opt_cfg: adamw.AdamWConfig, mesh, *,
     grads come out padded exactly like the params, so the AdamW update
     takes them leaf by leaf.  ``boundaries`` are the planner's uneven
     layer cuts (``Placement.layer_boundaries``); ``schedule`` is 'gpipe'
-    or '1f1b' (bitwise-equal results, fewer idle stage-rounds).  The
-    stages must share one device: AdamW's global grad norm over stages on
-    distinct cards is multi-card execution.
+    or '1f1b' (bitwise-equal results, fewer idle stage-rounds).  Stages
+    may sit on distinct cards: the grad norm sums on the first stage's.
+    With a ``group`` the mesh's data axis runs across processes: each runs
+    its data shard of the global batch through its own row's stages, and
+    the loss and grads are averaged across processes before the update
+    (``shards`` as in :func:`make_train_step`: the non-stacked leaves that
+    ``pipeline`` splits over the data axes).
     """
     from repro_torch.dist.pipeline import make_pipeline_loss_and_grad
-    from repro_torch.dist.sharding import MULTI_CARD_ITEM, stage_devices
 
-    if len(set(stage_devices(mesh))) > 1:
-        raise NotImplementedError(f"a train step over stages on distinct devices is "
-                                  f"{MULTI_CARD_ITEM}")
+    _refuse_moe_across_processes(cfg, group)
     loss_grad = make_pipeline_loss_and_grad(
         cfg, mesh, num_microbatches=num_microbatches, boundaries=boundaries,
-        schedule=schedule, aux_weight=aux_weight, remat=remat)
+        schedule=schedule, aux_weight=aux_weight, remat=remat, group=group)
 
     def train_step(state, batch):
-        (loss, metrics), grads = loss_grad(state["params"], batch)
-        if compress is not None:
-            grads, state = compress.apply(grads, state)
-        new_params, opt, opt_metrics = adamw.apply(opt_cfg, state["params"], grads,
-                                                   state["opt"])
-        new_state = dict(state, params=new_params, opt=opt, step=state["step"] + 1)
-        return new_state, {"loss": loss, **metrics, **opt_metrics}
+        params = state["params"]
+        if group is not None:
+            from repro_torch.dist import collective
+
+            params = collective.gather_tree(params, shards, group)
+        (loss, metrics), grads = loss_grad(params, batch)
+        return _update(opt_cfg, state, loss, metrics, grads, compress, group, shards)
 
     train_step.loss_and_grad = loss_grad
     return train_step

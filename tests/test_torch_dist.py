@@ -334,7 +334,13 @@ def _leaves(tree):
 def test_place_pipeline_over_distinct_devices():
     """Two stages on two distinct devices (the CPU and ``meta``): each
     stage's contiguous half of the block list goes to its device, the
-    rest to stage 0's; every other layout there is refused."""
+    rest to stage 0's; scatter_gather's replicas go once to the row's
+    first device; a tensor split over 'model' there is refused, and so is
+    one process on a data axis over distinct devices.  With a data group
+    (one process per data position) each process places its row: process
+    1 of the (2, 1) mesh holds its FSDP slices on ``meta``."""
+    from repro_torch.dist.collective import DataGroup
+
     params = _tiny_params()
     mesh = tsh.Mesh(np.array([CPU, META], dtype=object).reshape(1, 2), ("data", "model"))
     assert tsh.stage_devices(mesh) == [CPU, META]
@@ -342,7 +348,9 @@ def test_place_pipeline_over_distinct_devices():
     devs = [{leaf.device for leaf in _leaves(layer)} for layer in placed["blocks"]]
     assert devs == [{CPU}, {CPU}, {META}, {META}]
     assert placed["embed"]["table"].device == CPU
-    for strategy in ("scatter_gather", "ai_core_assignment", "fused"):
+    replicas = tsh.place(params, tsh.param_specs(params, mesh, "scatter_gather"), mesh)
+    assert all(leaf.device == CPU for leaf in _leaves(replicas))
+    for strategy in ("ai_core_assignment", "fused"):
         with pytest.raises(NotImplementedError, match="item 16"):
             tsh.place(params, tsh.param_specs(params, mesh, strategy), mesh)
     data = tsh.Mesh(np.array([CPU, META], dtype=object).reshape(2, 1), ("data", "model"))
@@ -350,3 +358,21 @@ def test_place_pipeline_over_distinct_devices():
         tsh.place(params, tsh.param_specs(params, data, "pipeline"), data)
     with pytest.raises(NotImplementedError, match="item 16"):
         tsh.stage_devices(data)
+    specs = tsh.param_specs(params, data, "fused")
+    shards = _leaves_of(tsh.data_shards(specs, data))
+    mine = tsh.place(params, specs, data, group=DataGroup(1, 2, "gloo"))
+    for leaf, whole, shard in zip(_leaves(mine), _leaves(params), shards):
+        assert leaf.device == META
+        want = list(whole.shape)
+        if shard is not None:
+            want[shard[0]] //= 2
+        assert list(leaf.shape) == want
+    assert any(s is not None for s in shards)
+    with pytest.raises(ValueError, match="2 data positions"):
+        tsh.local_mesh(data, None)
+
+
+def _leaves_of(shards):
+    from repro_torch.dist.collective import _shard_leaves
+
+    return _shard_leaves(shards)

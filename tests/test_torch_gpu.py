@@ -1448,6 +1448,26 @@ def test_pipeline_stages_on_distinct_cards(cuda):
         assert float((a.to(b.device) - b).abs().max()) <= 1e-5 * max(float(b.abs().max()), 1e-30)
 
 
+def _torchrun_on_cards(module, argv):
+    """``module`` under ``torchrun --standalone``, one process per data
+    position of the cards' mesh."""
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch.dist.sharding import data_positions
+    from repro_torch.ft.elastic import make_mesh_for
+
+    n = data_positions(make_mesh_for())
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    for var in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(var, None)
+    return subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc-per-node", str(n), "-m", module, *argv],
+                          capture_output=True, text=True, env=env, timeout=600)
+
+
 @pytest.mark.gpu
 def test_train_launcher_pipeline_on_card(cuda, capsys):
     """``launch.train --strategy pipeline --steps 2 --seq 512 --batch 4``
@@ -1457,9 +1477,14 @@ def test_train_launcher_pipeline_on_card(cuda, capsys):
 
     argv = ["--strategy", "pipeline", "--steps", "2", "--seq", "512", "--batch", "4"]
     if torch.cuda.device_count() > 1:
-        # the cards' (data, model) mesh puts a data axis over distinct cards
-        with pytest.raises(NotImplementedError, match="item 16"):
+        # the cards' (data, model) mesh puts a data axis over distinct
+        # cards: one process alone exits naming torchrun, and torchrun
+        # runs one process per data position, each over its row's stages
+        with pytest.raises(SystemExit, match="torchrun --nproc-per-node"):
             ttrain.main(argv)
+        r = _torchrun_on_cards("repro_torch.launch.train", argv)
+        assert r.returncode == 0, r.stdout + r.stderr
+        assert r.stdout.splitlines()[-1] == "done"
         return
     n0 = tfl.flash_attention.launches
     state = ttrain.main(argv)
@@ -1480,9 +1505,16 @@ def test_serve_launcher_strategy_on_card(cuda, capsys):
 
     argv = ["--strategy", "ai_core_assignment", "--new-tokens", "8"]
     if torch.cuda.device_count() > 1:
-        # TP shards over distinct cards are multi-card execution
-        with pytest.raises(NotImplementedError, match="item 16"):
-            tserve.main(argv)
+        # under torchrun each data position serves its rows; TP shards over
+        # distinct cards (a 'model' axis over several cards) stay refused
+        from repro_torch.ft.elastic import make_mesh_for
+
+        r = _torchrun_on_cards("repro_torch.launch.serve", argv)
+        if make_mesh_for().shape["model"] > 1:
+            assert r.returncode != 0 and "item 16" in r.stderr, r.stdout + r.stderr
+        else:
+            assert r.returncode == 0, r.stdout + r.stderr
+            assert r.stdout.splitlines()[-1].startswith("decode 7 steps: ")
         return
     n0 = tdec.decode_attention.launches
     res = tserve.main(argv)

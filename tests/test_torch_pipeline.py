@@ -313,10 +313,18 @@ def test_pipeline_train_step_against_single_device():
 
 
 def test_train_step_refuses_distinct_stage_devices():
-    mesh = Mesh(np.array([CPU, torch.device("meta")], dtype=object).reshape(1, 2),
+    """Stages on distinct devices in one process now build a train step
+    (the grad norm sums on the first stage's device); one process on a
+    data axis over distinct devices is still refused (one process per data
+    position runs it)."""
+    meta = torch.device("meta")
+    stages = Mesh(np.array([CPU, meta], dtype=object).reshape(1, 2), ("data", "model"))
+    step = tstep.make_pipeline_train_step(_cfg(), AdamWConfig(), stages, num_microbatches=2)
+    assert callable(step) and callable(step.loss_and_grad)
+    data = Mesh(np.array([CPU, CPU, meta, meta], dtype=object).reshape(2, 2),
                 ("data", "model"))
     with pytest.raises(NotImplementedError, match="item 16"):
-        tstep.make_pipeline_train_step(_cfg(), AdamWConfig(), mesh, num_microbatches=2)
+        tstep.make_pipeline_train_step(_cfg(), AdamWConfig(), data, num_microbatches=2)
 
 
 # ---------------------------------------------------------------------------
