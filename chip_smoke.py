@@ -37,8 +37,9 @@ qwen3_0p6b (f32, random weights from seed 0):
   remat recompute; the backward recomputes the plain version), the state
   saved after step 2 restored bitwise into a fresh state, and step 3 from
   it held to the uninterrupted step 3;
-* the pipeline runtime (``[pipeline]``): the same weights and batch (B 4,
-  seq 2048) through four stages on the one card
+* the pipeline runtime (``[pipeline]``): the same weights' first 16 layers
+  (a depth cut for run time) and batch (B 4, seq 2048) through four stages
+  on the one card
   (``make_mesh_for([dev] * 4, model_axis=4)``, m 4 from
   ``tune_microbatches``) on the planner's cuts and on an uneven cut with
   stage 0 at half speed (padding rows at full width): the pipelined
@@ -46,9 +47,10 @@ qwen3_0p6b (f32, random weights from seed 0):
   ``loss_and_grad`` bitwise equal and held to the single-device
   ``value_and_grad``, schedule counts against ``pipeline_bubble_counts``,
   and three ``make_pipeline_train_step`` steps, each launching flash
-  3 x 28 x 4 times, timed against the single-device step;
+  3 x 16 x 4 times, timed against the single-device step;
 * the training supervisor (``[train-ft]``): ``ft.supervisor.TrainSupervisor``
-  on the same weights at batch 4, seq 512, checkpoints in a temporary
+  on the same weights' first 12 layers (a depth cut for run time) at batch
+  4, seq 512, checkpoints in a temporary
   directory under ``build/``: fused, 8 steps, a NaN batch at data index 3
   and a checkpoint write crash at step 4 (one rollback, one ``ckpt_retry``,
   a latest checkpoint at step 8); the 1F1B pipeline on four stages of the
@@ -78,6 +80,20 @@ qwen3_0p6b (f32, random weights from seed 0):
   and decode launches a process exact, each process's placed state bytes
   equal to the dry-run stand-in's arithmetic (fused's below
   scatter_gather's), each step's time and its collectives' printed;
+* tensor and expert parallelism (``[tp]``, after the MoE family): one
+  process per mesh position (``dist.collective.mesh_groups``, spawned
+  fresh, gloo as they share the one card; the qwen3 jobs again over NCCL
+  on distinct cards where there are enough), flash and dense decode first
+  held to their plain versions at the local head counts; qwen3_0p6b at
+  full width, f32, B 2 x 512, two train steps under ai_core_assignment
+  (1, 2) and fused (2, 2), loss and grad norm within 1e-5 of the same
+  rows in one process, params within 1e-4, flash launches exact, placed
+  bytes equal to the stand-in's, then the static path on (1, 2) (tokens
+  equal under the margin rule, decode launches exact at 8 / 4 heads);
+  deepseek_v2_236b's static path at the ``[moe]`` depth under
+  ai_core_assignment (1, 2), tokens equal to the one-process ``[moe]``
+  run's; mixtral_8x22b training with 4 experts a process (1 layer, bf16
+  params and moments), loss and grad norm within 1e-2 of one process;
 * the VTA path: ResNet-18's convolutions (batch 1, 224 x 224) as int8
   GEMMs through ``ops.vta_conv2d`` and ``ops.dense_requant_int8``, the
   conv weights packed K-major by ``ops.pack_conv_weight``;
@@ -1879,6 +1895,9 @@ def moe_static_phase(torch, params, cfg, dev, card: str, int8: bool = False) -> 
         decided = (top2[..., 0] - top2[..., 1]) > LOGIT_TOL
         agree = tokens == ref.argmax(-1)
         check(bool(agree[ok][decided[ok]].all()), f"{tag} greedy token differs at a clear margin")
+        # the [tp] phase holds its per-position run to these tokens
+        run2 = logits.topk(2, dim=-1).values
+        MOE_TOKENS[cfg.name] = (tokens.tolist(), (run2[..., 0] - run2[..., 1]).tolist())
 
     warm = run_static(params, cfg, prompts, new_tokens=new, chunk=chunk)
     log(f"[time] {tag[1:-1]}: prefill {batch}x{prompt} {warm['prefill_s'] * 1e3:.2f} ms "
@@ -2597,6 +2616,9 @@ TRAIN_RESUME_TOL = 1e-6
 # backward unit's re-run and its remat recompute) where the single-device
 # step runs two
 PIPE_STAGES, PIPE_STEPS = 4, 3
+# depth cut 28 -> 16 for run time (the main path's first 16 layers; an even
+# planner cut of 4 a stage): every comparison and gate stays
+PIPE_LAYERS = 16
 # pipelined vs single-device on the same batch, both on the kernels: the
 # loss (f32 CE sums in microbatches of 1 vs one batch of 4) and each grad
 # leaf against its max (GEMMs at M 2048 vs 8192 sum in other orders)
@@ -2608,6 +2630,9 @@ PIPE_LOSS_TOL, PIPE_GRAD_TOL, PIPE_LOGIT_TOL = 1e-5, 1e-4, 1e-4
 # run's (the reference's gate: the re-pad is a pure gather, only the f32 sums
 # of re-cut stages move)
 FT_BATCH, FT_SEQ, FT_FUSED_STEPS, FT_PIPE_STEPS = 4, 512, 8, 12
+# depth cut 28 -> 12 for run time (the main path's first 12 layers): the
+# plans' events, the four stages and every gate stay
+FT_LAYERS = 12
 FT_FUSED_PLAN = "nan:step=3;ckpt_crash:step=4"
 FT_SLOW_PLAN, FT_KILL_PLAN = "slowdown:step=3,stage=2,factor=3", "kill:step=7,lose=1"
 FT_RECUT_RTOL = 5e-2
@@ -3031,8 +3056,9 @@ def train_phase(torch, params, cfg, dev, card: str) -> int:
 
 
 def pipeline_phase(torch, params, cfg, dev, card: str) -> int:
-    """The port's pipeline runtime at qwen3_0p6b's full width on the one
-    card: four stages (``make_mesh_for([dev] * 4, model_axis=4)``), B 4 x
+    """The port's pipeline runtime at qwen3_0p6b's full width, depth cut to
+    ``PIPE_LAYERS`` (the main path's first layers), on the one card: four
+    stages (``make_mesh_for([dev] * 4, model_axis=4)``), B 4 x
     (2048 + 1) ``SyntheticLM`` tokens (seed 0), the planner's cuts and an
     uneven cut with stage 0 at half speed (so padding rows run at full
     width), m from ``tune_microbatches``.  Gates: the pipelined forward
@@ -3046,6 +3072,7 @@ def pipeline_phase(torch, params, cfg, dev, card: str) -> int:
     against the single-device step on the same batch, peak memory, device
     idle, the pipelined forward against ``transformer.forward``.  Returns
     the flash launches of the pipelined train steps."""
+    import dataclasses
     import math
 
     from repro_torch.core.autotune import tune_microbatches
@@ -3062,6 +3089,8 @@ def pipeline_phase(torch, params, cfg, dev, card: str) -> int:
     from repro_torch.tree import flatten_with_path, leaves as tree_leaves
 
     check(not torch.backends.cuda.matmul.allow_tf32, "[pipeline] f32 matmuls, TF32 off")
+    cfg = dataclasses.replace(cfg, num_layers=PIPE_LAYERS)
+    params = dict(params, blocks=params["blocks"][:PIPE_LAYERS])
     mesh = make_mesh_for([dev] * PIPE_STAGES, model_axis=PIPE_STAGES)
     check(mesh.shape == {"data": 1, "model": PIPE_STAGES}
           and mesh.distinct_devices() == [dev], f"[pipeline] mesh {mesh}")
@@ -3070,7 +3099,8 @@ def pipeline_phase(torch, params, cfg, dev, card: str) -> int:
     uneven = partition_layers(costs, PIPE_STAGES,
                               stage_weights=[0.5] + [1.0] * (PIPE_STAGES - 1))
     depths = [b - a for a, b in zip(uneven, uneven[1:])]
-    check(planner == (0, 7, 14, 21, 28), f"[pipeline] planner cuts {planner}")
+    per = PIPE_LAYERS // PIPE_STAGES
+    check(planner == tuple(range(0, PIPE_LAYERS + 1, per)), f"[pipeline] planner cuts {planner}")
     check(len(set(depths)) > 1, f"[pipeline] the half-speed cut {uneven} is uneven")
     m = tune_microbatches(PIPE_STAGES, TRAIN_BATCH, "1f1b")
     check(m == 4, f"[pipeline] tune_microbatches({PIPE_STAGES}, {TRAIN_BATCH}) = {m}")
@@ -3221,8 +3251,9 @@ def pipeline_phase(torch, params, cfg, dev, card: str) -> int:
 
 def train_ft_phase(torch, params, cfg, dev, card: str) -> int:
     """``ft.supervisor.TrainSupervisor`` at qwen3_0p6b's full width on the one
-    card, B 4 x seq 512 ``SyntheticLM`` batches (seed 0), f32, from the main
-    path's weights (its ``init_fn``), checkpoints in a temporary directory
+    card, depth cut to ``FT_LAYERS`` (the main path's first layers), B 4 x
+    seq 512 ``SyntheticLM`` batches (seed 0), f32, from the main path's
+    weights (its ``init_fn``), checkpoints in a temporary directory
     under ``build/`` removed afterwards.  (a) fused, 8 steps, a checkpoint
     every 2, ``nan:step=3;ckpt_crash:step=4``: exactly one rollback skipping
     data index 3 with at most 2 steps lost, exactly one ``ckpt_retry`` of a
@@ -3241,6 +3272,7 @@ def train_ft_phase(torch, params, cfg, dev, card: str) -> int:
     each run and its peak.  Earlier phases' objects in reference cycles
     (engines and their pools) hold device memory until a gc pass, so each
     run starts after one.  Returns the flash launches."""
+    import dataclasses
     import gc
     import math
     import shutil
@@ -3252,14 +3284,17 @@ def train_ft_phase(torch, params, cfg, dev, card: str) -> int:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.train.step import make_state
 
+    cfg = dataclasses.replace(cfg, num_layers=FT_LAYERS)
+    params = dict(params, blocks=params["blocks"][:FT_LAYERS])
     build = ROOT / "build"
     build.mkdir(exist_ok=True)
     free = shutil.disk_usage(build).free
     check(free >= FT_DISK_BYTES, f"[train-ft] {free / 2 ** 30:.1f} GiB free under {build}, "
           f"the checkpoints need {FT_DISK_BYTES / 2 ** 30:.1f}")
     layers_n = cfg.num_layers
-    log(f"[train-ft] {ARCH} full width f32, batch {FT_BATCH} x seq {FT_SEQ}, SyntheticLM seed "
-        f"0, from the main path's weights; {free / 2 ** 30:.1f} GiB free for checkpoints")
+    log(f"[train-ft] {ARCH} full width f32, {FT_LAYERS} layers (the main path's first), batch "
+        f"{FT_BATCH} x seq {FT_SEQ}, SyntheticLM seed 0; {free / 2 ** 30:.1f} GiB free for "
+        f"checkpoints")
 
     def run(label, steps, plan, *, strategy, devices, ckpt_every=0):
         with tempfile.TemporaryDirectory(dir=build) as root:
@@ -3849,6 +3884,481 @@ def multi_phase(torch, cfg, dev, card: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# tensor and expert parallelism over the 'model' axis ([tp]): one process
+# per mesh position
+# ---------------------------------------------------------------------------
+
+# qwen3_0p6b at full width, f32, global B 2 x 512, two AdamW steps under
+# ai_core_assignment on (1, 2) and fused on (2, 2), then the static path on
+# (1, 2) (8 new tokens)
+TP_SEQ, TP_BATCH, TP_STEPS, TP_NEW = 512, 2, 2, 8
+# TP sums each split product across the ranks (all_reduce) where one process
+# sums it in one GEMM: losses and grad norms within this of one process
+TP_TOL = 1e-5
+# AdamW's first updates g / (|g| + eps) amplify those summation orders where
+# a gradient is near zero: params held at this distance, as [multi]'s plain
+# one-process step
+TP_PARAM_TOL = 1e-4
+TP_TIMEOUT = 600
+# deepseek_v2_236b static under ai_core_assignment on (1, 2) at the [moe]
+# phase's depth and shapes (MOE_STATIC); mixtral_8x22b training across 2
+# processes (EP: 4 experts a process) at depth 1 (2.9e9 params).  In f32 its
+# params, grads and two moments are 46.4 GB over the two processes, and
+# AdamW builds the new params and moments beside the old ones and the
+# clipped grads: 92.8 GB at the update, past the card's 80 GB (an f32 run
+# ran out of memory there).  bf16 params and moments halve that (~52 GB);
+# the comparison with one process is then held at a bf16 tolerance
+TP_MIXTRAL_LAYERS, TP_MIXTRAL_DTYPE = 1, "bfloat16"
+# one process's bf16 GEMM rounds its f32 sum once where the split product's
+# halves round apart before the all_reduce
+TP_BF16_TOL = 1e-2
+# the one-process [moe] run's f32 static tokens and top-2 margins, per config
+MOE_TOKENS: dict = {}
+
+
+def _tp_mesh(torch, devs, shape):
+    import numpy as np
+
+    from repro_torch.dist.sharding import Mesh
+
+    return Mesh(np.array([torch.device(d) for d in devs], dtype=object).reshape(shape),
+                ("data", "model"))
+
+
+def tp_child(rank, nprocs, init_method, job):
+    """One mesh position of the ``[tp]`` phase (a spawned process): the
+    job's train steps or static path tensor and expert parallel over its
+    model group; process 0 then runs the same work in one process where the
+    job asks.  Writes its record as JSON to ``job["out"]/tp_<rank>.json``."""
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist import collective
+    from repro_torch.dist.sharding import data_shards, model_shards, param_specs, place
+    from repro_torch.ft.elastic import state_shardings
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.dryrun import tree_bytes
+    from repro_torch.launch.serve import run_static
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import step as st
+    from repro_torch.tree import flatten_with_path, leaves as tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kind, cfg, strategy, shape, devs = (job[k] for k in ("kind", "cfg", "strategy", "shape",
+                                                         "devs"))
+    mesh = _tp_mesh(torch, devs, shape)
+    data, model = collective.mesh_groups(mesh, init_method=init_method, rank=rank,
+                                         world_size=nprocs)
+    dev = torch.device(devs[rank])
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
+
+    def free():
+        if cuda:
+            torch.cuda.empty_cache()
+
+    coll = {"s": 0.0, "calls": 0}
+
+    def timed(fn):
+        def run(*a, **kw):
+            sync()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                sync()
+                coll["s"] += time.perf_counter() - t0
+                coll["calls"] += 1
+        return run
+
+    for name in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor"):
+        setattr(tdist, name, timed(getattr(tdist, name)))
+
+    dtype = getattr(torch, job.get("dtype", "float32"))
+
+    def make_params():
+        return tf.init(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                       dtype=dtype, device=dev)
+
+    def placed_in_turn(make, specs_of):
+        """Each process in turn makes the whole tree on the card, keeps its
+        slices and frees the rest, so that one whole tree is live at a time."""
+        mine = expect = None
+        for r in range(nprocs):
+            if r == rank:
+                whole = make()
+                specs = specs_of(whole)
+                expect = tree_bytes(whole, specs, mesh)
+                mine = place(whole, specs, mesh, data, model)
+                del whole
+                free()
+            collective.barrier(model, data)
+        return mine, specs, expect
+
+    rec = {"rank": rank, "backend": model.backend, "device": str(dev), "layers": cfg.num_layers}
+    if kind == "train":
+        opt = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=job["steps"],
+                          moments_dtype=job.get("dtype", "float32"))
+        gen = SyntheticLM(cfg.vocab, job["seq"], job["batch"], seed=0)
+        batches = [{"tokens": torch.from_numpy(gen.batch(i)["tokens"]).long().to(dev)}
+                   for i in range(job["steps"])]
+        state, specs, expect = placed_in_turn(
+            lambda: st.make_state(make_params(), dtype),
+            lambda s: state_shardings(s, mesh, strategy))
+        rec["placed_bytes"] = sum(t.untyped_storage().nbytes() for t in tree_leaves(state)
+                                  if isinstance(t, torch.Tensor))
+        rec["expect_bytes"] = expect
+        shards = data_shards(specs["params"], mesh) if data is not None else None
+        mshards = model_shards(specs["params"], mesh)
+        step = st.make_train_step(cfg, opt, group=data, shards=shards, model=model,
+                                  model_shards=mshards)
+        steps = []
+        for b in batches:
+            flash_attention.launches = 0
+            coll.update(s=0.0, calls=0)
+            sync()
+            collective.barrier(model, data)
+            t0 = time.perf_counter()
+            state, met = step(state, b)
+            loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+            sync()
+            steps.append(dict(loss=loss, grad_norm=gnorm, ms=(time.perf_counter() - t0) * 1e3,
+                              collective_ms=coll["s"] * 1e3, collectives=coll["calls"],
+                              flash=flash_attention.launches))
+        rec["steps"] = steps
+        rec["peak_gib"] = peak_gib()
+        if job.get("compare"):
+            whole = collective.gather_tree(collective.gather_tree(state["params"], shards, data),
+                                           mshards, model)
+            del state
+            free()
+            if rank == 0:
+                # the same rows in one process: each data position's rows as
+                # a microbatch of their own, as the processes compute them
+                ref = st.make_state(make_params(), dtype)
+                one = st.make_train_step(cfg, opt, grad_accum=shape[0])
+                rsteps = []
+                for b in batches:
+                    flash_attention.launches = 0
+                    sync()
+                    t0 = time.perf_counter()
+                    ref, met = one(ref, b)
+                    rsteps.append(dict(loss=float(met["loss"]),
+                                       grad_norm=float(met["grad_norm"]),
+                                       ms=(time.perf_counter() - t0) * 1e3))
+                rec["one_process"] = rsteps
+                rec["param_err"], rec["param_err_leaf"] = max(
+                    (float((a - b).abs().max()), "/".join(map(str, p)))
+                    for (p, a), (_, b) in zip(flatten_with_path(whole),
+                                              flatten_with_path(ref["params"])))
+                del ref
+            del whole
+        else:
+            del state
+        free()
+        collective.barrier(model, data)
+    if kind in ("train", "serve") and job.get("serve"):
+        params, _, _ = placed_in_turn(make_params,
+                                      lambda p: param_specs(p, mesh, strategy))
+        batch, prompt, chunk, new = job["serve"]
+        gen = torch.Generator(device=dev).manual_seed(1)
+        prompts = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen, device=dev)
+        flash_attention.launches = decode_attention.launches = 0
+        res = run_static(params, cfg, prompts, new_tokens=new, chunk=chunk, mesh=mesh,
+                         group=data, model=model)
+        serve = {"flash": flash_attention.launches, "decode": decode_attention.launches,
+                 "prefill_ms": res["prefill_s"] * 1e3, "decode_ms": res["decode_s"] * 1e3,
+                 "tokens": res["tokens"].tolist(),
+                 "kv_heads": tf.cache_kv_heads(params, cfg),
+                 "peak_gib": peak_gib()}
+        del params
+        free()
+        collective.barrier(model, data)
+        if rank == 0 and job.get("compare"):
+            whole = make_params()
+            ref = run_static(whole, cfg, prompts, new_tokens=new, chunk=chunk,
+                             return_logits=True)
+            top2 = torch.stack(ref["logits"], dim=1).topk(2, dim=-1).values
+            serve["one_process_tokens"] = ref["tokens"].tolist()
+            serve["one_process_margin"] = (top2[..., 0] - top2[..., 1]).tolist()
+            serve["one_process_decode_ms"] = ref["decode_s"] * 1e3
+            del whole, ref
+        rec["serve"] = serve
+    with open(Path(job["out"]) / f"tp_{rank}.json", "w") as f:
+        json.dump(rec, f)
+    collective.close(data, model)
+
+
+def tp_spawn(torch, label: str, job: dict) -> list:
+    """Run ``job`` on every mesh position (``collective.spawn``, a file store
+    under ``build/tp``); returns the processes' records."""
+    import math
+    import shutil
+
+    from repro_torch.dist import collective
+
+    out = ROOT / "build" / "tp"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    n = math.prod(job["shape"])
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    collective.spawn(tp_child, n, (dict(job, out=str(out)),), timeout=TP_TIMEOUT,
+                     workdir=str(out))
+    log(f"[tp] {label}: {n} processes on {job['devs']} done in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return [json.loads((out / f"tp_{r}.json").read_text()) for r in range(n)]
+
+
+def tp_check_train(label: str, recs: list, flash_per: int, card: str, *, params=True,
+                   tol: float = TP_TOL) -> int:
+    """The [multi] gates on a TP train job, losses and grad norms within
+    ``tol``; returns its flash launches."""
+    ref = recs[0].get("one_process")
+    total = 0
+    for i in range(len(recs[0]["steps"])):
+        got = [(r["steps"][i]["loss"], r["steps"][i]["grad_norm"]) for r in recs]
+        check(len(set(got)) == 1, f"[tp] {label} step {i + 1}: processes read {got}")
+        loss, gnorm = got[0]
+        rl, rg = ref[i]["loss"], ref[i]["grad_norm"]
+        check(abs(loss - rl) <= tol * abs(rl) and abs(gnorm - rg) <= tol * abs(rg),
+              f"[tp] {label} step {i + 1}: loss {loss} / grad_norm {gnorm} vs one process "
+              f"{rl} / {rg}")
+        for r, run in enumerate(recs):
+            check(run["steps"][i]["flash"] == flash_per,
+                  f"[tp] {label} process {r} step {i + 1}: flash {run['steps'][i]['flash']} "
+                  f"launches, expect {flash_per}")
+            total += run["steps"][i]["flash"]
+        ms = [run["steps"][i]["ms"] for run in recs]
+        cms = [run["steps"][i]["collective_ms"] for run in recs]
+        log(f"[tp] {label} step {i + 1}: loss {loss:.6f} (one process {rl:.6f}), grad_norm "
+            f"{gnorm:.6f} ({rg:.6f}); step ms per process {[round(x, 1) for x in ms]} vs one "
+            f"process {ref[i]['ms']:.1f} ms; collectives {recs[0]['steps'][i]['collectives']} "
+            f"calls, {[round(x, 1) for x in cms]} ms; flash {flash_per} a process; on {card}")
+    if params:
+        check(recs[0]["param_err"] <= TP_PARAM_TOL,
+              f"[tp] {label}: params {recs[0]['param_err']} from one process")
+        log(f"[tp] {label}: params after {len(ref)} steps within {recs[0]['param_err']:.3e} of "
+            f"one process (tol {TP_PARAM_TOL}; worst leaf {recs[0]['param_err_leaf']})")
+    for r, run in enumerate(recs):
+        check(run["placed_bytes"] == run["expect_bytes"],
+              f"[tp] {label} process {r}: placed {run['placed_bytes']} B vs the stand-in's "
+              f"{run['expect_bytes']} B")
+    log(f"[tp] {label}: placed state {[run['placed_bytes'] for run in recs]} B a process == "
+        f"the stand-in's arithmetic; peak device memory a process "
+        f"{[round(run['peak_gib'], 2) for run in recs]} GiB")
+    return total
+
+
+def tp_check_tokens(label: str, toks, one, margin, tol: float) -> int:
+    """Tokens equal to one process's but at a near tie; returns the count
+    equal."""
+    equal = 0
+    for row, (a, b) in enumerate(zip(toks, one)):
+        first = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        equal += len(a) if first is None else first
+        if first is not None:
+            log(f"[tp] {label} row {row}: first token differing from one process at {first}, "
+                f"one-process top-2 margin {margin[row][first]:.3e}")
+            check(margin[row][first] < tol, f"[tp] {label} row {row}: token differs at a "
+                  f"clear margin")
+    return equal
+
+
+def tp_kernel_parity(torch, gen, dev) -> dict:
+    """Flash and dense decode at the [tp] phase's local head counts against
+    their plain versions: qwen3 at model 2 (8 query / 4 KV heads, training
+    rows B 2 and B 1 at S 512, decode B 2 at kv_len 519), mixtral's 24 / 4
+    (G 6), MLA at 64 heads (prefill D 192, Dv 128; absorbed decode D 576,
+    Dv 512).  Returns the worst f32 error per kernel."""
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    errs = {"flash_attention": 0.0, "decode_attention": 0.0}
+    for name, (b, h, hkv, d, dv) in {"qwen3 model 2 B 2": (2, 8, 4, 128, 128),
+                                     "qwen3 model 2 B 1": (1, 8, 4, 128, 128),
+                                     "mixtral model 2": (2, 24, 4, 128, 128),
+                                     "deepseek MLA model 2": (2, 64, 64, 192, 128)}.items():
+        q, k, v = randn(b, TP_SEQ, h, d), randn(b, TP_SEQ, hkv, d), randn(b, TP_SEQ, hkv, dv)
+        got = flash_attention(q, k, v)
+        want = flash_attention_ref(q, k, v)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(torch.isfinite(got).all() and err <= TOL["float32"],
+              f"[tp] flash {name}: max|err| {err}")
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        log(f"[tp] flash {name} (S {TP_SEQ}, {h}/{hkv} heads, D {d}, Dv {dv}): max|err| "
+            f"{err:.3e} (tol {TOL['float32']})")
+    t = TP_SEQ + TP_NEW
+    for name, (b, h, hkv, d, dv, shared) in {
+            "qwen3 model 2": (TP_BATCH, 8, 4, 128, 128, False),
+            "deepseek MLA absorbed model 2": (2, 64, 1, 576, 512, True)}.items():
+        q, k = randn(b, 1, h, d), randn(b, t, hkv, d)
+        v = k[..., :dv] if shared else randn(b, t, hkv, dv)
+        got = decode_attention(q, k, v, kv_len=t - 1)
+        want = decode_attention_ref(q, k, v, kv_len=t - 1)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(torch.isfinite(got).all() and err <= TOL["float32"],
+              f"[tp] decode {name}: max|err| {err}")
+        errs["decode_attention"] = max(errs["decode_attention"], err)
+        log(f"[tp] decode {name} ({h}/{hkv} heads, D {d}, Dv {dv}, kv_len {t - 1}): max|err| "
+            f"{err:.3e} (tol {TOL['float32']})")
+    return errs
+
+
+def tp_phase(torch, dev, card: str, configs=None) -> dict:
+    """Tensor and expert parallelism, one process per mesh position
+    (``dist.collective.mesh_groups``, spawned fresh, a file store under
+    ``build/``; on one card the processes share it over gloo, which gates
+    arithmetic and layouts; with enough cards the qwen3 jobs run again over
+    distinct cards, NCCL).  qwen3_0p6b at full width, f32, global B 2 x 512:
+    two AdamW steps under ai_core_assignment on (1, 2) and fused on (2, 2),
+    each process's loss and grad norm within ``TP_TOL`` of the same rows in
+    one process, params within ``TP_PARAM_TOL``, flash launches a process
+    exact (at 8 query / 4 KV heads), placed state bytes equal to the dry-run
+    stand-in's; the static path on (1, 2), 8 new tokens, equal to one
+    process's under the margin rule, dense decode launches exact at the
+    local heads.  deepseek_v2_236b's static path at the [moe] phase's depth
+    and shapes under ai_core_assignment on (1, 2), half the experts a
+    process, tokens equal to the one-process [moe] run's under the margin
+    rule.  mixtral_8x22b training across 2 processes (EP, depth
+    ``TP_MIXTRAL_LAYERS``, bf16 params and moments), loss and grad norm
+    within ``TP_BF16_TOL`` of one process (the parent's run, after the
+    children free the card).  A failed
+    child, collective or join fails the phase; nothing falls back.
+    ``configs`` (arch -> config) replaces the full-width configs (a CPU
+    rehearsal).  Returns the launches per kernel, summed over processes,
+    and the worst parity error per kernel."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import step as st
+
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    configs = configs or {}
+
+    def config(name, layers=None):
+        cfg = configs.get(name) or get_config(name)
+        return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    errs = tp_kernel_parity(torch, gen, dev)
+    total = {"flash_attention": 0, "decode_attention": 0}
+    qwen = config(ARCH)
+    L = qwen.num_layers
+    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    cards = [f"cuda:{i}" for i in range(n)]
+    for shape, strategy in (((1, 2), "ai_core_assignment"), ((2, 2), "fused")):
+        size = shape[0] * shape[1]
+        layouts = [("gloo, one card shared", [str(dev)] * size)]
+        if n >= size:
+            layouts.append(("nccl, distinct cards", cards[:size]))
+        for where, devs in layouts:
+            label = f"qwen3 {strategy} {shape} ({where})"
+            serve = (TP_BATCH, TP_SEQ, TP_SEQ, TP_NEW) if shape == (1, 2) else None
+            recs = tp_spawn(torch, label, dict(
+                kind="train", cfg=qwen, strategy=strategy, shape=shape, devs=devs,
+                seq=TP_SEQ, batch=TP_BATCH, steps=TP_STEPS, serve=serve, compare=True))
+            want = "nccl" if where.startswith("nccl") else "gloo"
+            check(all(r["backend"] == want for r in recs),
+                  f"[tp] {label}: backend {[r['backend'] for r in recs]}")
+            # each process computes its rows' forward and the remat recompute
+            total["flash_attention"] += tp_check_train(label, recs, 2 * L, card)
+            if serve:
+                sv = [r["serve"] for r in recs]
+                for r, s in enumerate(sv):
+                    check(s["flash"] == L and s["decode"] == L * (TP_NEW - 1)
+                          and s["kv_heads"] == qwen.kv_heads // shape[1],
+                          f"[tp] {label} static process {r}: flash {s['flash']}, decode "
+                          f"{s['decode']} launches, {s['kv_heads']} KV heads")
+                    total["flash_attention"] += s["flash"]
+                    total["decode_attention"] += s["decode"]
+                check(all(s["tokens"] == sv[0]["tokens"] for s in sv),
+                      f"[tp] {label}: tokens differ between processes")
+                equal = tp_check_tokens(label + " static", sv[0]["tokens"],
+                                        sv[0]["one_process_tokens"],
+                                        sv[0]["one_process_margin"], TP_TOL)
+                log(f"[tp] {label} static path: {TP_BATCH} rows x {TP_NEW} tokens, "
+                    f"{equal}/{TP_BATCH * TP_NEW} equal to one process; decode "
+                    f"{sv[0]['decode_ms']:.1f} ms on process 0 vs "
+                    f"{sv[0]['one_process_decode_ms']:.1f} ms in one process; flash "
+                    f"{sv[0]['flash']}, decode {sv[0]['decode']} launches a process at "
+                    f"{qwen.num_heads // shape[1]} query / {sv[0]['kv_heads']} KV heads")
+
+    # deepseek: half the experts (and heads, vocabulary) a process
+    name = "deepseek_v2_236b"
+    batch, prompt, chunk, new = MOE_STATIC[name]
+    check(name in MOE_TOKENS, "[tp] the [moe] phase recorded deepseek's one-process tokens")
+    recs = tp_spawn(torch, f"{name} static ai_core_assignment (1, 2)", dict(
+        kind="serve", cfg=config(name, MOE_LAYERS), strategy="ai_core_assignment",
+        shape=(1, 2), devs=[str(dev)] * 2, serve=(batch, prompt, chunk, new)))
+    sv = [r["serve"] for r in recs]
+    nl = recs[0]["layers"]
+    for r, s in enumerate(sv):
+        check(s["flash"] == nl * (-(-prompt // chunk)) and s["decode"] == nl * (new - 1),
+              f"[tp] {name} static process {r}: flash {s['flash']}, decode {s['decode']}")
+        total["flash_attention"] += s["flash"]
+        total["decode_attention"] += s["decode"]
+    check(all(s["tokens"] == sv[0]["tokens"] for s in sv), f"[tp] {name}: tokens differ "
+          "between processes")
+    one, margin = MOE_TOKENS[name]
+    equal = tp_check_tokens(f"{name} static", sv[0]["tokens"], one, margin, LOGIT_TOL)
+    log(f"[tp] {name} static (1, 2): {equal}/{batch * new} tokens equal to the one-process "
+        f"[moe] run's; prefill {sv[0]['prefill_ms']:.1f} ms, decode {sv[0]['decode_ms']:.1f} "
+        f"ms on process 0; peak device memory a process {[round(s['peak_gib'], 2) for s in sv]}"
+        f" GiB; on {card}")
+
+    # mixtral: EP training across 2 processes, then the same in one process
+    name = "mixtral_8x22b"
+    cfg = config(name, TP_MIXTRAL_LAYERS)
+    recs = tp_spawn(torch, f"{name} train ai_core_assignment (1, 2) {TP_MIXTRAL_DTYPE}", dict(
+        kind="train", cfg=cfg, strategy="ai_core_assignment", dtype=TP_MIXTRAL_DTYPE,
+        shape=(1, 2), devs=[str(dev)] * 2, seq=TP_SEQ, batch=TP_BATCH, steps=TP_STEPS))
+    dtype = getattr(torch, TP_MIXTRAL_DTYPE)
+    state = st.make_state(tf.init(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                                  dtype=dtype, device=dev), dtype)
+    step = st.make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=TP_STEPS,
+                                               moments_dtype=TP_MIXTRAL_DTYPE))
+    data = SyntheticLM(cfg.vocab, TP_SEQ, TP_BATCH, seed=0)
+    ref = []
+    for i in range(TP_STEPS):
+        b = {"tokens": torch.from_numpy(data.batch(i)["tokens"]).long().to(dev)}
+        t0 = time.perf_counter()
+        state, met = step(state, b)
+        ref.append(dict(loss=float(met["loss"]), grad_norm=float(met["grad_norm"]),
+                        ms=(time.perf_counter() - t0) * 1e3))
+    log(f"[tp] {name} one process ({cfg.num_layers} layer): step ms "
+        f"{[round(r['ms'], 1) for r in ref]}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+    del state, step
+    torch.cuda.empty_cache()
+    recs[0]["one_process"] = ref
+    total["flash_attention"] += tp_check_train(
+        f"{name} ai_core_assignment (1, 2) {TP_MIXTRAL_DTYPE}", recs, 2 * cfg.num_layers, card,
+        params=False, tol=TP_BF16_TOL)
+    return {"launches": total, "errs": errs}
+
+
 def leaves(tree):
     """The tensors of a param tree (nested dicts and lists)."""
     if isinstance(tree, dict):
@@ -4325,6 +4835,15 @@ def main() -> int:
     for path, counts in moe.items():
         log(f"[moe] launches on {path}: {counts}")
     lap("moe")
+
+    # ---- tensor and expert parallelism: one process per mesh position ---------
+    tp = tp_phase(torch, dev, f"{kind} ({smi})")
+    for name, n in tp["launches"].items():
+        log(f"[tp] {name} launches over every process: {n}")
+        rows[name]["launches"] += n
+    for name, err in tp["errs"].items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+    lap("tp")
 
     # ---- the remaining families: mamba2, zamba2, seamless, internvl2 ----------
     # the kernels at the families' new shapes first, then the models

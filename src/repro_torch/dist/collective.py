@@ -1,17 +1,31 @@
-"""Collectives across the mesh's data positions: one process per position
-(``torch.distributed``), the port's counterpart of the ``pmean`` / ``psum``
-and FSDP gathers that XLA inserts into the reference's jitted steps.
+"""Collectives across the mesh's positions (``torch.distributed``), the
+port's counterpart of the ``pmean`` / ``psum`` and FSDP gathers that XLA
+inserts into the reference's jitted steps.
+
+Two layouts:
+
+  * one process per data position (:func:`data_group`): each process owns
+    its mesh row, the devices of its ``model`` axis
+    (``dist.sharding.local_mesh``), and within a process everything runs
+    as with one process;
+  * one process per mesh position (:func:`mesh_groups`, under
+    ``ai_core_assignment`` / ``fused``): each process owns one device and
+    belongs to two subgroups, its *model group* (the positions that share
+    its data position: tensor and expert parallelism, ``dist.tensor``) and
+    its *data group* (the positions that share its model index).
 
 A :class:`DataGroup` is this process's view of the data axes: a
-``torch.distributed`` process group, this process's data position
-(``rank``: the row-major index over the mesh's ``pod`` x ``data`` axes) and
-the position count.  Each process owns its mesh row, the devices of its
-``model`` axis (``dist.sharding.local_mesh``); within a process everything
-runs as with one process.
+``torch.distributed`` process group (``pg``; ``None`` is the default
+group), this process's data position (``rank``: the row-major index over
+the mesh's ``pod`` x ``data`` axes) and the position count.  A
+:class:`ModelGroup` is the same for the 'model' axis.  Every collective
+below runs over the group it is given, so the FSDP gathers and the grad
+means of the mesh-position layout stay among positions with the same
+model index.
 
 The backend follows the layout, never a failure:
 
-  * ``gloo`` when the rows' first devices are CPUs;
+  * ``gloo`` when the processes' devices are CPUs;
   * ``nccl`` when every process owns distinct CUDA devices;
   * ``gloo`` when processes share a card (NCCL refuses two ranks on one
     GPU).
@@ -52,18 +66,29 @@ TIMEOUT = datetime.timedelta(seconds=600)
 
 class DataGroup:
     """This process's data group: ``rank`` of ``size`` positions over
-    ``backend``, on the default ``torch.distributed`` group."""
+    ``backend``, on the process group ``pg`` (None: the default group)."""
 
-    def __init__(self, rank: int, size: int, backend: str):
-        self.rank, self.size, self.backend = rank, size, backend
+    def __init__(self, rank: int, size: int, backend: str, pg=None):
+        self.rank, self.size, self.backend, self.pg = rank, size, backend, pg
 
     def close(self) -> None:
-        """Leave the process group (each process at its end)."""
+        """Leave the world (each process at its end): every group goes."""
         if dist.is_initialized():
             dist.destroy_process_group()
 
     def __repr__(self) -> str:
-        return f"DataGroup(rank {self.rank} of {self.size}, {self.backend})"
+        return f"{type(self).__name__}(rank {self.rank} of {self.size}, {self.backend})"
+
+
+class ModelGroup(DataGroup):
+    """This process's model group (one process per mesh position): its
+    index ``rank`` along the mesh's 'model' axis of ``size``."""
+
+
+def close(*groups) -> None:
+    """Leave the world once, whichever of ``groups`` exist."""
+    if any(g is not None for g in groups) and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def process_index(group) -> int:
@@ -76,11 +101,14 @@ def process_count(group) -> int:
     return 1 if group is None else group.size
 
 
-def backend_for(mesh) -> str:
-    """The backend the mesh's layout asks for (module docstring)."""
+def backend_for(mesh, per_position: bool = False) -> str:
+    """The backend the mesh's layout asks for (module docstring): each
+    process's device is its row's first, or with ``per_position`` its own
+    mesh position's."""
     from repro_torch.dist.sharding import row_devices
 
-    firsts = [row[0] for row in row_devices(mesh)]
+    rows = row_devices(mesh)
+    firsts = [d for row in rows for d in row] if per_position else [row[0] for row in rows]
     if all(d.type == "cuda" for d in firsts) and len(set(firsts)) == len(firsts):
         return "nccl"
     return "gloo"
@@ -126,19 +154,66 @@ def data_group(mesh, *, init_method: str | None = None, rank: int | None = None,
     return DataGroup(rank, world_size, backend)
 
 
+def mesh_groups(mesh, *, init_method: str | None = None, rank: int | None = None,
+                world_size: int | None = None):
+    """Join a world of one process per mesh position (``rank`` / ``world_size``
+    from the arguments or torchrun's environment): returns ``(data,
+    model)``, this process's :class:`DataGroup` (None where the mesh has
+    one data position) and :class:`ModelGroup`.  Rank ``r`` is position
+    ``(r // m, r % m)`` of the (data positions, m) grid, ``m`` the 'model'
+    axis; its device (``dist.sharding.position_device``) becomes the
+    current CUDA device before the groups are made.  Every process makes
+    every subgroup, in the same order, as ``new_group`` asks."""
+    from repro_torch.dist.sharding import MDL, data_positions, row_devices
+
+    if rank is None or world_size is None:
+        env = requested_world()
+        if env is None:
+            raise ValueError("mesh_groups needs rank and world_size or torchrun's "
+                             "environment")
+        rank, world_size = env
+    m = mesh.shape.get(MDL, 1)
+    dp = data_positions(mesh)
+    if world_size != mesh.size or m < 2:
+        raise ValueError(f"{world_size} processes for a mesh {mesh.shape} of {mesh.size} "
+                         f"positions: one process per mesh position needs a 'model' axis "
+                         f"over 2 or more positions and a process for each")
+    p, k = divmod(rank, m)
+    device = row_devices(mesh)[p][k]
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)
+    backend = backend_for(mesh, per_position=True)
+    dist.init_process_group(backend, init_method=init_method or "env://", rank=rank,
+                            world_size=world_size, timeout=TIMEOUT)
+    model_pg = data_pg = None
+    for q in range(dp):
+        g = dist.new_group([q * m + j for j in range(m)], timeout=TIMEOUT, backend=backend)
+        if q == p:
+            model_pg = g
+    for j in range(m):
+        g = dist.new_group([q * m + j for q in range(dp)], timeout=TIMEOUT, backend=backend)
+        if j == k:
+            data_pg = g
+    data = DataGroup(p, dp, backend, data_pg) if dp > 1 else None
+    return data, ModelGroup(k, m, backend, model_pg)
+
+
 def _to_host(t: torch.Tensor) -> torch.Tensor:
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t)
     return host
 
 
-def barrier(group) -> None:
-    if group is None:
-        return
-    if group.backend == "nccl":
-        dist.barrier(device_ids=[torch.cuda.current_device()])
-    else:
-        dist.barrier()
+def barrier(*groups) -> None:
+    """Wait for every process of each group in turn (the model group then
+    the data group covers a world of mesh positions)."""
+    for group in groups:
+        if group is None:
+            continue
+        if group.backend == "nccl":
+            dist.barrier(group=group.pg, device_ids=[torch.cuda.current_device()])
+        else:
+            dist.barrier(group=group.pg)
 
 
 def _home(group, t: torch.Tensor) -> torch.device:
@@ -162,7 +237,7 @@ def all_reduce_sum(tensors: list, group) -> list:
     for idx in buckets.values():
         home = _home(group, tensors[idx[0]])
         flat = torch.cat([tensors[i].reshape(-1).to(home) for i in idx])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group.pg)
         pos = 0
         for i in idx:
             n = tensors[i].numel()
@@ -223,17 +298,38 @@ def _leading(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     return src.to(_home(group, t))
 
 
+def _gathered(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every process's ``t`` stacked on a new leading dim of its dim
+    ``dim`` moved first: (size * t.shape[dim], ...)."""
+    src = _leading(t, dim, group)
+    whole = src.new_empty((group.size * src.shape[0],) + tuple(src.shape[1:]))
+    dist.all_gather_into_tensor(whole, src, group=group.pg)
+    return whole
+
+
 def all_gather(t: torch.Tensor, shard, group) -> torch.Tensor:
     """The whole of a leaf from each process's slice (``shard`` (dim, n))."""
     dim, n = shard
-    src = _leading(t, dim, group)
-    whole = src.new_empty((group.size * src.shape[0],) + tuple(src.shape[1:]))
-    dist.all_gather_into_tensor(whole, src)
+    whole = _gathered(t, dim, group)
     # positions holding one slice gathered it repeatedly: keep one of each;
     # the whole leaf contiguous, as one process holds it (a GEMM on a
     # transposed layout rounds differently)
     pieces = whole.chunk(group.size)[::group.size // n]
     return torch.cat(pieces, dim=0).to(t.device).movedim(0, dim).contiguous()
+
+
+def all_gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every process's ``t`` concatenated along ``dim`` in rank order."""
+    return _gathered(t, dim, group).to(t.device).movedim(0, dim).contiguous()
+
+
+def reduce_scatter_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This process's slice (its rank's ``1 / size`` of dim ``dim``) of the
+    sum of every process's ``t``."""
+    src = _leading(t, dim, group)
+    part = src.new_empty((src.shape[0] // group.size,) + tuple(src.shape[1:]))
+    dist.reduce_scatter_tensor(part, src, op=dist.ReduceOp.SUM, group=group.pg)
+    return part.to(t.device).movedim(0, dim).contiguous()
 
 
 def gather_tree(tree, shards, group):
@@ -271,7 +367,8 @@ def pmean_scatter(tree, shards, group):
         rows = tuple(src.shape[1:])
         src = src.reshape((n, -1) + rows).repeat_interleave(group.size // n, dim=0)
         part = src.new_empty(src.shape[1:])
-        dist.reduce_scatter_tensor(part, src.reshape((-1,) + rows), op=dist.ReduceOp.SUM)
+        dist.reduce_scatter_tensor(part, src.reshape((-1,) + rows), op=dist.ReduceOp.SUM,
+                                   group=group.pg)
         out[i] = (part / group.size).to(t.device).movedim(0, dim).contiguous()
     summed = all_reduce_sum([pairs[i][0].detach() for i in rest], group)
     for i, t in zip(rest, summed):
@@ -279,23 +376,32 @@ def pmean_scatter(tree, shards, group):
     return unflatten(tree, out)
 
 
-def global_norm(tree, shards, group) -> torch.Tensor:
+def global_norm(tree, shards, group, model_shards=None, model=None) -> torch.Tensor:
     """The global L2 norm of a tree whose sharded leaves hold this
-    process's slice: the ``all_reduce``d sum of the slices' squares (each
-    slice counted once however many positions hold it) plus each
-    replicated leaf's square counted once, on the first leaf's device."""
-    pairs = _shard_pairs(tree, shards)
+    process's slice: the squares of the slices split over the data axes
+    (``shards``, each slice counted once however many positions hold it)
+    summed over ``group``, those split over 'model' (``model_shards``)
+    summed over ``model``, and each replicated leaf's square counted once,
+    on the first leaf's device."""
+    pairs = _shard_pairs(tree, shards if group is not None else None)
+    msplit = [s is not None for _, s in _shard_pairs(tree, model_shards)]
     dev = pairs[0][0].device
-    part = torch.zeros((), dtype=torch.float32, device=dev)
-    whole = torch.zeros((), dtype=torch.float32, device=dev)
-    for t, s in pairs:
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    # [replicated, data only, model only, both]
+    part = [zero, zero, zero, zero]
+    for (t, s), m in zip(pairs, msplit):
         sq = t.float().square().sum().to(dev)
-        if s is None:
-            whole = whole + sq
-        else:
-            part = part + sq * (s[1] / group.size)
-    (part,) = all_reduce_sum([part], group)
-    return torch.sqrt(part + whole)
+        if s is not None:
+            sq = sq * (s[1] / group.size)
+        i = (s is not None) + 2 * m
+        part[i] = part[i] + sq
+    if group is not None:
+        part[1], part[3] = all_reduce_sum([part[1], part[3]], group)
+    if model is not None:
+        (part[2],) = all_reduce_sum([part[2] + part[3]], model)
+    elif any(msplit):
+        raise ValueError("leaves split over 'model' need the model group")
+    return torch.sqrt(part[1] + part[2] + part[0])
 
 
 def shard_rows(batch: dict, m: int, ndp: int, j: int) -> dict:

@@ -37,9 +37,12 @@ list's length, else ``None``).
 :func:`place` puts a tree on a mesh's devices: with a data group
 (``dist.collective``: one process per data position, each owning its
 mesh row, :func:`local_mesh`) this process's FSDP slices
-(:func:`data_shards`) on its row.  Eager PyTorch has no sharding
-constraint, so the reference's activation hints (``hint``, ``hint_dp``,
-``manual_mode``) have no counterpart here.
+(:func:`data_shards`) on its row; with a model group as well (one process
+per mesh position) also its slices of every dim split over 'model'
+(:func:`model_shards`), on its own device (:func:`position_device`).
+Eager PyTorch has no sharding constraint: the collectives that the
+reference's activation hints (``hint``, ``hint_dp``) lead XLA to insert
+are written by hand in :mod:`repro_torch.dist.tensor`.
 """
 
 from __future__ import annotations
@@ -75,6 +78,17 @@ SHARDING_STRATEGIES = ("scatter_gather", "ai_core_assignment", "fused",
 #: cite (tensor / expert parallelism there, a data axis over distinct
 #: devices in one process)
 MULTI_CARD_ITEM = "ROADMAP.md queue 1, item 16 (multi-card execution)"
+
+#: the strategies whose 'model' axis splits tensors (tensor and expert
+#: parallelism): over distinct devices they run one process per mesh
+#: position
+TP_STRATEGIES = ("ai_core_assignment", "fused")
+
+
+def per_position_hint(mesh) -> str:
+    """How a tensor split over 'model' on distinct devices runs."""
+    return (f"run one process per mesh position: torchrun --nproc-per-node {mesh.size} "
+            f"(--strategy ai_core_assignment or fused)")
 
 
 class Mesh:
@@ -396,16 +410,33 @@ def local_mesh(mesh, group) -> Mesh:
     return Mesh(np.asarray(row, dtype=object).reshape(shape), names)
 
 
+def position_device(mesh, data=None, model=None):
+    """The device of this process's mesh position (one process per
+    position): row ``data.rank``'s device ``model.rank``."""
+    row = row_devices(mesh)[0 if data is None else data.rank]
+    return row[0 if model is None else model.rank]
+
+
 def data_shards(specs, mesh):
     """The FSDP layout a spec tree gives on ``mesh``: per leaf ``(dim, n)``
     when dim ``dim`` is split ``n`` ways over the data axes, else None; a
     per-layer list (:class:`LayerSpecs`) gives a list."""
-    dp = set(dp_axes(mesh))
+    return _axis_shards(specs, mesh, set(dp_axes(mesh)))
 
+
+def model_shards(specs, mesh):
+    """:func:`data_shards`' twin for the 'model' axis: per leaf ``(dim,
+    n)`` when dim ``dim`` is split ``n`` ways over 'model' (tensor and
+    expert parallelism), else None.  The pipeline's layer axis is not a
+    tensor dim and gives None."""
+    return _axis_shards(specs, mesh, {MDL})
+
+
+def _axis_shards(specs, mesh, names: set):
     def one(spec):
         for dim, entry in enumerate(spec):
             axes = entry if isinstance(entry, tuple) else (entry,)
-            n = _axis_size(mesh, tuple(a for a in axes if a in dp))
+            n = _axis_size(mesh, tuple(a for a in axes if a in names))
             if n > 1:
                 return (dim, n)
         return None
@@ -438,8 +469,9 @@ def stage_devices(mesh) -> list:
         if len(devs) > 1:
             raise NotImplementedError(
                 f"stage {k} spans devices {devs}: a data axis over several devices runs "
-                f"one process per data position (torchrun; dist.collective.data_group), "
-                f"not in one process ({MULTI_CARD_ITEM})")
+                f"one process per data position (torchrun --nproc-per-node "
+                f"{data_positions(mesh)}; dist.collective.data_group), not in one process "
+                f"({MULTI_CARD_ITEM})")
         out.append(devs[0])
     return out
 
@@ -454,7 +486,7 @@ def _mentions_model(specs) -> bool:
     return MDL in _axes(specs)
 
 
-def place(tree, specs, mesh, group=None):
+def place(tree, specs, mesh, group=None, model=None):
     """``tree`` with every tensor on the mesh's devices per ``specs``
     (from :func:`param_specs`, :func:`cache_specs` or
     ``ft.elastic.state_shardings``; a named tuple's spec is the same named
@@ -464,6 +496,10 @@ def place(tree, specs, mesh, group=None):
     position) each leaf first keeps this process's slice of its dim split
     over the data axes (:func:`data_shards`), every replicated leaf whole,
     and the rest is placed on this process's row (:func:`local_mesh`).
+    With a ``model`` group (``dist.collective.mesh_groups``: one process
+    per mesh position; ``group`` its data group, None for one data
+    position) each leaf also keeps its slice of the dim split over 'model'
+    (:func:`model_shards`), and everything goes to this position's device.
 
     On a mesh (or row) of one device, however often it is listed, every
     tensor moves there — the identity for a tree already on it.  On a row
@@ -472,9 +508,16 @@ def place(tree, specs, mesh, group=None):
     the pipeline layout sends each per-layer list whose layer axis is on
     'model' its contiguous slice k to stage k's device, everything else to
     stage 0's.  A tensor dim on 'model' over distinct devices (tensor or
-    expert parallelism), or a data axis over distinct devices in one
-    process, raises ``NotImplementedError``.
+    expert parallelism) or a data axis over distinct devices in one
+    process raises ``NotImplementedError`` naming the torchrun command.
     """
+    if model is not None:
+        from repro_torch.dist.collective import slice_tree
+
+        tree = slice_tree(tree, data_shards(specs, mesh), group)
+        tree = slice_tree(tree, model_shards(specs, mesh), model)
+        return _place_all(tree, position_device(mesh, group, model))
+    whole_mesh = mesh
     if group is not None:
         from repro_torch.dist.collective import slice_tree
 
@@ -497,14 +540,14 @@ def place(tree, specs, mesh, group=None):
             if stages > 1 and spec.layer != MDL:
                 raise NotImplementedError(
                     f"a layer list not split over the {stages} stages on distinct "
-                    f"devices is {MULTI_CARD_ITEM}")
+                    f"devices is {MULTI_CARD_ITEM}: {per_position_hint(whole_mesh)}")
             per = len(node) // stages
             return [_place_all(v, stage_dev[i // per]) for i, v in enumerate(node)]
         if isinstance(node, torch.Tensor):
             if stages > 1 and MDL in _axes(spec):
                 raise NotImplementedError(
-                    f"a tensor split over 'model' on distinct devices is "
-                    f"{MULTI_CARD_ITEM}")
+                    f"a tensor split over 'model' on distinct devices in one process is "
+                    f"{MULTI_CARD_ITEM}: {per_position_hint(whole_mesh)}")
             return node.to(stage_dev[0])
         return node
 

@@ -12,7 +12,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.dist.sharding import Mesh, data_positions
+from repro_torch.dist.sharding import MDL, TP_STRATEGIES, Mesh, data_positions
 
 
 def cuda_devices() -> list:
@@ -66,10 +66,50 @@ def launch_mesh(device: torch.device, group_size: int, production: bool = False)
     return make_production_mesh(devices=devices) if production else make_mesh_for(devices)
 
 
-def refuse_lone_process(mesh, module: str) -> None:
-    """One process on a mesh with several data positions over distinct
-    devices would leave cards idle: exit naming the torchrun command."""
+def layouts(mesh, module: str) -> str:
+    """The torchrun commands that run ``mesh``: one process per data
+    position, and where the mesh has a 'model' axis one per mesh position
+    (tensor and expert parallelism)."""
     n = data_positions(mesh)
-    if n > 1 and len(mesh.distinct_devices()) > 1:
-        raise SystemExit(f"the mesh {mesh.shape} has {n} data positions: run one process "
-                         f"per position, torchrun --nproc-per-node {n} -m {module} ...")
+    out = f"one process per data position, torchrun --nproc-per-node {n} -m {module} ..."
+    if mesh.shape.get(MDL, 1) > 1:
+        out += (f"; or one process per mesh position (--strategy ai_core_assignment or "
+                f"fused), torchrun --nproc-per-node {mesh.size} -m {module} ...")
+    return out
+
+
+def refuse_lone_process(mesh, module: str, strategy: str | None = None) -> None:
+    """One process on a mesh with several data positions over distinct
+    devices would leave cards idle, and one process cannot split tensors
+    over distinct devices (``strategy`` ai_core_assignment or fused):
+    exit naming the torchrun commands."""
+    n = data_positions(mesh)
+    distinct = len(mesh.distinct_devices()) > 1
+    if n > 1 and distinct:
+        raise SystemExit(f"the mesh {mesh.shape} has {n} data positions: run "
+                         f"{layouts(mesh, module)}")
+    if strategy in TP_STRATEGIES and mesh.shape.get(MDL, 1) > 1 and distinct:
+        raise SystemExit(f"the mesh {mesh.shape} splits tensors over distinct devices "
+                         f"under {strategy}: run {layouts(mesh, module)}")
+
+
+def join_groups(mesh, strategy: str, module: str):
+    """This process's ``(data, model)`` groups for the launcher's world
+    (``dist.collective``): none for one process (which must fit the mesh,
+    :func:`refuse_lone_process`), a data group for one process per data
+    position, both for one process per mesh position under
+    ai_core_assignment or fused.  Any other world exits naming both
+    commands."""
+    from repro_torch.dist.collective import data_group, mesh_groups, requested_world
+
+    world = requested_world()
+    if world is None or world[1] == 1:
+        refuse_lone_process(mesh, module, strategy)
+        return None, None
+    n = world[1]
+    if n == data_positions(mesh):
+        return data_group(mesh), None
+    if n == mesh.size and strategy in TP_STRATEGIES and mesh.shape.get(MDL, 1) > 1:
+        return mesh_groups(mesh)
+    raise SystemExit(f"{n} processes under --strategy {strategy} for the mesh {mesh.shape}: "
+                     f"run {layouts(mesh, module)}")

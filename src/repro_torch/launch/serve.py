@@ -32,11 +32,15 @@ serves its rows of the same global prompts (FSDP slices gathered whole
 once at load), the tokens are gathered, and process 0 prints the
 reference's lines, its decode tok/s over the global rows timed after a
 barrier.  Run alone on a mesh with several data positions over distinct
-cards it exits naming the torchrun command; ``--engine paged``,
+cards it exits naming the torchrun commands.  Under ``ai_core_assignment``
+/ ``fused`` it also runs one process per mesh position (``torchrun
+--nproc-per-node <mesh size>``): each holds its 'model' slices and the
+ranks of a model group serve their data position's rows tensor and
+expert parallel (``dist.tensor``), the tokens gathered over the data
+group; any other world exits naming both commands.  ``--engine paged``,
 ``--supervise``, ``--fault-plan`` and ``--deadline-ms`` run in one
 process only (the paged engine serves from one device, as the
-reference's does); tensor parallelism over distinct cards raises
-``NotImplementedError`` (ROADMAP.md item 16).  Int8 weights come from
+reference's does).  Int8 weights come from
 ``optim.quant.quantize_params``
 (the reference launcher has no flag for them either).  ``--autotune``
 tunes flash's blocks (and, under ``--engine paged``, the paged kernel's
@@ -56,9 +60,10 @@ import time
 import torch
 
 from repro_torch.configs.base import get_config
+from repro_torch.dist import tensor as tp
 from repro_torch.dist.collective import (
     barrier,
-    data_group,
+    close,
     gather_rows,
     gather_tree,
     process_index,
@@ -72,7 +77,7 @@ from repro_torch.dist.sharding import (
     param_specs,
     place,
 )
-from repro_torch.launch.mesh import launch_mesh, refuse_lone_process
+from repro_torch.launch.mesh import join_groups, launch_mesh
 from repro_torch.launch.tuning import tuning_from
 from repro_torch.models import transformer as tf
 from repro_torch.serve.step import make_prefill_step, make_serve_step
@@ -86,7 +91,7 @@ def _sync(device: torch.device) -> None:
 
 @torch.inference_mode()
 def run_static(params, cfg, prompts, *, new_tokens: int, chunk: int,
-               return_logits: bool = False, mesh=None, group=None):
+               return_logits: bool = False, mesh=None, group=None, model=None):
     """Prefill ``prompts`` (B, S) in chunks of ``chunk``, then decode
     ``new_tokens - 1`` greedy steps.  The caches follow the params: made
     on the prompts' device, and with a ``mesh`` over whose devices the
@@ -102,7 +107,13 @@ def run_static(params, cfg, prompts, *, new_tokens: int, chunk: int,
     its contiguous block of ``B / count`` rows of the global ``prompts``
     (the data axes split the batch), its caches on its row of ``mesh``;
     the tokens and logits are gathered from every process, and each
-    timing ends after a barrier, so process 0's covers every row."""
+    timing ends after a barrier, so process 0's covers every row.
+
+    With a ``model`` group as well (one process per mesh position; the
+    params this position's 'model' slices on its device) the steps run
+    tensor and expert parallel under ``dist.tensor.parallel``: every rank
+    of a model group reads the same gathered logits and takes the same
+    greedy token, its caches holding its share of the KV heads."""
     if group is not None:
         from repro_torch.dist.sharding import local_mesh
 
@@ -111,13 +122,17 @@ def run_static(params, cfg, prompts, *, new_tokens: int, chunk: int,
             raise ValueError(f"batch {b} does not split over {group.size} processes")
         r = b // group.size
         prompts = prompts[group.rank * r:(group.rank + 1) * r]
-        mesh = local_mesh(mesh, group) if mesh is not None else None
+        if mesh is not None and model is None:
+            mesh = local_mesh(mesh, group)
     device = prompts.device
     b, s = prompts.shape
     max_len = -(-s // chunk) * chunk + new_tokens
-    caches = tf.init_caches(cfg, b, max_len, params["embed"]["table"].dtype, device)
+    with tp.parallel(model=model):
+        tf.check_supported(cfg)
+    caches = tf.init_caches(cfg, b, max_len, params["embed"]["table"].dtype, device,
+                            kv_heads=tf.cache_kv_heads(params, cfg))
     homes = {t.device for t in leaves(params) if isinstance(t, torch.Tensor)}
-    if mesh is not None and len(homes) > 1:
+    if mesh is not None and model is None and len(homes) > 1:
         caches = place(caches, cache_specs(caches, mesh), mesh)
     prefill = make_prefill_step(cfg, chunk, return_logits=return_logits)
     decode = make_serve_step(cfg, return_logits=return_logits)
@@ -125,26 +140,27 @@ def run_static(params, cfg, prompts, *, new_tokens: int, chunk: int,
 
     def fence():
         _sync(device)
-        barrier(group)
+        barrier(model, group)
 
     fence()
-    t0 = time.perf_counter()
-    res = prefill(params, prompts, caches)
-    tok, caches = res[0][:, None], res[-1]
-    if return_logits:
-        logits.append(res[1][:, -1])
-    fence()
-    prefill_s = time.perf_counter() - t0
-    out = [tok]
-    t0 = time.perf_counter()
-    for _ in range(new_tokens - 1):
-        res = decode(params, out[-1], caches)
-        out.append(res[0])
-        caches = res[-1]
+    with tp.parallel(model=model):
+        t0 = time.perf_counter()
+        res = prefill(params, prompts, caches)
+        tok, caches = res[0][:, None], res[-1]
         if return_logits:
             logits.append(res[1][:, -1])
-    fence()
-    decode_s = time.perf_counter() - t0
+        fence()
+        prefill_s = time.perf_counter() - t0
+        out = [tok]
+        t0 = time.perf_counter()
+        for _ in range(new_tokens - 1):
+            res = decode(params, out[-1], caches)
+            out.append(res[0])
+            caches = res[-1]
+            if return_logits:
+                logits.append(res[1][:, -1])
+        fence()
+        decode_s = time.perf_counter() - t0
     result = {"tokens": gather_rows(torch.cat(out, dim=1), group), "prefill_s": prefill_s,
               "decode_s": decode_s}
     if return_logits:
@@ -350,17 +366,18 @@ def run(cfg, args, device):
         raise SystemExit(f"--engine paged serves from one device, as the reference's does: "
                          f"run it in one process, not {world[1]}")
     mesh = launch_mesh(device, world[1] if world else 1)
-    group = data_group(mesh)
-    if group is None and args.engine == "static":
-        refuse_lone_process(mesh, "repro_torch.launch.serve")
-    lead = process_index(group) == 0
+    if args.engine == "static":
+        group, model = join_groups(mesh, args.strategy, "repro_torch.launch.serve")
+    else:
+        group = model = None
+    lead = process_index(group) == 0 and process_index(model) == 0
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
     # random weights from seed 0 and prompts from seed 1, as the reference
     gen = torch.Generator(device=device).manual_seed(0)
     params = tf.init(cfg, generator=gen, dtype=torch.float32, device=device)
     specs = param_specs(params, mesh, args.strategy)
-    params = place(params, specs, mesh, group)
+    params = place(params, specs, mesh, group, model)
     # the FSDP slices gathered once at load: serving computes on whole weights
     params = gather_tree(params, data_shards(specs, mesh), group)
     if lead:
@@ -371,7 +388,7 @@ def run(cfg, args, device):
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt),
                             generator=gen, device=device)
     res = run_static(params, cfg, prompts, new_tokens=args.new_tokens,
-                     chunk=max(16, args.prompt // 4), mesh=mesh, group=group)
+                     chunk=max(16, args.prompt // 4), mesh=mesh, group=group, model=model)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     steps = args.new_tokens - 1
     rate = args.batch * steps / res["decode_s"] if steps else 0.0
@@ -379,8 +396,7 @@ def run(cfg, args, device):
         print(f"prefill {args.batch}x{args.prompt} in {res['prefill_s'] * 1e3:.1f} ms "
               f"on {name}")
         print(f"decode {steps} steps: {rate:.1f} tok/s on {name}")
-    if group is not None:
-        group.close()
+    close(group, model)
     return res
 
 

@@ -24,16 +24,18 @@ and runs ``train.step.make_pipeline_train_step`` under
 
 Across cards it runs one process per data position of the mesh, under
 ``torchrun --nproc-per-node <positions>`` (``dist.collective.data_group``
-reads torchrun's environment): each process owns its mesh row, draws the
-same global batch and trains on its rows, and only process 0 prints the
-reference's lines (the ``mesh`` line shows the global mesh) and writes
-checkpoints, in today's format, of the state gathered whole; every
-process restores a checkpoint whole and keeps its slice.  Run alone on a
-mesh with several data positions over distinct cards it exits naming the
-torchrun command; ``--device cpu`` under torchrun lists the CPU once per
-process.  Tensor parallelism over distinct cards (``ai_core_assignment``
-or ``fused`` with a 'model' axis over several cards) raises
-``NotImplementedError`` (ROADMAP.md item 16).  It runs on the CUDA card
+reads torchrun's environment), or under ``ai_core_assignment`` /
+``fused`` one process per mesh position, ``torchrun --nproc-per-node
+<mesh size>`` (``dist.collective.mesh_groups``: tensor and expert
+parallelism over the 'model' axis, ``dist.tensor``): each process draws
+the same global batch and trains on its rows with its slices, and only
+process 0 prints the reference's lines (the ``mesh`` line shows the
+global mesh) and writes checkpoints, in today's format, of the state
+gathered whole over both groups; every process restores a checkpoint
+whole and keeps its slices.  Run alone on a mesh with several data
+positions, or a 'model' axis it would split, over distinct cards it
+exits naming the torchrun commands, and so does any other world;
+``--device cpu`` under torchrun lists the CPU once per process.  It runs on the CUDA card
 by default; ``--device cpu`` runs the same path on the CPU with the
 kernels' plain versions, and nothing falls back.  On the card the attention of a sequence shorter than 512 tokens
 (``FLASH_MIN_SEQ``) runs no kernel: the reference's default ``--seq
@@ -62,7 +64,7 @@ from repro_torch.configs.base import get_config
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM
 from repro_torch.dist.collective import (
     barrier,
-    data_group,
+    close,
     gather_tree,
     process_index,
     requested_world,
@@ -71,12 +73,13 @@ from repro_torch.dist.sharding import (
     MULTI_CARD_ITEM,
     SHARDING_STRATEGIES,
     data_shards,
+    model_shards,
     place,
 )
 from repro_torch.ft.checkpoint import AsyncCheckpointer, latest_step, restore
 from repro_torch.ft.elastic import state_shardings
 from repro_torch.ft.straggler import StragglerMonitor
-from repro_torch.launch.mesh import launch_mesh, mesh_devices, refuse_lone_process
+from repro_torch.launch.mesh import join_groups, launch_mesh, mesh_devices
 from repro_torch.launch.tuning import tuning_from
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.step import (
@@ -179,13 +182,11 @@ def main(argv=None):
 
 def run(cfg, args, device):
     """The reference's unsupervised loop (module docstring); returns the
-    final state (this process's slices under ``fused`` across processes)."""
+    final state (this process's slices across processes)."""
     world = requested_world()
     mesh = launch_mesh(device, world[1] if world else 1, args.production_mesh)
-    group = data_group(mesh)
-    if group is None:
-        refuse_lone_process(mesh, "repro_torch.launch.train")
-    lead = process_index(group) == 0
+    group, model = join_groups(mesh, args.strategy, "repro_torch.launch.train")
+    lead = process_index(group) == 0 and process_index(model) == 0
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
@@ -213,6 +214,7 @@ def run(cfg, args, device):
         state = init_state(cfg, generator=gen, dtype=torch.float32, device=device)
     specs = state_shardings(state, mesh, args.strategy)
     shards = data_shards(specs, mesh) if group is not None else None
+    mshards = model_shards(specs, mesh) if model is not None else None
     pshards = shards["params"] if shards is not None else None
     if args.strategy == "pipeline":
         step_fn = make_pipeline_train_step(
@@ -220,12 +222,13 @@ def run(cfg, args, device):
             schedule=args.pipeline_schedule, group=group, shards=pshards)
     else:
         step_fn = make_train_step(cfg, opt, grad_accum=args.grad_accum, group=group,
-                                  shards=pshards)
+                                  shards=pshards, model=model,
+                                  model_shards=mshards and mshards["params"])
 
     # process 0 writes the canonical (gathered) state; every process
-    # restores it whole and keeps its slice
+    # restores it whole and keeps its slices
     ckpt = AsyncCheckpointer(args.ckpt, keep=2) if args.ckpt and lead else None
-    barrier(group)
+    barrier(model, group)
     start = 0
     if args.ckpt:
         at = latest_step(args.ckpt)
@@ -234,7 +237,7 @@ def run(cfg, args, device):
             start = at
             if lead:
                 print(f"resumed at step {start}")
-    state = place(state, specs, mesh, group)
+    state = place(state, specs, mesh, group, model)
 
     data = SyntheticLM(cfg.vocab, args.seq, args.batch, seed=0)
     pf = Prefetcher(data, start_step=start)
@@ -250,7 +253,7 @@ def run(cfg, args, device):
                       f"gnorm {float(metrics['grad_norm']):.2f} "
                       f"stragglers {mon.report().stragglers}")
             if args.ckpt and (step + 1) % args.ckpt_every == 0:
-                whole = gather_tree(state, shards, group)
+                whole = gather_tree(gather_tree(state, shards, group), mshards, model)
                 if ckpt:
                     ckpt.save(whole, step + 1)
                 del whole
@@ -258,11 +261,10 @@ def run(cfg, args, device):
         pf.close()
         if ckpt:
             ckpt.wait()
-    barrier(group)
+    barrier(model, group)
     if lead:
         print("done")
-    if group is not None:
-        group.close()
+    close(group, model)
     return state
 
 

@@ -30,12 +30,28 @@ cross-attention (PyTorch port of ``repro.models.attention``).
   (block-table row -1) send their writes to the sink and emit zeros.
   int8 pools (with ``*_scales``) insert the S tokens one by one, each
   requantizing its page.
+
+Tensor parallelism (``dist.tensor``'s ambient model group; the layer's
+mode read from its leaves' widths against the config's, never from the
+strategy): a ``wq`` holding this rank's query heads runs them alone, its
+input through ``copy`` and ``wo`` (split by rows) summed over the ranks.
+K / V split on head boundaries give this rank's KV heads; split inside a
+head (``kv_heads * head_dim`` over the model size not a multiple of
+``head_dim``) they are gathered whole (the ``reduce_scatter`` adjoint) and
+each rank reads the KV heads of its own query heads, its cache holding
+them all, as ``cache_specs`` leaves the heads dim whole there.  MLA's
+``wdkv`` splits across the latent: the latent is gathered before
+``ckv_norm``; ``wq`` / ``wuk`` / ``wuv`` split on head boundaries.  A
+replicated param used on this rank's heads (``q_norm``, ``k_norm``,
+``ckv_norm``, a K/V projection left whole) goes through ``copy``, so its
+gradient sums the ranks' shares.  The paged pools stay on one process.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.dist import tensor as tp
 from repro_torch.models.layers import (
     apply_rope,
     causal_mask,
@@ -46,7 +62,9 @@ from repro_torch.models.layers import (
     paged_decode_attend,
     rmsnorm_apply,
     rmsnorm_init,
+    row_parallel_apply,
     softmax_attend,
+    width,
 )
 from repro_torch.optim.quant import dequant_int8
 from repro_torch.serve.kv_cache import quant_page_update
@@ -93,9 +111,11 @@ def gqa_init(gen, cfg, dtype, device):
     return p
 
 
-def gqa_cache_init(cfg, batch: int, max_len: int, dtype, device):
+def gqa_cache_init(cfg, batch: int, max_len: int, dtype, device, kv_heads: int | None = None):
+    """``kv_heads``: the heads this rank's cache holds (its share under
+    tensor parallelism, :func:`cache_kv_heads`); the config's by default."""
     t = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
-    shape = (batch, t, cfg.kv_heads, cfg.head_dim)
+    shape = (batch, t, kv_heads or cfg.kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -103,24 +123,85 @@ def gqa_cache_init(cfg, batch: int, max_len: int, dtype, device):
     }
 
 
+def cache_kv_heads(p, cfg) -> int:
+    """The KV heads a GQA layer's cache holds on this rank: its share where
+    ``wk`` splits on head boundaries, else all of them."""
+    w = width(p["wk"])
+    return w // cfg.head_dim if w % cfg.head_dim == 0 else cfg.kv_heads
+
+
+def _tp_heads(p, cfg) -> int | None:
+    """This rank's query heads under tensor parallelism, or None where
+    ``wq`` is whole (the layer computes whole)."""
+    w = width(p["wq"])
+    if not tp.split(w, cfg.num_heads * cfg.head_dim):
+        return None
+    if w % cfg.head_dim:
+        raise NotImplementedError(f"{cfg.name}: query heads split inside a head")
+    return w // cfg.head_dim
+
+
+def _kv_window(cfg, hq: int, held: int) -> slice | None:
+    """The KV heads (of the ``held`` this rank computes) that its ``hq``
+    query heads read: all of a share split on head boundaries (None), else
+    those of query heads ``rank * hq .. (rank + 1) * hq - 1``."""
+    if held != cfg.kv_heads:
+        return None
+    g = cfg.num_heads // cfg.kv_heads
+    first = tp.model_rank() * hq
+    return slice(first // g, (first + hq - 1) // g + 1)
+
+
+def _pick(t, sel):
+    """The KV heads ``sel`` of ``t`` (B, T, H, D), in storage of their own."""
+    return t if sel is None else t[:, :, sel].contiguous()
+
+
 def _qkv(p, cfg, x, positions):
+    """(q, k, v, hq, window): q this rank's ``hq`` query heads (all without
+    tensor parallelism, ``hq`` None), k / v the KV heads it computes,
+    ``window`` those its queries read (None: all)."""
     b, s, _ = x.shape
-    q = dense_apply(p["wq"], x).reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = dense_apply(p["wk"], x).reshape(b, s, cfg.kv_heads, cfg.head_dim)
-    v = dense_apply(p["wv"], x).reshape(b, s, cfg.kv_heads, cfg.head_dim)
+    hd = cfg.head_dim
+    hq = _tp_heads(p, cfg)
+    qn, kn, wk, wv = p.get("q_norm"), p.get("k_norm"), p["wk"], p["wv"]
+    if hq is not None:
+        x = tp.copy(x)
+        if cfg.qk_norm:
+            qn, kn = tp.copy_tree(qn), tp.copy_tree(kn)
+        if width(wk) == cfg.kv_heads * hd:
+            # K / V left whole: every rank computes them, reads its heads
+            wk, wv = tp.copy_tree(wk), tp.copy_tree(wv)
+    q = dense_apply(p["wq"], x).reshape(b, s, hq or cfg.num_heads, hd)
+    k, v = dense_apply(wk, x), dense_apply(wv, x)
+    if k.shape[-1] % hd:
+        # split inside a head: gather K / V whole; each rank reads its own
+        k = tp.gather(k, -1, reduce_grad=True)
+        v = tp.gather(v, -1, reduce_grad=True)
+    k = k.reshape(b, s, -1, hd)
+    v = v.reshape(b, s, -1, hd)
     if cfg.qk_norm:
-        q = rmsnorm_apply(p["q_norm"], q, cfg.norm_eps)
-        k = rmsnorm_apply(p["k_norm"], k, cfg.norm_eps)
+        q = rmsnorm_apply(qn, q, cfg.norm_eps)
+        k = rmsnorm_apply(kn, k, cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    window = None if hq is None else _kv_window(cfg, hq, k.shape[2])
+    return q, k, v, hq, window
+
+
+def _out(p, hq, out):
+    """The output projection: ``wo`` split by rows sums the ranks'."""
+    if hq is None:
+        return dense_apply(p["wo"], out)
+    return row_parallel_apply(p["wo"], out)
 
 
 def gqa_apply(p, cfg, x, positions, cache=None, *, bidirectional=False):
     b, s, _ = x.shape
-    q, k, v = _qkv(p, cfg, x, positions)
+    q, k, v, hq, sel = _qkv(p, cfg, x, positions)
 
     if cache is None:
+        k, v = _pick(k, sel), _pick(v, sel)
         if s >= FLASH_MIN_SEQ:
             out = flash_attend(q, k, v, window=cfg.sliding_window,
                                bidirectional=bidirectional)
@@ -130,6 +211,11 @@ def gqa_apply(p, cfg, x, positions, cache=None, *, bidirectional=False):
             out = softmax_attend(q, k, v, mask)
         new_cache = None
     elif "k_pages" in cache:
+        if hq is not None:
+            from repro_torch.dist.sharding import MULTI_CARD_ITEM
+
+            raise NotImplementedError(f"the paged pools under tensor parallelism are "
+                                      f"{MULTI_CARD_ITEM}")
         # paged decode (S=1) / speculative verify (S>1): write the S
         # tokens into their pool pages in place (one index_put_ per
         # pool; dropped writes land on the sink page), then attend
@@ -166,11 +252,11 @@ def gqa_apply(p, cfg, x, positions, cache=None, *, bidirectional=False):
             q_pos = cur + torch.arange(s, device=x.device)
             mask = (kv_pos[None, :] <= q_pos[:, None]) & (kv_pos >= 0)[None, :]
             mask &= kv_pos[None, :] > (q_pos[:, None] - cfg.sliding_window)
-            out = softmax_attend(q, full_k, full_v, mask)
+            out = softmax_attend(q, _pick(full_k, sel), _pick(full_v, sel), mask)
             ck, cv = cache["k"], cache["v"]
             ck.copy_(full_k[:, s:])
             cv.copy_(full_v[:, s:])
-            y = dense_apply(p["wo"], out.reshape(b, s, -1))
+            y = _out(p, hq, out.reshape(b, s, -1))
             return y, {"k": ck, "v": cv, "len": cur + s}
         if cur + s > t:
             # the reference's dynamic_update_slice would clamp the write
@@ -183,12 +269,13 @@ def gqa_apply(p, cfg, x, positions, cache=None, *, bidirectional=False):
         ck[:, cur:cur + s] = k
         cv[:, cur:cur + s] = v
         new_len = cur + s
+        ak, av = _pick(ck, sel), _pick(cv, sel)
         if s == 1:
             # decode: split-KV kernel, O(kv_len) not O(max_len)
-            out = decode_attend(q, ck, cv, kv_len=new_len,
+            out = decode_attend(q, ak, av, kv_len=new_len,
                                 window=cfg.sliding_window)
         elif s >= FLASH_MIN_SEQ:
-            out = flash_attend(q, ck, cv, q_offset=cur,
+            out = flash_attend(q, ak, av, q_offset=cur,
                                window=cfg.sliding_window, kv_len=new_len)
         else:
             kv_pos = torch.arange(t, device=x.device)
@@ -197,10 +284,10 @@ def gqa_apply(p, cfg, x, positions, cache=None, *, bidirectional=False):
             mask &= (kv_pos < new_len)[None, :]
             if cfg.sliding_window:
                 mask &= kv_pos[None, :] > (q_pos[:, None] - cfg.sliding_window)
-            out = softmax_attend(q, ck, cv, mask)
+            out = softmax_attend(q, ak, av, mask)
         new_cache = {"k": ck, "v": cv, "len": new_len}
 
-    y = dense_apply(p["wo"], out.reshape(b, s, -1))
+    y = _out(p, hq, out.reshape(b, s, -1))
     return y, new_cache
 
 
@@ -246,18 +333,49 @@ def mla_cache_init(cfg, batch: int, max_len: int, dtype, device):
             "len": 0}
 
 
+def _mla_heads(p, cfg) -> int | None:
+    """This rank's MLA heads under tensor parallelism (None: whole)."""
+    per = cfg.mla_head_dim + cfg.rope_head_dim
+    w = width(p["wq"])
+    if not tp.split(w, cfg.num_heads * per):
+        return None
+    if w % per:
+        raise NotImplementedError(f"{cfg.name}: MLA heads split inside a head")
+    return w // per
+
+
+def _latent(p, x, whole: int, tp_on: bool):
+    """A down-projection under tensor parallelism: a column slice of the
+    latent gathered whole (each rank reads it for its own heads, so the
+    gradients' sum is scattered back), a leaf left whole through
+    ``copy``."""
+    if not tp_on:
+        return dense_apply(p, x)
+    if width(p) == whole:
+        return dense_apply(tp.copy_tree(p), x)
+    return tp.gather(dense_apply(p, x), -1, reduce_grad=True)
+
+
 def _mla_qkv_latent(p, cfg, x, positions):
     b, s, _ = x.shape
-    h, dn, dr = cfg.num_heads, cfg.mla_head_dim, cfg.rope_head_dim
+    dn, dr = cfg.mla_head_dim, cfg.rope_head_dim
+    hl = _mla_heads(p, cfg)
+    h, tp_on = hl or cfg.num_heads, hl is not None
+    norm_ckv, norm_q = p["ckv_norm"], p.get("q_norm")
+    if tp_on:
+        x = tp.copy(x)
+        norm_ckv = tp.copy_tree(norm_ckv)
+        norm_q = norm_q and tp.copy_tree(norm_q)
     xq = x
     if cfg.q_lora_rank:
-        xq = rmsnorm_apply(p["q_norm"], dense_apply(p["wdq"], x), cfg.norm_eps)
+        xq = rmsnorm_apply(norm_q, _latent(p["wdq"], x, cfg.q_lora_rank, tp_on),
+                           cfg.norm_eps)
     q = dense_apply(p["wq"], xq).reshape(b, s, h, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
-    dkv = dense_apply(p["wdkv"], x)
-    ckv = rmsnorm_apply(p["ckv_norm"], dkv[..., :cfg.kv_lora_rank], cfg.norm_eps)
+    dkv = _latent(p["wdkv"], x, cfg.kv_lora_rank + dr, tp_on)
+    ckv = rmsnorm_apply(norm_ckv, dkv[..., :cfg.kv_lora_rank], cfg.norm_eps)
     k_rope = dkv[..., cfg.kv_lora_rank:][:, :, None, :]  # 1 shared head
     k_rope = apply_rope(k_rope, positions, cfg.rope_theta)[:, :, 0, :]
     return q_nope, q_rope, ckv, k_rope
@@ -340,11 +458,17 @@ def mla_apply(p, cfg, x, positions, cache=None):
     b, s, _ = x.shape
     r = cfg.kv_lora_rank
     q_nope, q_rope, ckv, k_rope = _mla_qkv_latent(p, cfg, x, positions)
+    hl = q_nope.shape[2] if q_nope.shape[2] != cfg.num_heads else None
     if cache is None:
         mask = causal_mask(s, s, device=x.device) if s < FLASH_MIN_SEQ else None
         out = _mla_attend(p, cfg, q_nope, q_rope, ckv, k_rope, mask)
         new_cache = None
     elif "kv_pages" in cache:
+        if hl is not None:
+            from repro_torch.dist.sharding import MULTI_CARD_ITEM
+
+            raise NotImplementedError(f"the paged pools under tensor parallelism are "
+                                      f"{MULTI_CARD_ITEM}")
         # paged decode (S=1) / speculative verify (S>1): one [c_kv | k_rope]
         # row per token in the pool
         page, slot, new_len = cache.get("coords") or _paged_token_coords(cache, "kv_pages", s)
@@ -383,7 +507,7 @@ def mla_apply(p, cfg, x, positions, cache=None):
             mask = (kv_pos[None, :] <= q_pos[:, None]) & (kv_pos < new_len)[None, :]
             out = _mla_attend(p, cfg, q_nope, q_rope, cc, cr, mask)
         new_cache = {"kv": kv, "len": new_len}
-    return dense_apply(p["wo"], out), new_cache
+    return _out(p, hl, out), new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,14 @@ Attention dispatch (``set_attention_impl``):
   "ref"    — the plain version on any device (reference runs on the card)
 There is no environment switch: the tensor's device decides under "auto".
 
+Tensor parallelism (one process per mesh position, ``dist.tensor``'s
+ambient model group): a vocab-split embedding looks up this rank's rows
+and sums the ranks' lookups, its tied readout and an untied head give
+each rank's vocabulary slice and gather it; a gated MLP with ``w_gate`` /
+``w_up`` split by columns and ``w_down`` by rows sums its ranks' outputs,
+a row-split layer's bias added once after the sum.  Whether a layer is
+split is read from its leaves' widths against the config's.
+
 Quantized dense layers (``{"qw", "qscale"}`` dicts from
 ``optim.quant.quantize_params``) dispatch the same way through
 ``set_gemm_impl``: "auto" sends a CUDA tensor to the VTA GEMM kernel
@@ -34,6 +42,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import tensor as tp
 from repro_torch.kernels.decode_attention import (
     decode_attention,
     decode_attention_ref,
@@ -172,6 +181,20 @@ def dense_apply(p, x):
     return y
 
 
+def width(p) -> int:
+    """The output width of a dense dict (float ``w`` or int8 ``qw``)."""
+    return (p["w"] if "w" in p else p["qw"]).shape[-1]
+
+
+def row_parallel_apply(p, x):
+    """A row-split dense layer: this rank's partial product summed over
+    the model group, the bias (replicated) added once after the sum."""
+    y = tp.reduce(x @ p["w"])
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
 def quant_dense_apply(p, x, act: str | None = None):
     """QuantizedLinear forward: int8 weights (per-output-channel scales)
     against dynamically int8-quantized activations, exact int32
@@ -198,13 +221,28 @@ def embedding_init(gen, vocab: int, d: int, dtype, device):
     return {"table": _normal(gen, (vocab, d), 0.02, dtype, device)}
 
 
-def embedding_apply(p, ids):
-    return p["table"][ids]
+def embedding_apply(p, ids, vocab: int | None = None):
+    """The rows of ``ids``.  A table holding this rank's slice of
+    ``vocab`` rows (vocab-parallel) looks up the ids it holds, zeros for
+    the rest, and sums the ranks' lookups: exactly one rank adds a
+    nonzero row, so the sum is exact."""
+    table = p["table"]
+    if vocab is None or not tp.split(table.shape[0], vocab):
+        return table[ids]
+    rows = table.shape[0]
+    local = ids - tp.model_rank() * rows
+    hit = (local >= 0) & (local < rows)
+    x = table[local.clamp(0, rows - 1)] * hit[..., None].to(table.dtype)
+    return tp.reduce(x)
 
 
-def embedding_logits(p, x):
-    """Tied-softmax readout."""
-    return torch.matmul(x, p["table"].T)
+def embedding_logits(p, x, vocab: int | None = None):
+    """Tied-softmax readout; a vocab-split table gives this rank's slice of
+    the logits and gathers the whole."""
+    table = p["table"]
+    if vocab is None or not tp.split(table.shape[0], vocab):
+        return torch.matmul(x, table.T)
+    return tp.gather(torch.matmul(tp.copy(x), table.T), -1)
 
 
 # ---------------------------------------------------------------------------
@@ -263,14 +301,22 @@ def gated_mlp_init(gen, d: int, d_ff: int, dtype, device):
     }
 
 
-def gated_mlp_apply(p, x):
+def gated_mlp_apply(p, x, d_ff: int | None = None):
+    """``w_down(silu(w_gate x) * w_up x)``.  With ``d_ff`` (the config's
+    width) a ``w_gate`` holding this rank's columns of it runs the
+    tensor-parallel MLP (module docstring)."""
     if "qw" in p["w_gate"]:
         # quantized: SiLU fuses into the gate GEMM's epilogue
         g = quant_dense_apply(p["w_gate"], x, act="silu")
         u = quant_dense_apply(p["w_up"], x)
         return quant_dense_apply(p["w_down"], g * u)
+    split = d_ff is not None and tp.split(width(p["w_gate"]), d_ff)
+    if split:
+        x = tp.copy(x)
     g = F.silu(dense_apply(p["w_gate"], x).float()).to(x.dtype)
     u = dense_apply(p["w_up"], x)
+    if split:
+        return row_parallel_apply(p["w_down"], g * u)
     return dense_apply(p["w_down"], g * u)
 
 

@@ -27,6 +27,25 @@ buffer with its own activation scale and run the int8 x int8 -> int32
 product through ``kernels.vta_gemm`` (epilogue ``"none"``), one launch per
 expert, under ``layers.set_gemm_impl``'s dispatch; the scales are applied
 in PyTorch in the reference's order.
+
+Expert parallelism (``dist.tensor``'s ambient model group, expert leaves
+holding this rank's ``E / model`` experts): every rank of the model group
+routes the same tokens and builds the same buffers, runs its own experts
+and gathers the outputs along E, so the combine after that is the
+one-process sum.  Shared experts split over their count are gathered and
+summed in the same order.
+
+Global routing (``dist.tensor.routing_group``, the data group the train
+step sets): the capacity comes from the microbatch's global token count,
+and each choice's position adds the per-expert counts of the earlier data
+positions (one ``all_gather`` of E ints).  ``collective.shard_rows`` gives
+the processes the microbatch's rows in order, so the positions are the
+reference's token-major count over the global microbatch and the same
+choices overflow.  A process's buffers hold only its own tokens, at most
+``min(capacity, N)`` a expert.  The load-balancing loss reads the global
+fractions; the sum of the router's probabilities crosses the processes by
+``tensor.sum_across``, whose gradient the train step's mean over the
+processes turns back into the reference's.
 """
 
 from __future__ import annotations
@@ -34,6 +53,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import collective
+from repro_torch.dist import tensor as tp
 from repro_torch.kernels.vta_gemm import gemm_int32, vta_gemm
 from repro_torch.models.layers import _normal, quant_dense_apply, use_gemm_kernel
 from repro_torch.optim.quant import quant_int8
@@ -97,6 +118,39 @@ def capacity_for(cfg, n: int) -> int:
     return int(max(1, round(cfg.moe_capacity_factor * n * cfg.moe_top_k / cfg.moe_experts)))
 
 
+def dispatch_slots(exp_flat, n: int, capacity: int | None, cfg):
+    """Where each (token, choice) goes: ``(pos, keep, slots, counts, n_all)``.
+    ``pos`` is its slot in its expert's buffer (clamped into ``slots``),
+    ``keep`` whether it fits the capacity, ``slots`` the buffer length,
+    ``counts`` the per-expert choice counts over the routing group and
+    ``n_all`` its token count.  Without a routing group the positions are
+    the token-major count over these ``n`` tokens; with one, that count
+    plus the earlier data positions' counts."""
+    onehot = F.one_hot(exp_flat, cfg.moe_experts)  # (N*k, E)
+    pos = ((onehot.cumsum(0) - 1) * onehot).sum(-1)
+    counts = onehot.sum(0)
+    group = tp.routing_group()
+    if group is None:
+        cap = capacity or capacity_for(cfg, n)
+        return pos.clamp(0, cap - 1), pos < cap, cap, counts, n
+    every = collective.all_gather_dim(counts[None], 0, group)  # (positions, E)
+    n_all = n * group.size
+    cap = capacity or capacity_for(cfg, n_all)
+    keep = pos + every[:group.rank].sum(0)[exp_flat] < cap
+    # a kept choice sits below the capacity and below this process's count
+    slots = min(cap, n)
+    return pos.clamp(0, slots - 1), keep, slots, every.sum(0), n_all
+
+
+def _local_experts(ep, e: int):
+    """(this rank's expert leaves' count, its first expert): every expert
+    when the leaves are whole."""
+    held = next(iter(ep["w_gate"].values())).shape[0]
+    if not tp.split(held, e):
+        return held, 0
+    return held, tp.model_rank() * held
+
+
 def moe_apply(p, cfg, x, capacity: int | None = None):
     """x: (B, S, D) -> (y, aux_loss).  ``capacity`` (slots per expert)
     defaults to :func:`capacity_for`; choices past it are dropped."""
@@ -113,22 +167,23 @@ def moe_apply(p, cfg, x, capacity: int | None = None):
     gate_vals, gate_idx = top_k(probs, k)  # (N, k)
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
 
-    cap = capacity or capacity_for(cfg, n)
-
     # position of each (token, choice) within its expert's buffer
     exp_flat = gate_idx.reshape(-1)  # (N*k,)
-    onehot = F.one_hot(exp_flat, e)  # (N*k, E)
-    pos_flat = ((onehot.cumsum(0) - 1) * onehot).sum(-1)
-    keep = pos_flat < cap
-    pos_c = pos_flat.clamp(0, cap - 1)
+    pos_c, keep, slots, counts, n_all = dispatch_slots(exp_flat, n, capacity, cfg)
 
-    # scatter the kept tokens into the expert buffers
+    # scatter the kept tokens into the expert buffers (each rank of a model
+    # group builds them all, then runs its own experts on their rows)
+    held, first = _local_experts(p["experts"], e)
+    xe = tp.copy(xt) if held != e else xt
     tok_flat = torch.arange(n, device=x.device).repeat_interleave(k)
-    src = xt[tok_flat] * keep[:, None].to(xt.dtype)
-    buffers = torch.zeros((e, cap, d), dtype=xt.dtype, device=x.device)
+    src = xe[tok_flat] * keep[:, None].to(xt.dtype)
+    buffers = torch.zeros((e, slots, d), dtype=xt.dtype, device=x.device)
     buffers.index_put_((exp_flat, pos_c), src, accumulate=True)
 
-    outputs = _expert_ffn(p["experts"], buffers)
+    if held != e:
+        outputs = tp.gather(_expert_ffn(p["experts"], buffers[first:first + held]), 0)
+    else:
+        outputs = _expert_ffn(p["experts"], buffers)
 
     # gather back in token order, gate-weighted, summed over the k choices
     # left to right
@@ -140,13 +195,21 @@ def moe_apply(p, cfg, x, capacity: int | None = None):
         y = y + contrib[:, j]
 
     if "shared" in p:
-        n_sh = next(iter(p["shared"]["w_gate"].values())).shape[0]
-        sh = _expert_ffn(p["shared"], xt[None].expand(n_sh, n, d))
+        n_sh, _ = _local_experts(p["shared"], cfg.moe_shared_experts)
+        split = n_sh != cfg.moe_shared_experts
+        xs = tp.copy(xt) if split else xt
+        sh = _expert_ffn(p["shared"], xs[None].expand(n_sh, n, d))
+        if split:
+            sh = tp.gather(sh, 0)
         y = y + sh.sum(dim=0).to(y.dtype)
 
     # Switch-style load-balancing auxiliary loss
-    frac_tokens = onehot.sum(dim=0).float() / (n * k)
-    frac_probs = probs.mean(dim=0)
+    frac_tokens = counts.float() / (n_all * k)
+    group = tp.routing_group()
+    if group is None:
+        frac_probs = probs.mean(dim=0)
+    else:
+        frac_probs = tp.sum_across(probs.sum(dim=0), group) / n_all
     aux = e * (frac_tokens * frac_probs).sum()
 
     return y.reshape(b, s, d).to(x.dtype), aux

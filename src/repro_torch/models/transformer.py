@@ -30,6 +30,13 @@ stubbed frontend's patch embeddings) are prepended to the token
 embeddings.  The enc-dec model lives in ``encdec.py`` and ResNet-18 in
 ``resnet.py``; a CNN config raises ``NotImplementedError`` here.
 
+Under ``dist.tensor``'s ambient model group (one process per mesh
+position) the dense and MoE families run tensor and expert parallel: the
+embedding vocab-parallel, an untied ``lm_head`` split over the
+vocabulary, every head gathering its logits whole, so each rank of a
+model group reads the same logits; the SSM, hybrid, enc-dec and VLM
+families are refused there.
+
 ``remat=True`` (training) recomputes each block in the backward pass
 (``torch.utils.checkpoint`` around every block, the hybrid's shared
 block included), as the reference wraps its scanned blocks in
@@ -41,12 +48,14 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist import tensor as tp
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     dense_apply,
     dense_init,
+    width,
     embedding_apply,
     embedding_init,
     embedding_logits,
@@ -58,10 +67,18 @@ from repro_torch.models.layers import (
 
 
 def check_supported(cfg) -> None:
-    """Raise for a CNN config, whose model is ``models/resnet``."""
+    """Raise for a CNN config, whose model is ``models/resnet``, and under
+    a model group for every family tensor parallelism does not cover."""
     if cfg.family == "cnn":
         raise NotImplementedError(
             f"{cfg.name} is a CNN: its model is repro_torch.models.resnet")
+    if tp.model_group() is not None and (cfg.ssm_state or cfg.attn_every or cfg.is_enc_dec
+                                         or cfg.frontend):
+        from repro_torch.dist.sharding import MULTI_CARD_ITEM
+
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) under tensor parallelism is {MULTI_CARD_ITEM}: "
+            f"its dense and MoE families run so")
 
 
 # ---------------------------------------------------------------------------
@@ -112,7 +129,7 @@ def _ffn_apply(p, cfg, x, dropless: bool = False, cap: int | None = None):
             generous = -(-2 * n * cfg.moe_top_k // cfg.moe_experts)
             cap = n if n <= 4096 else min(n, generous)
         return moe_mod.moe_apply(p, cfg, x, capacity=cap)
-    return gated_mlp_apply(p, x), None
+    return gated_mlp_apply(p, x, cfg.d_ff), None
 
 
 def block_init(gen, cfg, dtype, device):
@@ -171,7 +188,7 @@ def init(cfg, *, generator: torch.Generator, dtype=torch.bfloat16, device="cuda"
 
 
 def _embed(params, cfg, tokens, embeds=None):
-    x = embedding_apply(params["embed"], tokens)
+    x = embedding_apply(params["embed"], tokens, cfg.vocab)
     if embeds is not None:
         # the modality frontend's stub: precomputed patch embeddings are
         # prepended to the token embeddings (the VLM backbone contract)
@@ -255,15 +272,28 @@ def forward_hidden(params, cfg, tokens, embeds=None, *, remat: bool = False):
 
 
 def head_logits(params, cfg, x):
-    """LM head only (no final norm) — pairs with :func:`forward_hidden`."""
+    """LM head only (no final norm) — pairs with :func:`forward_hidden`.
+    A head split over the vocabulary gathers the whole logits."""
     if cfg.tie_embeddings:
-        return embedding_logits(params["embed"], x)
-    return dense_apply(params["lm_head"], x)
+        return embedding_logits(params["embed"], x, cfg.vocab)
+    head = params["lm_head"]
+    if "w" in head and tp.split(width(head), cfg.vocab):
+        return tp.gather(dense_apply(head, tp.copy(x)), -1)
+    return dense_apply(head, x)
+
+
+def cache_kv_heads(params, cfg) -> int | None:
+    """The KV heads a GQA config's dense caches hold on this rank (its
+    share under tensor parallelism), None for the others."""
+    if cfg.uses_mla or _mixer_is_ssm(cfg) or not cfg.num_heads:
+        return None
+    return attn.cache_kv_heads(params["blocks"][0]["mixer"], cfg)
 
 
 def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda", *,
                 cache_layout: str = "dense", page_size: int = 16,
-                num_pages: int | None = None, kv_dtype: str | None = None):
+                num_pages: int | None = None, kv_dtype: str | None = None,
+                kv_heads: int | None = None):
     """Serving caches.  ``cache_layout="dense"`` (default): one
     (B, max_len, Hkv, D) K/V pair per layer (an SWA config's holds
     ``min(max_len, window)`` rows and rolls; MLA's is one (B, max_len,
@@ -272,7 +302,9 @@ def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device="cud
     per-sequence lens) that ``decode_step`` and ``verify_step`` serve
     through the paged kernel — decode-only, engine-managed; ``kv_dtype``
     ("f32"/"bf16"/"int8") sets the pools' precision, and int8 pools carry
-    per-page-per-head scales."""
+    per-page-per-head scales.  ``kv_heads``: the heads a GQA layer's dense
+    cache holds (this rank's share under tensor parallelism,
+    :func:`cache_kv_heads`)."""
     check_supported(cfg)
     if cache_layout == "paged":
         from repro_torch.serve.kv_cache import init_paged_caches
@@ -287,7 +319,8 @@ def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device="cud
                   for _ in range(cfg.num_layers)]
     else:
         one = attn.mla_cache_init if cfg.uses_mla else attn.gqa_cache_init
-        blocks = [one(cfg, batch, max_len, dtype, device) for _ in range(cfg.num_layers)]
+        kw = {} if cfg.uses_mla else {"kv_heads": kv_heads}
+        blocks = [one(cfg, batch, max_len, dtype, device, **kw) for _ in range(cfg.num_layers)]
     caches = {"blocks": blocks}
     if cfg.attn_every:
         caches["shared_attn"] = [attn.gqa_cache_init(cfg, batch, max_len, dtype, device)

@@ -16,6 +16,14 @@ on the card runs the flash kernel forward in both the forward and the
 remat recompute; its backward is the plain version's
 (``kernels.flash_attention.FlashAttentionFunction``).
 
+Across processes (``group``, ``model``): each data position computes on
+its rows of every microbatch and the grads are averaged over the data
+group; with a model group (one process per mesh position) the loss runs
+tensor and expert parallel under ``dist.tensor.parallel`` (the chunked
+CE's logits gathered whole inside each chunk's checkpoint, so the gather
+runs again in the recompute), and MoE layers route each microbatch's
+tokens across the data group (``models.moe``).
+
 ``make_pipeline_train_step`` is the pipeline-parallel sibling: the same
 microbatch grad accumulation, but *through* the pipe of
 :mod:`repro_torch.dist.pipeline` (uneven stage cuts, gpipe or 1f1b
@@ -30,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist import tensor as tp
 from repro_torch.models import encdec, transformer
 from repro_torch.optim import adamw
 from repro_torch.tree import leaves, tree_map, unflatten
@@ -115,30 +124,25 @@ def value_and_grad(loss_fn, params, batch):
     return (loss.detach(), metrics), unflatten(params, grads)
 
 
-def _refuse_moe_across_processes(cfg, group) -> None:
-    """The reference routes a microbatch's tokens globally; dispatching
-    each process's rows alone would drop other tokens once an expert
-    overflows, so MoE configs do not train across processes yet."""
-    if group is not None and cfg.moe_experts:
-        from repro_torch.dist.sharding import MULTI_CARD_ITEM
-
-        raise ValueError(f"{cfg.name} is MoE: its router dispatches a microbatch's "
-                         f"tokens globally, and training it across processes is "
-                         f"{MULTI_CARD_ITEM}")
-
-
-def _update(opt_cfg, state, loss, metrics, grads, compress, group, shards):
+def _update(opt_cfg, state, loss, metrics, grads, compress, group, shards, model=None,
+            model_shards=None):
     """The step's tail after its (process-local) loss and grads: across
-    processes the loss, metrics and grads are ``pmean``ed (each FSDP leaf's
-    grad kept as this process's slice of the mean), then the compressor
-    runs on the global gradient and AdamW updates this process's slices
-    with the global norm.  Returns (new_state, metrics)."""
+    processes the loss, metrics and grads are ``pmean``ed over the data
+    group (each FSDP leaf's grad kept as this process's slice of the
+    mean), then the compressor runs on the global gradient and AdamW
+    updates this process's slices with the global norm, which counts each
+    model slice (``model_shards``) once.  Returns (new_state, metrics)."""
     norm_fn = adamw.global_norm
-    if group is not None:
+    if group is not None or model is not None:
         from repro_torch.dist import collective
 
         loss, metrics = collective.pmean((loss, metrics), group)
         if compress is not None:
+            if model is not None:
+                from repro_torch.dist.sharding import MULTI_CARD_ITEM
+
+                raise NotImplementedError(f"a gradient compressor under tensor "
+                                          f"parallelism is {MULTI_CARD_ITEM}")
             grads = collective.pmean(grads, group)
             grads, state = compress.apply(grads, state)
             grads = collective.slice_tree(grads, shards, group)
@@ -146,7 +150,7 @@ def _update(opt_cfg, state, loss, metrics, grads, compress, group, shards):
             grads = collective.pmean_scatter(grads, shards, group)
 
         def norm_fn(g):
-            return collective.global_norm(g, shards, group)
+            return collective.global_norm(g, shards, group, model_shards, model)
     elif compress is not None:
         grads, state = compress.apply(grads, state)
 
@@ -158,7 +162,7 @@ def _update(opt_cfg, state, loss, metrics, grads, compress, group, shards):
 
 def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *, grad_accum: int = 1,
                     aux_weight: float = 0.01, remat: bool = True, compress=None,
-                    group=None, shards=None):
+                    group=None, shards=None, model=None, model_shards=None):
     """``compress``: an optional ``optim.compress`` compressor applied to
     the (mean-reduced) grads before the optimizer.
 
@@ -170,17 +174,30 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *, grad_accum: int = 1,
     processes before the update.  ``shards`` (``dist.sharding.data_shards``
     of the params' specs) names the FSDP leaves the state holds as this
     process's slices (``fused``): the step gathers them whole, and AdamW
-    updates only the slices under the global grad norm."""
+    updates only the slices under the global grad norm.  A MoE config's
+    routing runs across the data group.
+
+    ``model`` (``dist.collective.mesh_groups``: one process per mesh
+    position, ``group`` then its data group, None for one data position)
+    runs the loss tensor and expert parallel over the model group on the
+    leaves' 'model' slices (``model_shards``, ``dist.sharding.model_shards``
+    of the specs); the FSDP gather over the data group then gives each
+    leaf's (whole, model slice) block."""
     loss_fn = make_loss_fn(cfg, aux_weight, remat)
-    _refuse_moe_across_processes(cfg, group)
 
     def train_step(state, batch):
+        with tp.parallel(model=model, routing=group):
+            return _step(state, batch)
+
+    def _step(state, batch):
         params = state["params"]
         if group is not None:
             from repro_torch.dist import collective
 
             batch = collective.shard_rows(batch, grad_accum, group.size, group.rank)
             params = collective.gather_tree(params, shards, group)
+        if model is not None:
+            transformer.check_supported(cfg)
         if grad_accum == 1:
             (loss, metrics), grads = value_and_grad(loss_fn, params, batch)
         else:
@@ -196,7 +213,8 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *, grad_accum: int = 1,
                 ms.append(m)
             loss = torch.stack(losses).mean()
             metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
-        return _update(opt_cfg, state, loss, metrics, grads, compress, group, shards)
+        return _update(opt_cfg, state, loss, metrics, grads, compress, group, shards, model,
+                       model_shards)
 
     return train_step
 
@@ -272,7 +290,14 @@ def make_pipeline_train_step(cfg, opt_cfg: adamw.AdamWConfig, mesh, *,
     """
     from repro_torch.dist.pipeline import make_pipeline_loss_and_grad
 
-    _refuse_moe_across_processes(cfg, group)
+    if group is not None and cfg.moe_experts:
+        from repro_torch.dist.sharding import MULTI_CARD_ITEM
+
+        # the pipe sizes capacity from its own rows and routes each
+        # microbatch's shard alone; the global routing of make_train_step
+        # is not wired through it
+        raise NotImplementedError(f"{cfg.name} is MoE: the pipeline across processes routes "
+                                  f"each process's rows alone, and is {MULTI_CARD_ITEM}")
     loss_grad = make_pipeline_loss_and_grad(
         cfg, mesh, num_microbatches=num_microbatches, boundaries=boundaries,
         schedule=schedule, aux_weight=aux_weight, remat=remat, group=group)

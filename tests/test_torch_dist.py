@@ -351,7 +351,10 @@ def test_place_pipeline_over_distinct_devices():
     replicas = tsh.place(params, tsh.param_specs(params, mesh, "scatter_gather"), mesh)
     assert all(leaf.device == CPU for leaf in _leaves(replicas))
     for strategy in ("ai_core_assignment", "fused"):
-        with pytest.raises(NotImplementedError, match="item 16"):
+        # one process over distinct devices: refused, naming the torchrun
+        # command that runs one process per mesh position
+        with pytest.raises(NotImplementedError,
+                           match=r"item 16.*torchrun --nproc-per-node 2 \(--strategy"):
             tsh.place(params, tsh.param_specs(params, mesh, strategy), mesh)
     data = tsh.Mesh(np.array([CPU, META], dtype=object).reshape(2, 1), ("data", "model"))
     with pytest.raises(NotImplementedError, match="item 16"):

@@ -1448,9 +1448,10 @@ def test_pipeline_stages_on_distinct_cards(cuda):
         assert float((a.to(b.device) - b).abs().max()) <= 1e-5 * max(float(b.abs().max()), 1e-30)
 
 
-def _torchrun_on_cards(module, argv):
+def _torchrun_on_cards(module, argv, per_position: bool = False):
     """``module`` under ``torchrun --standalone``, one process per data
-    position of the cards' mesh."""
+    position of the cards' mesh (with ``per_position`` one per mesh
+    position)."""
     import os
     import subprocess
     import sys
@@ -1458,7 +1459,8 @@ def _torchrun_on_cards(module, argv):
     from repro_torch.dist.sharding import data_positions
     from repro_torch.ft.elastic import make_mesh_for
 
-    n = data_positions(make_mesh_for())
+    mesh = make_mesh_for()
+    n = mesh.size if per_position else data_positions(mesh)
     src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
     env = dict(os.environ, PYTHONPATH=src)
     for var in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
@@ -1498,6 +1500,23 @@ def test_train_launcher_pipeline_on_card(cuda, capsys):
 
 
 @pytest.mark.gpu
+def test_train_launcher_per_mesh_position_on_cards(cuda):
+    """With four or more cards the cards' mesh puts 'model' over distinct
+    cards: ``torchrun`` with one process per mesh position trains under
+    fused (tensor and expert parallel over NCCL) to ``done``."""
+    from repro_torch.ft.elastic import make_mesh_for
+
+    mesh = make_mesh_for()
+    if mesh.shape["model"] < 2:
+        pytest.skip("needs four CUDA devices (a 'model' axis over distinct cards)")
+    r = _torchrun_on_cards("repro_torch.launch.train",
+                           ["--steps", "2", "--seq", "512", "--batch", "4"], per_position=True)
+    assert r.returncode == 0, r.stdout + r.stderr
+    out = r.stdout.splitlines()
+    assert out[0].endswith(f"strategy fused  mesh {mesh.shape}") and out[-1] == "done"
+
+
+@pytest.mark.gpu
 def test_serve_launcher_strategy_on_card(cuda, capsys):
     """``launch.serve --strategy ai_core_assignment`` on the card: params
     placed on the card's mesh, the static path through the decode kernel."""
@@ -1505,16 +1524,14 @@ def test_serve_launcher_strategy_on_card(cuda, capsys):
 
     argv = ["--strategy", "ai_core_assignment", "--new-tokens", "8"]
     if torch.cuda.device_count() > 1:
-        # under torchrun each data position serves its rows; TP shards over
-        # distinct cards (a 'model' axis over several cards) stay refused
+        # under torchrun each data position serves its rows; a 'model' axis
+        # over several cards runs one process per mesh position (NCCL)
         from repro_torch.ft.elastic import make_mesh_for
 
-        r = _torchrun_on_cards("repro_torch.launch.serve", argv)
-        if make_mesh_for().shape["model"] > 1:
-            assert r.returncode != 0 and "item 16" in r.stderr, r.stdout + r.stderr
-        else:
-            assert r.returncode == 0, r.stdout + r.stderr
-            assert r.stdout.splitlines()[-1].startswith("decode 7 steps: ")
+        tp_cards = make_mesh_for().shape["model"] > 1
+        r = _torchrun_on_cards("repro_torch.launch.serve", argv, per_position=tp_cards)
+        assert r.returncode == 0, r.stdout + r.stderr
+        assert r.stdout.splitlines()[-1].startswith("decode 7 steps: ")
         return
     n0 = tdec.decode_attention.launches
     res = tserve.main(argv)
