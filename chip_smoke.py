@@ -26,18 +26,19 @@ qwen3_0p6b (f32, random weights from seed 0):
   planned events, the streams equal to the clean run's under the margin
   rule, no page leaked, no kernel launch after the degrade and ``auto``
   dispatch restored after it; decode_nan and device_loss again on int8
-  weights and pools over the first 7 layers (depth cut for run time),
+  weights and pools over the first 4 layers (depth cut for run time),
   every token, counter and event equal to the same run with the GEMMs on
   their plain version;
 * single-device training (``[train]``): ``train.step.make_train_step`` on
-  the same weights at batch 4, seq 2048, grad_accum 2, remat, with
+  the same weights' first 14 layers (a depth cut for run time) at batch
+  4, seq 2048, grad_accum 2, remat, with
   ``SyntheticLM`` batches, four steps through an ``AsyncCheckpointer``:
   step 1 held to the same step on the plain versions (loss and every
-  gradient leaf), flash launched 2 x 28 x 2 times a step (forward and
+  gradient leaf), flash launched 2 x 14 x 2 times a step (forward and
   remat recompute; the backward recomputes the plain version), the state
   saved after step 2 restored bitwise into a fresh state, and step 3 from
   it held to the uninterrupted step 3;
-* the pipeline runtime (``[pipeline]``): the same weights' first 16 layers
+* the pipeline runtime (``[pipeline]``): the same weights' first 12 layers
   (a depth cut for run time) and batch (B 4, seq 2048) through four stages
   on the one card
   (``make_mesh_for([dev] * 4, model_axis=4)``, m 4 from
@@ -47,7 +48,7 @@ qwen3_0p6b (f32, random weights from seed 0):
   ``loss_and_grad`` bitwise equal and held to the single-device
   ``value_and_grad``, schedule counts against ``pipeline_bubble_counts``,
   and three ``make_pipeline_train_step`` steps, each launching flash
-  3 x 16 x 4 times, timed against the single-device step;
+  3 x 12 x 4 times, timed against the single-device step;
 * the training supervisor (``[train-ft]``): ``ft.supervisor.TrainSupervisor``
   on the same weights' first 12 layers (a depth cut for run time) at batch
   4, seq 512, checkpoints in a temporary
@@ -71,7 +72,8 @@ qwen3_0p6b (f32, random weights from seed 0):
 * multi-card execution over the data axes (``[multi]``): two processes,
   one per data position (``dist.collective``: spawned fresh, gloo as they
   share the one card; again over NCCL on distinct cards where there are
-  two or more), each on its row of the global batch (B 2 x 512, f32):
+  two or more), each on its row of the global batch (B 2 x 512, f32;
+  qwen3's first 14 of 28 layers):
   two train steps each under scatter_gather and fused on the (2, 1) mesh
   and pipeline on the (2, 2) mesh (two stages a process), then the static
   path (8 new tokens); every process's loss and grad norm, and the
@@ -84,16 +86,24 @@ qwen3_0p6b (f32, random weights from seed 0):
   process per mesh position (``dist.collective.mesh_groups``, spawned
   fresh, gloo as they share the one card; the qwen3 jobs again over NCCL
   on distinct cards where there are enough), flash and dense decode first
-  held to their plain versions at the local head counts; qwen3_0p6b at
-  full width, f32, B 2 x 512, two train steps under ai_core_assignment
-  (1, 2) and fused (2, 2), loss and grad norm within 1e-5 of the same
-  rows in one process, params within 1e-4, flash launches exact, placed
-  bytes equal to the stand-in's, then the static path on (1, 2) (tokens
-  equal under the margin rule, decode launches exact at 8 / 4 heads);
-  deepseek_v2_236b's static path at the ``[moe]`` depth under
-  ai_core_assignment (1, 2), tokens equal to the one-process ``[moe]``
-  run's; mixtral_8x22b training with 4 experts a process (1 layer, bf16
-  params and moments), loss and grad norm within 1e-2 of one process;
+  held to their plain versions at the local head counts (the families'
+  too, and the dequant GEMM at int8 zamba2's whole projections);
+  qwen3_0p6b at full width (14 layers), f32, B 2 x 512, two train steps
+  under ai_core_assignment (1, 2) and fused (2, 2), loss and grad norm
+  within 1e-5 of the same rows in one process, params within 1e-4, flash
+  launches exact, placed bytes equal to the stand-in's, then the static
+  path on (1, 2) (tokens equal under the margin rule, decode launches
+  exact at 8 / 4 heads); deepseek_v2_236b's static path at the ``[moe]``
+  depth under ai_core_assignment (1, 2), tokens equal to the one-process
+  ``[moe]`` run's; mixtral_8x22b training with 4 experts a process (1
+  layer, bf16 params and moments), loss and grad norm within 1e-2 of one
+  process; then the SSM, hybrid, enc-dec and VLM families at full width
+  (``TP_FAMILY_LAYERS``): mamba2 and zamba2 two steps and the static path
+  on (1, 2), zamba2 on int8 weights (static) and under fused (2, 2),
+  seamless two steps and ``generate`` after 1024 frames, internvl2
+  ``generate`` after 256 patch embeddings; the same gates (params where
+  every step's update is decided), flash / decode / dequant launches and
+  the caches' KV and SSM state heads a process exact;
 * the VTA path: ResNet-18's convolutions (batch 1, 224 x 224) as int8
   GEMMs through ``ops.vta_conv2d`` and ``ops.dense_requant_int8``, the
   conv weights packed K-major by ``ops.pack_conv_weight``;
@@ -108,7 +118,7 @@ qwen3_0p6b (f32, random weights from seed 0):
   held to the planner's ``resnet18_graph``, timed at batch 1 and 32;
 * the cluster planner: ``auto_schedule`` of ResNet-18's graph on 1-12
   simulated Zynq-7020 boards;
-* the MoE family at full width with depth cut to 2 layers, random weights
+* the MoE family at full width with depth cut to 1 layer, random weights
   from the port's ``init`` (seed 0), each model freed before the next:
   deepseek_v2_236b (MLA, 160 routed + 2 shared experts, top-6) through the
   static path (batch 2, prompt 1024 in two 512-token chunks — flash at
@@ -164,6 +174,7 @@ JSON record.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib
 import json
 import subprocess
@@ -1723,8 +1734,9 @@ def flash_family_phase(torch, gen, dev, card: str) -> float:
 # the MoE family: deepseek_v2_236b and mixtral_8x22b at full width
 # ---------------------------------------------------------------------------
 
-# every width is the published config's; the one cut is depth, to 2 layers
-MOE_LAYERS = 2
+# every width is the published config's; the one cut is depth, to 1 layer
+# (2 would fit; 1 keeps the whole run, the [tp] families included, in time)
+MOE_LAYERS = 1
 # static path: (batch, prompt, prefill chunk, new tokens).  deepseek's two
 # 512-token chunks run flash at MLA's shape (G 1, D 192, Dv 128) and its
 # decode the absorbed dense kernel (G 128, D 576, Dv 512); mixtral's
@@ -2600,14 +2612,16 @@ SERVE_FT_INT8 = [("int8 decode_nan", None, {}, (20,)),
                  ("int8 device_loss", "device_loss:step=25,lose=1", {"devices": [0, 1, 2, 3]},
                   ())]
 # the int8 runs hold the kernels to the plain GEMM within the same runs, so
-# they take the first 7 of the 28 layers (depth cut to keep the whole run
-# under 900 s; every width and gate kept)
-SERVE_FT_INT8_LAYERS = 7
-# the [train] phase: qwen3_0p6b full width, f32, remat, SyntheticLM batches
+# they take the first 4 layers (depth cut to keep the whole run under 900 s;
+# every width and gate kept)
+SERVE_FT_INT8_LAYERS = 4
+# the [train] phase: qwen3_0p6b full width, f32, remat, SyntheticLM batches,
+# the main path's first 14 of 28 layers (a depth cut for run time)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS, TRAIN_SAVE_AT = 4, 2048, 2, 4, 2
+TRAIN_LAYERS = 14
 # step 1 against the same step on the plain versions: the loss (f32 sums
 # over 8192 tokens in another order) and each gradient leaf against its
-# max|grad| (the kernel's ~1e-6 attention differences through 28 layers)
+# max|grad| (the kernel's ~1e-6 attention differences through the layers)
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
 # the restored step 3 against the uninterrupted one
 TRAIN_RESUME_TOL = 1e-6
@@ -2616,9 +2630,9 @@ TRAIN_RESUME_TOL = 1e-6
 # backward unit's re-run and its remat recompute) where the single-device
 # step runs two
 PIPE_STAGES, PIPE_STEPS = 4, 3
-# depth cut 28 -> 16 for run time (the main path's first 16 layers; an even
-# planner cut of 4 a stage): every comparison and gate stays
-PIPE_LAYERS = 16
+# depth cut 28 -> 12 for run time (the main path's first 12 layers; an even
+# planner cut of 3 a stage): every comparison and gate stays
+PIPE_LAYERS = 12
 # pipelined vs single-device on the same batch, both on the kernels: the
 # loss (f32 CE sums in microbatches of 1 vs one batch of 4) and each grad
 # leaf against its max (GEMMs at M 2048 vs 8192 sum in other orders)
@@ -3556,6 +3570,9 @@ def tune_phase(torch, params, cfg, dev, card: str, untuned: dict) -> dict:
 # multi-card execution over the data axes ([multi]): 2 processes, one per
 # data position, at full width; B 2 x 512 (one row a process), f32
 MULTI_PROCS, MULTI_SEQ, MULTI_BATCH, MULTI_STEPS, MULTI_NEW = 2, 512, 2, 2, 8
+# qwen3's depth in [multi] and [tp]: its first 14 of 28 layers (a cut for
+# run time, with the [tp] families; every width and gate kept)
+MULTI_LAYERS = TP_QWEN_LAYERS = 14
 # across processes the gradient sums run in another order (all_reduce)
 MULTI_TOL = 1e-5
 # the plain one-process step (grad_accum 1: the global batch in one GEMM,
@@ -3900,6 +3917,17 @@ TP_TOL = 1e-5
 # a gradient is near zero: params held at this distance, as [multi]'s plain
 # one-process step
 TP_PARAM_TOL = 1e-4
+# AdamW's first updates are lr * g / (|g| + eps): where a step's one-process
+# gradient g is near zero, or within the processes' own gradient of it by
+# less than its size, the two arithmetics' updates may point apart by up to
+# lr.  The families' params are held where every step's update is decided:
+# |g| >= TP_GRAD_FLOOR (100 x AdamW's eps, as the CPU tests hold them) and
+# |g_processes - g| <= TP_TIE * |g| (then the updates differ by at most
+# 2 eps / |g| <= 2e-2 of lr).  mamba2 (16 layers, full width) read
+# 2.01e-4 from one process on an H100 at 5 of ~2e8 elements whose
+# gradients clear the floor, its loss and grad norm within 2e-6: the
+# undecided count and the worst element over all are printed
+TP_GRAD_FLOOR, TP_TIE = 1e-6, 0.5
 TP_TIMEOUT = 600
 # deepseek_v2_236b static under ai_core_assignment on (1, 2) at the [moe]
 # phase's depth and shapes (MOE_STATIC); mixtral_8x22b training across 2
@@ -3915,6 +3943,22 @@ TP_MIXTRAL_LAYERS, TP_MIXTRAL_DTYPE = 1, "bfloat16"
 TP_BF16_TOL = 1e-2
 # the one-process [moe] run's f32 static tokens and top-2 margins, per config
 MOE_TOKENS: dict = {}
+# the SSM, hybrid, enc-dec and VLM families under TP at full width, f32:
+# mamba2 (16 layers, as [families]) and zamba2 (12 layers) two AdamW steps
+# at B 2 x 512 under ai_core_assignment (1, 2), then the static path (B 2,
+# prompt 512, 8 new); zamba2 again on quantize_params weights (static) and
+# under fused on (2, 2) (training, TP_FUSED_LAYERS); seamless, encoder and decoder 24 -> 6
+# for run time, two steps and generate with 1024 stub frames; internvl2 at
+# the [vlm] phase's depth 2, generate after 256 stub patch embeddings.
+# internvl2 trains on the CPU only (tests/test_torch_tp.py): its f32
+# training state at depth 2 (~3.8 B params x 16 bytes = 61 GB) and two
+# processes' activations would not fit the card
+TP_FAMILY_LAYERS = {"mamba2_2p7b": 16, "zamba2_2p7b": 12, "internvl2_76b": 2}
+# zamba2 under fused on (2, 2): one group of six layers around the shared
+# block (four processes' FSDP and TP collectives cross the host)
+TP_FUSED_LAYERS = 6
+TP_SEAMLESS_LAYERS = 6
+TP_FRAMES, TP_PATCHES = 1024, 256
 
 
 def _tp_mesh(torch, devs, shape):
@@ -3927,34 +3971,161 @@ def _tp_mesh(torch, devs, shape):
 
 
 def tp_child(rank, nprocs, init_method, job):
-    """One mesh position of the ``[tp]`` phase (a spawned process): the
-    job's train steps or static path tensor and expert parallel over its
-    model group; process 0 then runs the same work in one process where the
-    job asks.  Writes its record as JSON to ``job["out"]/tp_<rank>.json``."""
+    """One mesh position of the ``[tp]`` phase (a spawned process): each of
+    the job's tasks in turn (``job["tasks"]``: train steps, the static path
+    or ``generate``, tensor and expert parallel over its model group, the
+    task's state freed before the next); process 0 then runs the same work
+    in one process where the task asks.  Writes its records (one a task)
+    as JSON to ``job["out"]/tp_<rank>.json``."""
     import torch
     import torch.distributed as tdist
 
-    from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.dist import collective
-    from repro_torch.dist.sharding import data_shards, model_shards, param_specs, place
-    from repro_torch.ft.elastic import state_shardings
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.launch.dryrun import tree_bytes
-    from repro_torch.launch.serve import run_static
-    from repro_torch.models import transformer as tf
-    from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.train import step as st
-    from repro_torch.tree import flatten_with_path, leaves as tree_leaves
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    kind, cfg, strategy, shape, devs = (job[k] for k in ("kind", "cfg", "strategy", "shape",
-                                                         "devs"))
+    shape, devs = job["shape"], job["devs"]
     mesh = _tp_mesh(torch, devs, shape)
     data, model = collective.mesh_groups(mesh, init_method=init_method, rank=rank,
                                          world_size=nprocs)
     dev = torch.device(devs[rank])
+    coll = {"s": 0.0, "calls": 0}
     cuda = dev.type == "cuda"
+
+    def timed(fn):
+        def run(*a, **kw):
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                if cuda:
+                    torch.cuda.synchronize()
+                coll["s"] += time.perf_counter() - t0
+                coll["calls"] += 1
+        return run
+
+    for name in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor"):
+        setattr(tdist, name, timed(getattr(tdist, name)))
+    ctx = dict(rank=rank, nprocs=nprocs, mesh=mesh, data=data, model=model, dev=dev,
+               coll=coll, shape=shape)
+    recs = [tp_task(torch, dict(task, out=job["out"]), ctx) for task in job["tasks"]]
+    with open(Path(job["out"]) / f"tp_{rank}.json", "w") as f:
+        json.dump(recs, f)
+    collective.close(data, model)
+
+
+def tp_frontend(torch, cfg, dev, rows: int, side: int, seed: int):
+    """The frontend stub's input of a [tp] task: ``rows`` samples of
+    ``side`` encoder frames (enc-dec) or patch embeddings (VLM), from
+    ``seed``; {} for a decoder-only LM."""
+    if not side:
+        return {}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((rows, side, cfg.d_model), generator=gen, device=dev)
+    return {"frames": x} if cfg.is_enc_dec else {"embeds": x}
+
+
+def tp_greedy(torch, params, cfg, prompts, new: int, chunk: int, max_len: int, extra: dict):
+    """Greedy generation in one process through the serving steps, with
+    every step's logits: ``generate``'s arithmetic (the same chunk)."""
+    from repro_torch.models import encdec
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.step import make_prefill_step, make_serve_step
+
+    mod = encdec if cfg.is_enc_dec else tf
+    caches = mod.init_caches(cfg, prompts.shape[0], max_len, torch.float32, prompts.device)
+    with torch.inference_mode():
+        out = make_prefill_step(cfg, chunk, return_logits=True)(params, prompts, caches, **extra)
+        kv = out[-1] if cfg.is_enc_dec else None
+        tok, lg, caches = out[0][:, None], out[1], out[2]
+        step = make_serve_step(cfg, return_logits=True)
+        toks, logits = [tok], [lg[:, -1]]
+        for _ in range(new - 1):
+            tok, lg, caches = step(params, toks[-1], caches, kv)
+            toks.append(tok)
+            logits.append(lg[:, -1])
+    return torch.cat(toks, dim=1), torch.stack(logits, dim=1)
+
+
+def tp_reference(torch, ctx, cfg, strategy, opt, make_params, dtype, batches, free,
+                 sync) -> dict:
+    """The task's train steps in one process, on every process in turn
+    after the processes' own steps (process 0 first, alone, its step times
+    the phase's one-process reading; then the others together): the same
+    rows, each data position's rows as a microbatch of their own, as the
+    processes compute them.  Returns each step's metrics and this
+    process's slices (its data and model shards) of each step's gradients
+    and of the final params, so that no process gathers a whole tree."""
+    from repro_torch.dist import collective
+    from repro_torch.dist.sharding import data_shards, model_shards
+    from repro_torch.ft.elastic import state_shardings
+    from repro_torch.train import step as st
+    from repro_torch.tree import leaves as tree_leaves
+
+    rank, mesh, data, model, shape = (ctx[k] for k in ("rank", "mesh", "data", "model",
+                                                        "shape"))
+    out = None
+    for turn in (0, 1):
+        if (rank == 0) == (turn == 0):
+            state = st.make_state(make_params(), dtype)
+            specs = state_shardings(state, mesh, strategy)["params"]
+            dsh = data_shards(specs, mesh) if data is not None else None
+            msh = model_shards(specs, mesh)
+
+            def mine(tree):
+                return tree_leaves(collective.slice_tree(
+                    collective.slice_tree(tree, dsh, data), msh, model))
+
+            grads = []
+            apply = st.adamw.apply
+
+            def spy(c, p, g, s_, norm_fn=st.adamw.global_norm):
+                grads.append(mine(g))
+                return apply(c, p, g, s_, norm_fn)
+
+            one = st.make_train_step(cfg, opt, grad_accum=shape[0])
+            steps = []
+            st.adamw.apply = spy
+            try:
+                for b in batches:
+                    sync()
+                    t0 = time.perf_counter()
+                    state, met = one(state, b)
+                    steps.append(dict(loss=float(met["loss"]),
+                                      grad_norm=float(met["grad_norm"]),
+                                      ms=(time.perf_counter() - t0) * 1e3))
+            finally:
+                st.adamw.apply = apply
+            out = dict(steps=steps, grads=grads, params=mine(state["params"]))
+            del state, one
+            free()
+        collective.barrier(model, data)
+    return out
+
+
+def tp_task(torch, task, ctx):
+    """One task of a ``tp_child``: its record (module docstring of the
+    ``[tp]`` phase; ``tp_phase``)."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist import collective
+    from repro_torch.dist.sharding import data_shards, model_shards, param_specs, place
+    from repro_torch.ft.elastic import state_shardings
+    from repro_torch.launch.dryrun import tree_bytes
+    from repro_torch.launch.serve import run_static
+    from repro_torch.models import encdec
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.quant import quantize_params
+    from repro_torch.serve.step import generate
+    from repro_torch.train import step as st
+    from repro_torch.tree import flatten_with_path, leaves as tree_leaves
+
+    rank, nprocs, mesh, data, model, dev, coll, shape = (
+        ctx[k] for k in ("rank", "nprocs", "mesh", "data", "model", "dev", "coll", "shape"))
+    kind, cfg, strategy = task["kind"], task["cfg"], task["strategy"]
+    cuda = dev.type == "cuda"
+    side = task.get("side", 0)
 
     def sync():
         if cuda:
@@ -3966,29 +4137,15 @@ def tp_child(rank, nprocs, init_method, job):
     def free():
         if cuda:
             torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
 
-    coll = {"s": 0.0, "calls": 0}
-
-    def timed(fn):
-        def run(*a, **kw):
-            sync()
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **kw)
-            finally:
-                sync()
-                coll["s"] += time.perf_counter() - t0
-                coll["calls"] += 1
-        return run
-
-    for name in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor"):
-        setattr(tdist, name, timed(getattr(tdist, name)))
-
-    dtype = getattr(torch, job.get("dtype", "float32"))
+    dtype = getattr(torch, task.get("dtype", "float32"))
 
     def make_params():
-        return tf.init(cfg, generator=torch.Generator(device=dev).manual_seed(0),
-                       dtype=dtype, device=dev)
+        mod = encdec if cfg.is_enc_dec else tf
+        params = mod.init(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                          dtype=dtype, device=dev)
+        return quantize_params(params) if task.get("int8") else params
 
     def placed_in_turn(make, specs_of):
         """Each process in turn makes the whole tree on the card, keeps its
@@ -4007,11 +4164,12 @@ def tp_child(rank, nprocs, init_method, job):
 
     rec = {"rank": rank, "backend": model.backend, "device": str(dev), "layers": cfg.num_layers}
     if kind == "train":
-        opt = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=job["steps"],
-                          moments_dtype=job.get("dtype", "float32"))
-        gen = SyntheticLM(cfg.vocab, job["seq"], job["batch"], seed=0)
-        batches = [{"tokens": torch.from_numpy(gen.batch(i)["tokens"]).long().to(dev)}
-                   for i in range(job["steps"])]
+        opt = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=task["steps"],
+                          moments_dtype=task.get("dtype", "float32"))
+        gen = SyntheticLM(cfg.vocab, task["seq"], task["batch"], seed=0)
+        batches = [dict(tokens=torch.from_numpy(gen.batch(i)["tokens"]).long().to(dev),
+                        **tp_frontend(torch, cfg, dev, task["batch"], side, 2 + i))
+                   for i in range(task["steps"])]
         state, specs, expect = placed_in_turn(
             lambda: st.make_state(make_params(), dtype),
             lambda s: state_shardings(s, mesh, strategy))
@@ -4022,86 +4180,121 @@ def tp_child(rank, nprocs, init_method, job):
         mshards = model_shards(specs["params"], mesh)
         step = st.make_train_step(cfg, opt, group=data, shards=shards, model=model,
                                   model_shards=mshards)
+        # the gradients AdamW takes, this process's slices of them, for the
+        # comparison with one process after the steps
+        taken = []
+        apply = st.adamw.apply
+
+        def spy(c, p, g, s_, norm_fn=st.adamw.global_norm):
+            taken.append([t.detach().clone() for t in tree_leaves(g)])
+            return apply(c, p, g, s_, norm_fn)
+
         steps = []
-        for b in batches:
-            flash_attention.launches = 0
-            coll.update(s=0.0, calls=0)
+        if task.get("compare"):
+            st.adamw.apply = spy
+        try:
+            for b in batches:
+                reset_counts()
+                coll.update(s=0.0, calls=0)
+                sync()
+                collective.barrier(model, data)
+                t0 = time.perf_counter()
+                state, met = step(state, b)
+                loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+                sync()
+                steps.append(dict(loss=loss, grad_norm=gnorm,
+                                  ms=(time.perf_counter() - t0) * 1e3,
+                                  collective_ms=coll["s"] * 1e3, collectives=coll["calls"],
+                                  flash=kernel_counts()["flash_attention"]))
+        finally:
+            st.adamw.apply = apply
+        rec["steps"] = steps
+        rec["peak_gib"] = peak_gib()
+        mine = state["params"]
+        del state, step
+        free()
+        if task.get("compare"):
+            # this process's slices against the same slices of the one-process
+            # params: over every element, and where every step's update is
+            # decided (TP_GRAD_FLOOR, TP_TIE)
+            ref = tp_reference(torch, ctx, cfg, strategy, opt, make_params, dtype, batches,
+                               free, sync)
+            rec["one_process"] = ref["steps"]
+            clear = None
+            for got, one in zip(taken, ref["grads"]):
+                decided = [(b.abs() >= TP_GRAD_FLOOR) & ((a - b).abs() <= TP_TIE * b.abs())
+                           for a, b in zip(got, one)]
+                clear = decided if clear is None else [x & y for x, y in zip(clear, decided)]
+            errs = []
+            for (p, a), b, c in zip(flatten_with_path(mine), ref["params"], clear):
+                d = (a - b).abs()
+                errs.append((float(d.max()), float((d * c).max()), int((~c).sum()),
+                             "/".join(map(str, p))))
+            rec["param_err"], _, _, rec["param_err_leaf"] = max(errs)
+            rec["param_err_clear"], _, _, rec["param_err_clear_leaf"] = max(
+                (e[1], e[0], e[2], e[3]) for e in errs)
+            rec["undecided"] = sum(e[2] for e in errs)
+            del ref, clear
+        del mine, taken
+        free()
+        collective.barrier(model, data)
+    if kind in ("train", "serve") and task.get("serve"):
+        params, _, _ = placed_in_turn(make_params, lambda p: param_specs(p, mesh, strategy))
+        batch, prompt, chunk, new = task["serve"]
+        gen = torch.Generator(device=dev).manual_seed(1)
+        prompts = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen, device=dev)
+        extra = tp_frontend(torch, cfg, dev, batch, side, 1)
+        max_len = prompt + new + (0 if cfg.is_enc_dec else side)
+        reset_counts()
+        coll.update(s=0.0, calls=0)
+        if task.get("entry", "static") == "static":
+            res = run_static(params, cfg, prompts, new_tokens=new, chunk=chunk, mesh=mesh,
+                             group=data, model=model)
+            tokens, times = res["tokens"], (res["prefill_s"], res["decode_s"])
+        else:
             sync()
             collective.barrier(model, data)
             t0 = time.perf_counter()
-            state, met = step(state, b)
-            loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+            tokens = generate(params, cfg, prompts, new, max_len, torch.float32, chunk=chunk,
+                              model=model, **extra)
             sync()
-            steps.append(dict(loss=loss, grad_norm=gnorm, ms=(time.perf_counter() - t0) * 1e3,
-                              collective_ms=coll["s"] * 1e3, collectives=coll["calls"],
-                              flash=flash_attention.launches))
-        rec["steps"] = steps
-        rec["peak_gib"] = peak_gib()
-        if job.get("compare"):
-            whole = collective.gather_tree(collective.gather_tree(state["params"], shards, data),
-                                           mshards, model)
-            del state
-            free()
-            if rank == 0:
-                # the same rows in one process: each data position's rows as
-                # a microbatch of their own, as the processes compute them
-                ref = st.make_state(make_params(), dtype)
-                one = st.make_train_step(cfg, opt, grad_accum=shape[0])
-                rsteps = []
-                for b in batches:
-                    flash_attention.launches = 0
-                    sync()
-                    t0 = time.perf_counter()
-                    ref, met = one(ref, b)
-                    rsteps.append(dict(loss=float(met["loss"]),
-                                       grad_norm=float(met["grad_norm"]),
-                                       ms=(time.perf_counter() - t0) * 1e3))
-                rec["one_process"] = rsteps
-                rec["param_err"], rec["param_err_leaf"] = max(
-                    (float((a - b).abs().max()), "/".join(map(str, p)))
-                    for (p, a), (_, b) in zip(flatten_with_path(whole),
-                                              flatten_with_path(ref["params"])))
-                del ref
-            del whole
-        else:
-            del state
-        free()
-        collective.barrier(model, data)
-    if kind in ("train", "serve") and job.get("serve"):
-        params, _, _ = placed_in_turn(make_params,
-                                      lambda p: param_specs(p, mesh, strategy))
-        batch, prompt, chunk, new = job["serve"]
-        gen = torch.Generator(device=dev).manual_seed(1)
-        prompts = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen, device=dev)
-        flash_attention.launches = decode_attention.launches = 0
-        res = run_static(params, cfg, prompts, new_tokens=new, chunk=chunk, mesh=mesh,
-                         group=data, model=model)
-        serve = {"flash": flash_attention.launches, "decode": decode_attention.launches,
-                 "prefill_ms": res["prefill_s"] * 1e3, "decode_ms": res["decode_s"] * 1e3,
-                 "tokens": res["tokens"].tolist(),
-                 "kv_heads": tf.cache_kv_heads(params, cfg),
-                 "peak_gib": peak_gib()}
+            times = (None, time.perf_counter() - t0)
+        counts = kernel_counts()
+        serve = {"counts": counts, "flash": counts["flash_attention"],
+                 "decode": counts["decode_attention"], "collective_ms": coll["s"] * 1e3,
+                 "collectives": coll["calls"],
+                 "prefill_ms": times[0] and times[0] * 1e3, "decode_ms": times[1] * 1e3,
+                 "tokens": tokens.tolist(),
+                 "kv_heads": (encdec if cfg.is_enc_dec else tf).cache_kv_heads(params, cfg),
+                 "ssm_heads": tf.cache_ssm_heads(cfg, model), "peak_gib": peak_gib()}
         del params
         free()
         collective.barrier(model, data)
-        if rank == 0 and job.get("compare"):
+        if rank == 0 and task.get("compare"):
             whole = make_params()
-            ref = run_static(whole, cfg, prompts, new_tokens=new, chunk=chunk,
-                             return_logits=True)
-            top2 = torch.stack(ref["logits"], dim=1).topk(2, dim=-1).values
-            serve["one_process_tokens"] = ref["tokens"].tolist()
+            if task.get("entry", "static") == "static":
+                ref = run_static(whole, cfg, prompts, new_tokens=new, chunk=chunk,
+                                 return_logits=True)
+                one, logits = ref["tokens"], torch.stack(ref["logits"], dim=1)
+                serve["one_process_ms"] = ref["decode_s"] * 1e3
+            else:
+                sync()
+                t0 = time.perf_counter()
+                one, logits = tp_greedy(torch, whole, cfg, prompts, new, chunk, max_len, extra)
+                sync()
+                serve["one_process_ms"] = (time.perf_counter() - t0) * 1e3
+            top2 = logits.topk(2, dim=-1).values
+            serve["one_process_tokens"] = one.tolist()
             serve["one_process_margin"] = (top2[..., 0] - top2[..., 1]).tolist()
-            serve["one_process_decode_ms"] = ref["decode_s"] * 1e3
-            del whole, ref
+            del whole, logits
+            free()
         rec["serve"] = serve
-    with open(Path(job["out"]) / f"tp_{rank}.json", "w") as f:
-        json.dump(rec, f)
-    collective.close(data, model)
+    return rec
 
 
 def tp_spawn(torch, label: str, job: dict) -> list:
     """Run ``job`` on every mesh position (``collective.spawn``, a file store
-    under ``build/tp``); returns the processes' records."""
+    under ``build/tp``); returns the processes' records, a list a task."""
     import math
     import shutil
 
@@ -4119,13 +4312,16 @@ def tp_spawn(torch, label: str, job: dict) -> list:
                      workdir=str(out))
     log(f"[tp] {label}: {n} processes on {job['devs']} done in "
         f"{time.perf_counter() - t0:.1f} s")
-    return [json.loads((out / f"tp_{r}.json").read_text()) for r in range(n)]
+    per_rank = [json.loads((out / f"tp_{r}.json").read_text()) for r in range(n)]
+    return [list(recs) for recs in zip(*per_rank)]
 
 
 def tp_check_train(label: str, recs: list, flash_per: int, card: str, *, params=True,
                    tol: float = TP_TOL) -> int:
     """The [multi] gates on a TP train job, losses and grad norms within
-    ``tol``; returns its flash launches."""
+    ``tol``, params within TP_PARAM_TOL (``params="tie"``: where every
+    step's update is decided, TP_GRAD_FLOOR and TP_TIE); returns its flash
+    launches."""
     ref = recs[0].get("one_process")
     total = 0
     for i in range(len(recs[0]["steps"])):
@@ -4148,10 +4344,21 @@ def tp_check_train(label: str, recs: list, flash_per: int, card: str, *, params=
             f"process {ref[i]['ms']:.1f} ms; collectives {recs[0]['steps'][i]['collectives']} "
             f"calls, {[round(x, 1) for x in cms]} ms; flash {flash_per} a process; on {card}")
     if params:
-        check(recs[0]["param_err"] <= TP_PARAM_TOL,
-              f"[tp] {label}: params {recs[0]['param_err']} from one process")
-        log(f"[tp] {label}: params after {len(ref)} steps within {recs[0]['param_err']:.3e} of "
-            f"one process (tol {TP_PARAM_TOL}; worst leaf {recs[0]['param_err_leaf']})")
+        # each process held its slices to the same slices of one process's
+        err, leaf = max((run["param_err"], run["param_err_leaf"]) for run in recs)
+    if params == "tie":
+        clear, cleaf = max((run["param_err_clear"], run["param_err_clear_leaf"]) for run in recs)
+        check(clear <= TP_PARAM_TOL, f"[tp] {label}: params {clear} ({cleaf}) from one process "
+              f"where every step's update is decided")
+        log(f"[tp] {label}: params after {len(ref)} steps within {clear:.3e} of one process where "
+            f"every step's update is decided (|g| >= {TP_GRAD_FLOOR}, processes within "
+            f"{TP_TIE} |g|; tol {TP_PARAM_TOL}; worst leaf {cleaf}); over every element "
+            f"{err:.3e} ({leaf}); {sum(run['undecided'] for run in recs)} elements undecided "
+            f"over the processes' slices")
+    elif params:
+        check(err <= TP_PARAM_TOL, f"[tp] {label}: params {err} from one process")
+        log(f"[tp] {label}: params after {len(ref)} steps within {err:.3e} of one process (tol "
+            f"{TP_PARAM_TOL}; worst leaf {leaf})")
     for r, run in enumerate(recs):
         check(run["placed_bytes"] == run["expect_bytes"],
               f"[tp] {label} process {r}: placed {run['placed_bytes']} B vs the stand-in's "
@@ -4182,43 +4389,86 @@ def tp_kernel_parity(torch, gen, dev) -> dict:
     their plain versions: qwen3 at model 2 (8 query / 4 KV heads, training
     rows B 2 and B 1 at S 512, decode B 2 at kv_len 519), mixtral's 24 / 4
     (G 6), MLA at 64 heads (prefill D 192, Dv 128; absorbed decode D 576,
-    Dv 512).  Returns the worst f32 error per kernel."""
+    Dv 512), zamba2's shared block (16 / 16, D 80), seamless's encoder,
+    decoder and cross-attention (8 / 8, D 64, the S 1 cross call included)
+    and internvl2's first chunk (32 / 4, D 128); the VTA GEMM's dequant
+    epilogue at int8 zamba2's whole projections.  Returns the worst error
+    per kernel."""
     from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.ops import dense_int8
+    from repro_torch.kernels.vta_gemm import vta_gemm_ref
+    from repro_torch.optim.quant import quant_int8, quantize_dense
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
     errs = {"flash_attention": 0.0, "decode_attention": 0.0}
-    for name, (b, h, hkv, d, dv) in {"qwen3 model 2 B 2": (2, 8, 4, 128, 128),
-                                     "qwen3 model 2 B 1": (1, 8, 4, 128, 128),
-                                     "mixtral model 2": (2, 24, 4, 128, 128),
-                                     "deepseek MLA model 2": (2, 64, 64, 192, 128)}.items():
-        q, k, v = randn(b, TP_SEQ, h, d), randn(b, TP_SEQ, hkv, d), randn(b, TP_SEQ, hkv, dv)
-        got = flash_attention(q, k, v)
-        want = flash_attention_ref(q, k, v)
+    s_, t_ = TP_SEQ, 2 * TP_SEQ
+    flash_cases = {
+        "qwen3 model 2 B 2": (2, s_, s_, 8, 4, 128, 128, {}),
+        "qwen3 model 2 B 1": (1, s_, s_, 8, 4, 128, 128, {}),
+        "mixtral model 2": (2, s_, s_, 24, 4, 128, 128, {}),
+        "deepseek MLA model 2": (2, s_, s_, 64, 64, 192, 128, {}),
+        # the other families' local heads at model 2: zamba2's shared
+        # block, seamless's encoder (bidirectional over the 1024 frames),
+        # decoder and cross-attention (S 512 and a decode step's S 1),
+        # internvl2's first chunk (256 patch embeddings + 512 tokens)
+        "zamba2 model 2 shared block": (2, s_, s_, 16, 16, 80, 80, {}),
+        "seamless model 2 encoder": (2, t_, t_, 8, 8, 64, 64, {"bidirectional": True}),
+        "seamless model 2 decoder": (2, s_, s_, 8, 8, 64, 64, {}),
+        "seamless model 2 cross S 512": (2, s_, t_, 8, 8, 64, 64, {"bidirectional": True}),
+        "seamless model 2 cross S 1": (2, 1, t_, 8, 8, 64, 64, {"bidirectional": True}),
+        "internvl2 model 2 first chunk": (2, s_ + 256, s_ + 256, 32, 4, 128, 128, {}),
+    }
+    for name, (b, sq, t, h, hkv, d, dv, opts) in flash_cases.items():
+        q, k, v = randn(b, sq, h, d), randn(b, t, hkv, d), randn(b, t, hkv, dv)
+        got = flash_attention(q, k, v, **opts)
+        want = flash_attention_ref(q, k, v, **opts)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         check(torch.isfinite(got).all() and err <= TOL["float32"],
               f"[tp] flash {name}: max|err| {err}")
         errs["flash_attention"] = max(errs["flash_attention"], err)
-        log(f"[tp] flash {name} (S {TP_SEQ}, {h}/{hkv} heads, D {d}, Dv {dv}): max|err| "
-            f"{err:.3e} (tol {TOL['float32']})")
+        log(f"[tp] flash {name} (B {b}, S {sq}, T {t}, {h}/{hkv} heads, D {d}, Dv {dv}"
+            f"{', bidirectional' if opts else ''}): max|err| {err:.3e} (tol {TOL['float32']})")
     t = TP_SEQ + TP_NEW
-    for name, (b, h, hkv, d, dv, shared) in {
-            "qwen3 model 2": (TP_BATCH, 8, 4, 128, 128, False),
-            "deepseek MLA absorbed model 2": (2, 64, 1, 576, 512, True)}.items():
-        q, k = randn(b, 1, h, d), randn(b, t, hkv, d)
-        v = k[..., :dv] if shared else randn(b, t, hkv, dv)
-        got = decode_attention(q, k, v, kv_len=t - 1)
-        want = decode_attention_ref(q, k, v, kv_len=t - 1)
+    for name, (b, tt, h, hkv, d, dv, shared) in {
+            "qwen3 model 2": (TP_BATCH, t, 8, 4, 128, 128, False),
+            "deepseek MLA absorbed model 2": (2, t, 64, 1, 576, 512, True),
+            "zamba2 model 2": (TP_BATCH, t, 16, 16, 80, 80, False),
+            "seamless model 2": (TP_BATCH, t, 8, 8, 64, 64, False),
+            "internvl2 model 2": (TP_BATCH, t + 256, 32, 4, 128, 128, False)}.items():
+        q, k = randn(b, 1, h, d), randn(b, tt, hkv, d)
+        v = k[..., :dv] if shared else randn(b, tt, hkv, dv)
+        got = decode_attention(q, k, v, kv_len=tt - 1)
+        want = decode_attention_ref(q, k, v, kv_len=tt - 1)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         check(torch.isfinite(got).all() and err <= TOL["float32"],
               f"[tp] decode {name}: max|err| {err}")
         errs["decode_attention"] = max(errs["decode_attention"], err)
-        log(f"[tp] decode {name} ({h}/{hkv} heads, D {d}, Dv {dv}, kv_len {t - 1}): max|err| "
+        log(f"[tp] decode {name} ({h}/{hkv} heads, D {d}, Dv {dv}, kv_len {tt - 1}): max|err| "
             f"{err:.3e} (tol {TOL['float32']})")
+    # the VTA GEMM's dequant epilogue at int8 zamba2's shapes under (1, 2): its
+    # qw stay whole, so each process runs the whole projections (in_proj,
+    # out_proj, the shared block's wq and w_down) at the prefill's M 1024
+    # and a decode step's M 2
+    errs["vta_gemm_dequant"] = 0.0
+    for k_, n_ in ((2560, 10448), (5120, 2560), (2560, 2560), (10240, 2560)):
+        w = quantize_dense({"w": randn(k_, n_)})
+        for m_ in (TP_BATCH * TP_SEQ, TP_BATCH):
+            qx, sx = quant_int8(randn(m_, k_))
+            scale = w["qscale"] * sx
+            got = dense_int8(qx, w["qw"], scale)
+            want = vta_gemm_ref(qx, w["qw"], None, scale, epilogue="dequant")
+            torch.cuda.synchronize()
+            err = (got.double() - want.double()).abs().max().item()
+            check(torch.equal(got, want), f"[tp] dequant zamba2 int8 M {m_} K {k_} N {n_}: "
+                  f"not bitwise equal to the plain version (max|err| {err})")
+            errs["vta_gemm_dequant"] = max(errs["vta_gemm_dequant"], err)
+        log(f"[tp] dequant zamba2 int8 K {k_} N {n_} (qw whole under (1, 2)), M "
+            f"{TP_BATCH * TP_SEQ} and {TP_BATCH}: bitwise equal to the plain version")
     return errs
 
 
@@ -4226,32 +4476,29 @@ def tp_phase(torch, dev, card: str, configs=None) -> dict:
     """Tensor and expert parallelism, one process per mesh position
     (``dist.collective.mesh_groups``, spawned fresh, a file store under
     ``build/``; on one card the processes share it over gloo, which gates
-    arithmetic and layouts; with enough cards the qwen3 jobs run again over
-    distinct cards, NCCL).  qwen3_0p6b at full width, f32, global B 2 x 512:
-    two AdamW steps under ai_core_assignment on (1, 2) and fused on (2, 2),
-    each process's loss and grad norm within ``TP_TOL`` of the same rows in
-    one process, params within ``TP_PARAM_TOL``, flash launches a process
-    exact (at 8 query / 4 KV heads), placed state bytes equal to the dry-run
-    stand-in's; the static path on (1, 2), 8 new tokens, equal to one
-    process's under the margin rule, dense decode launches exact at the
-    local heads.  deepseek_v2_236b's static path at the [moe] phase's depth
-    and shapes under ai_core_assignment on (1, 2), half the experts a
-    process, tokens equal to the one-process [moe] run's under the margin
-    rule.  mixtral_8x22b training across 2 processes (EP, depth
+    arithmetic and layouts: one spawn runs every (1, 2) task in turn, one
+    every (2, 2) task; with enough cards the qwen3 jobs run again over
+    distinct cards, NCCL).  qwen3_0p6b at full width (``TP_QWEN_LAYERS``),
+    f32, global B 2 x 512: two AdamW steps under ai_core_assignment on
+    (1, 2) and fused on (2, 2), each process's loss and grad norm within
+    ``TP_TOL`` of the same rows in one process, params within
+    ``TP_PARAM_TOL``, flash launches a process exact (at 8 query / 4 KV
+    heads), placed state bytes equal to the dry-run stand-in's; the static
+    path on (1, 2), 8 new tokens, equal to one process's under the margin
+    rule, dense decode launches exact at the local heads.
+    deepseek_v2_236b's static path at the [moe] phase's depth and shapes
+    under ai_core_assignment on (1, 2), half the experts a process, tokens
+    equal to the one-process [moe] run's under the margin rule.
+    mixtral_8x22b training across 2 processes (EP, depth
     ``TP_MIXTRAL_LAYERS``, bf16 params and moments), loss and grad norm
     within ``TP_BF16_TOL`` of one process (the parent's run, after the
-    children free the card).  A failed
-    child, collective or join fails the phase; nothing falls back.
-    ``configs`` (arch -> config) replaces the full-width configs (a CPU
-    rehearsal).  Returns the launches per kernel, summed over processes,
-    and the worst parity error per kernel."""
-    import dataclasses
-
+    children free the card).  The SSM, hybrid, enc-dec and VLM families
+    (``tp_family_tasks``, gated by ``tp_check_family``).  A failed child,
+    collective or join fails the phase; nothing falls back.  ``configs``
+    (arch -> config) replaces the full-width configs (a CPU rehearsal).
+    Returns the launches per kernel, summed over processes, and the worst
+    parity error per kernel."""
     from repro_torch.configs.base import get_config
-    from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.models import transformer as tf
-    from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.train import step as st
 
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -4263,55 +4510,88 @@ def tp_phase(torch, dev, card: str, configs=None) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(4321)
     errs = tp_kernel_parity(torch, gen, dev)
-    total = {"flash_attention": 0, "decode_attention": 0}
-    qwen = config(ARCH)
-    L = qwen.num_layers
+    total = {"flash_attention": 0, "decode_attention": 0, "vta_gemm_dequant": 0}
+    qwen = config(ARCH, TP_QWEN_LAYERS)
+    moe = {name: config(name, layers) for name, layers in (
+        ("deepseek_v2_236b", MOE_LAYERS), ("mixtral_8x22b", TP_MIXTRAL_LAYERS))}
+    check("deepseek_v2_236b" in MOE_TOKENS,
+          "[tp] the [moe] phase recorded deepseek's one-process tokens")
+    qwen_tasks = {
+        (1, 2): dict(kind="train", cfg=qwen, strategy="ai_core_assignment", seq=TP_SEQ,
+                     batch=TP_BATCH, steps=TP_STEPS, serve=(TP_BATCH, TP_SEQ, TP_SEQ, TP_NEW),
+                     compare=True),
+        (2, 2): dict(kind="train", cfg=qwen, strategy="fused", seq=TP_SEQ, batch=TP_BATCH,
+                     steps=TP_STEPS, compare=True)}
+    pairs, fused = tp_family_tasks(config)
+    batch, prompt, chunk, new = MOE_STATIC["deepseek_v2_236b"]
+    shared = {
+        (1, 2): [qwen_tasks[(1, 2)],
+                 dict(kind="serve", cfg=moe["deepseek_v2_236b"], strategy="ai_core_assignment",
+                      serve=(batch, prompt, chunk, new)),
+                 dict(kind="train", cfg=moe["mixtral_8x22b"], strategy="ai_core_assignment",
+                      dtype=TP_MIXTRAL_DTYPE, seq=TP_SEQ, batch=TP_BATCH, steps=TP_STEPS),
+                 *pairs],
+        (2, 2): [qwen_tasks[(2, 2)], *fused]}
     n = torch.cuda.device_count() if dev.type == "cuda" else 1
     cards = [f"cuda:{i}" for i in range(n)]
-    for shape, strategy in (((1, 2), "ai_core_assignment"), ((2, 2), "fused")):
-        size = shape[0] * shape[1]
-        layouts = [("gloo, one card shared", [str(dev)] * size)]
-        if n >= size:
-            layouts.append(("nccl, distinct cards", cards[:size]))
-        for where, devs in layouts:
-            label = f"qwen3 {strategy} {shape} ({where})"
-            serve = (TP_BATCH, TP_SEQ, TP_SEQ, TP_NEW) if shape == (1, 2) else None
-            recs = tp_spawn(torch, label, dict(
-                kind="train", cfg=qwen, strategy=strategy, shape=shape, devs=devs,
-                seq=TP_SEQ, batch=TP_BATCH, steps=TP_STEPS, serve=serve, compare=True))
-            want = "nccl" if where.startswith("nccl") else "gloo"
+    runs = [(shape, "gloo, one card shared", [str(dev)] * (shape[0] * shape[1]), tasks)
+            for shape, tasks in shared.items()]
+    runs += [(shape, "nccl, distinct cards", cards[:shape[0] * shape[1]], [task])
+             for shape, task in qwen_tasks.items() if n >= shape[0] * shape[1]]
+    for shape, where, devs, tasks in runs:
+        t0 = time.perf_counter()
+        by_task = tp_spawn(torch, f"{shape} ({where}), {len(tasks)} tasks",
+                           dict(shape=shape, devs=devs, tasks=tasks))
+        want = "nccl" if where.startswith("nccl") else "gloo"
+        for task, recs in zip(tasks, by_task):
+            cfg = task["cfg"]
+            label = f"{cfg.name} {task['strategy']} {shape} ({where})"
             check(all(r["backend"] == want for r in recs),
                   f"[tp] {label}: backend {[r['backend'] for r in recs]}")
-            # each process computes its rows' forward and the remat recompute
-            total["flash_attention"] += tp_check_train(label, recs, 2 * L, card)
-            if serve:
-                sv = [r["serve"] for r in recs]
-                for r, s in enumerate(sv):
-                    check(s["flash"] == L and s["decode"] == L * (TP_NEW - 1)
-                          and s["kv_heads"] == qwen.kv_heads // shape[1],
-                          f"[tp] {label} static process {r}: flash {s['flash']}, decode "
-                          f"{s['decode']} launches, {s['kv_heads']} KV heads")
-                    total["flash_attention"] += s["flash"]
-                    total["decode_attention"] += s["decode"]
-                check(all(s["tokens"] == sv[0]["tokens"] for s in sv),
-                      f"[tp] {label}: tokens differ between processes")
-                equal = tp_check_tokens(label + " static", sv[0]["tokens"],
-                                        sv[0]["one_process_tokens"],
-                                        sv[0]["one_process_margin"], TP_TOL)
-                log(f"[tp] {label} static path: {TP_BATCH} rows x {TP_NEW} tokens, "
-                    f"{equal}/{TP_BATCH * TP_NEW} equal to one process; decode "
-                    f"{sv[0]['decode_ms']:.1f} ms on process 0 vs "
-                    f"{sv[0]['one_process_decode_ms']:.1f} ms in one process; flash "
-                    f"{sv[0]['flash']}, decode {sv[0]['decode']} launches a process at "
-                    f"{qwen.num_heads // shape[1]} query / {sv[0]['kv_heads']} KV heads")
+            if cfg is qwen:
+                tp_check_qwen(label, recs, shape, qwen, card, total)
+            elif cfg is moe["deepseek_v2_236b"]:
+                tp_check_deepseek(recs, cfg, card, total)
+            elif cfg is moe["mixtral_8x22b"]:
+                tp_check_mixtral(torch, dev, recs, cfg, card, total)
+            else:
+                tp_check_family(task, recs, shape, card, total)
+        log(f"[tp] {shape} ({where}): {time.perf_counter() - t0:.1f} s with the gates and the "
+            f"parent's runs")
+    return {"launches": total, "errs": errs}
 
-    # deepseek: half the experts (and heads, vocabulary) a process
-    name = "deepseek_v2_236b"
+
+def tp_check_qwen(label, recs, shape, qwen, card, total) -> None:
+    """The qwen3 job's gates: training, then on (1, 2) the static path."""
+    L = qwen.num_layers
+    # each process computes its rows' forward and the remat recompute
+    total["flash_attention"] += tp_check_train(label, recs, 2 * L, card)
+    if "serve" not in recs[0]:
+        return
+    sv = [r["serve"] for r in recs]
+    for r, s in enumerate(sv):
+        check(s["flash"] == L and s["decode"] == L * (TP_NEW - 1)
+              and s["kv_heads"] == qwen.kv_heads // shape[1],
+              f"[tp] {label} static process {r}: flash {s['flash']}, decode "
+              f"{s['decode']} launches, {s['kv_heads']} KV heads")
+        total["flash_attention"] += s["flash"]
+        total["decode_attention"] += s["decode"]
+    check(all(s["tokens"] == sv[0]["tokens"] for s in sv),
+          f"[tp] {label}: tokens differ between processes")
+    equal = tp_check_tokens(label + " static", sv[0]["tokens"], sv[0]["one_process_tokens"],
+                            sv[0]["one_process_margin"], TP_TOL)
+    log(f"[tp] {label} static path: {TP_BATCH} rows x {TP_NEW} tokens, "
+        f"{equal}/{TP_BATCH * TP_NEW} equal to one process; decode {sv[0]['decode_ms']:.1f} ms "
+        f"on process 0 vs {sv[0]['one_process_ms']:.1f} ms in one process; flash "
+        f"{sv[0]['flash']}, decode {sv[0]['decode']} launches a process at "
+        f"{qwen.num_heads // shape[1]} query / {sv[0]['kv_heads']} KV heads")
+
+
+def tp_check_deepseek(recs, cfg, card, total) -> None:
+    """deepseek's static path: half the experts (and heads, vocabulary) a
+    process, tokens equal to the one-process [moe] run's."""
+    name = cfg.name
     batch, prompt, chunk, new = MOE_STATIC[name]
-    check(name in MOE_TOKENS, "[tp] the [moe] phase recorded deepseek's one-process tokens")
-    recs = tp_spawn(torch, f"{name} static ai_core_assignment (1, 2)", dict(
-        kind="serve", cfg=config(name, MOE_LAYERS), strategy="ai_core_assignment",
-        shape=(1, 2), devs=[str(dev)] * 2, serve=(batch, prompt, chunk, new)))
     sv = [r["serve"] for r in recs]
     nl = recs[0]["layers"]
     for r, s in enumerate(sv):
@@ -4328,12 +4608,16 @@ def tp_phase(torch, dev, card: str, configs=None) -> dict:
         f"ms on process 0; peak device memory a process {[round(s['peak_gib'], 2) for s in sv]}"
         f" GiB; on {card}")
 
-    # mixtral: EP training across 2 processes, then the same in one process
-    name = "mixtral_8x22b"
-    cfg = config(name, TP_MIXTRAL_LAYERS)
-    recs = tp_spawn(torch, f"{name} train ai_core_assignment (1, 2) {TP_MIXTRAL_DTYPE}", dict(
-        kind="train", cfg=cfg, strategy="ai_core_assignment", dtype=TP_MIXTRAL_DTYPE,
-        shape=(1, 2), devs=[str(dev)] * 2, seq=TP_SEQ, batch=TP_BATCH, steps=TP_STEPS))
+
+def tp_check_mixtral(torch, dev, recs, cfg, card, total) -> None:
+    """mixtral's EP training across 2 processes against the same steps in
+    one process, run here after the children have freed the card."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import step as st
+
+    name = cfg.name
     dtype = getattr(torch, TP_MIXTRAL_DTYPE)
     state = st.make_state(tf.init(cfg, generator=torch.Generator(device=dev).manual_seed(0),
                                   dtype=dtype, device=dev), dtype)
@@ -4356,7 +4640,94 @@ def tp_phase(torch, dev, card: str, configs=None) -> dict:
     total["flash_attention"] += tp_check_train(
         f"{name} ai_core_assignment (1, 2) {TP_MIXTRAL_DTYPE}", recs, 2 * cfg.num_layers, card,
         params=False, tol=TP_BF16_TOL)
-    return {"launches": total, "errs": errs}
+
+
+def tp_family_tasks(config) -> tuple:
+    """The families' tasks ((1, 2) ones, (2, 2) ones): see TP_FAMILY_LAYERS."""
+    import dataclasses
+
+    mamba = config("mamba2_2p7b", TP_FAMILY_LAYERS["mamba2_2p7b"])
+    zamba = config("zamba2_2p7b", TP_FAMILY_LAYERS["zamba2_2p7b"])
+    seamless = dataclasses.replace(config("seamless_m4t_large_v2"),
+                                   num_layers=TP_SEAMLESS_LAYERS,
+                                   encoder_layers=TP_SEAMLESS_LAYERS)
+    vlm = config("internvl2_76b", TP_FAMILY_LAYERS["internvl2_76b"])
+    ai = dict(strategy="ai_core_assignment", seq=TP_SEQ, batch=TP_BATCH, steps=TP_STEPS,
+              compare=True)
+    serve = (TP_BATCH, TP_SEQ, TP_SEQ, TP_NEW)
+    pairs = [
+        dict(ai, kind="train", cfg=mamba, serve=serve),
+        dict(ai, kind="train", cfg=zamba, serve=serve),
+        dict(ai, kind="serve", cfg=zamba, serve=serve, int8=True),
+        dict(ai, kind="train", cfg=seamless, serve=serve, entry="generate", side=TP_FRAMES),
+        dict(ai, kind="serve", cfg=vlm, serve=serve, entry="generate", side=TP_PATCHES),
+    ]
+    fused = [dict(ai, kind="train", cfg=config("zamba2_2p7b", TP_FUSED_LAYERS),
+                  strategy="fused")]
+    return pairs, fused
+
+
+def tp_train_flash(cfg) -> int:
+    """Flash launches of one train step a process at S 512: each attention
+    call of the forward and of its remat recompute (an enc-dec's encoder,
+    decoder self- and cross-attention; a hybrid's shared block a group)."""
+    if cfg.is_enc_dec:
+        return 2 * (cfg.encoder_layers + 2 * cfg.num_layers)
+    if cfg.attn_every:
+        return 2 * (cfg.num_layers // cfg.attn_every)
+    return 0 if cfg.ssm_state else 2 * cfg.num_layers
+
+
+def tp_check_family(task, recs, shape, card, total) -> None:
+    """One of the SSM, hybrid, enc-dec and VLM families' tasks
+    (TP_FAMILY_LAYERS).  A train task: loss and grad norm within TP_TOL of
+    the same rows in one process, params within TP_PARAM_TOL where every
+    step's update is decided, flash launches a process exact at the local
+    heads, placed state bytes equal to the stand-in's arithmetic.  A
+    serving task (the static path, or ``generate`` after the frontend
+    stub's frames / patch embeddings): every process's tokens equal, equal
+    to one process's under the margin rule (int8 included), flash, dense
+    decode and dequant launches a process exact, the caches at the local KV
+    and SSM state heads."""
+    from repro_torch.models.ssm import cache_heads
+
+    cfg = task["cfg"]
+    label = (f"{cfg.name} {'int8 ' if task.get('int8') else ''}{task['strategy']} "
+             f"{shape} ({cfg.num_layers} layers"
+             f"{f' + {cfg.encoder_layers} encoder' if cfg.is_enc_dec else ''})")
+    if task["kind"] == "train":
+        total["flash_attention"] += tp_check_train(label, recs, tp_train_flash(cfg), card,
+                                                   params="tie")
+    if not task.get("serve"):
+        return
+    batch, prompt, chunk, new = task["serve"]
+    expect = family_expect(cfg, -(-prompt // chunk), new - 1, bool(task.get("int8")))
+    kv = None
+    if cfg.num_heads and cfg.kv_heads:
+        kv = cfg.kv_heads if task.get("int8") else cfg.kv_heads // shape[1]
+    ssm = cache_heads(cfg, shape[1]) if cfg.ssm_state else None
+    sv = [r["serve"] for r in recs]
+    for r, s in enumerate(sv):
+        got = {k: s["counts"][k] for k in expect}
+        check(got == expect and s["kv_heads"] == kv and s["ssm_heads"] == ssm,
+              f"[tp] {label} serving process {r}: launches {got} (expect {expect}), "
+              f"{s['kv_heads']} KV heads (expect {kv}), {s['ssm_heads']} SSM heads "
+              f"(expect {ssm})")
+        for k in total:
+            total[k] += s["counts"][k]
+    check(all(s["tokens"] == sv[0]["tokens"] for s in sv),
+          f"[tp] {label}: tokens differ between processes")
+    equal = tp_check_tokens(label, sv[0]["tokens"], sv[0]["one_process_tokens"],
+                            sv[0]["one_process_margin"], TP_TOL)
+    entry = task.get("entry", "static")
+    how = (f"prefill {sv[0]['prefill_ms']:.1f} ms, decode {sv[0]['decode_ms']:.1f} ms "
+           f"({new - 1} steps)" if entry == "static" else f"generate {sv[0]['decode_ms']:.1f} ms")
+    log(f"[tp] {label} {entry}: {batch} rows x {new} tokens, {equal}/{batch * new} equal to one "
+        f"process; {how} on process 0 vs {sv[0]['one_process_ms']:.1f} ms in one process "
+        f"({'decode' if entry == 'static' else 'greedy loop'}); collectives "
+        f"{sv[0]['collectives']} calls, {sv[0]['collective_ms']:.1f} ms; launches a process "
+        f"{expect} at {kv} KV / {ssm} SSM heads; peak device memory a process "
+        f"{[round(s['peak_gib'], 2) for s in sv]} GiB; on {card}")
 
 
 def leaves(tree):
@@ -4695,7 +5066,9 @@ def main() -> int:
     qparams = quantize_params(params)
     serve_ft_phase(torch, params, qparams, cfg, dev, f"{kind} ({smi})", engine_run)
     lap("serve-ft")
-    n_train_flash = train_phase(torch, params, cfg, dev, f"{kind} ({smi})")
+    n_train_flash = train_phase(torch, dict(params, blocks=params["blocks"][:TRAIN_LAYERS]),
+                                dataclasses.replace(cfg, num_layers=TRAIN_LAYERS), dev,
+                                f"{kind} ({smi})")
     lap("train")
     n_train_flash += pipeline_phase(torch, params, cfg, dev, f"{kind} ({smi})")
     lap("pipeline")
@@ -4705,7 +5078,8 @@ def main() -> int:
     n_train_flash += tuned["flash_attention"]
     n_paged += tuned["paged_decode_attention"]
     lap("tune")
-    multi = multi_phase(torch, cfg, dev, f"{kind} ({smi})")
+    multi = multi_phase(torch, dataclasses.replace(cfg, num_layers=MULTI_LAYERS), dev,
+                        f"{kind} ({smi})")
     n_train_flash += multi["flash_attention"]
     n_multi_decode = multi["decode_attention"]
     lap("multi")

@@ -113,7 +113,9 @@ def run_static(params, cfg, prompts, *, new_tokens: int, chunk: int,
     params this position's 'model' slices on its device) the steps run
     tensor and expert parallel under ``dist.tensor.parallel``: every rank
     of a model group reads the same gathered logits and takes the same
-    greedy token, its caches holding its share of the KV heads."""
+    greedy token, its caches holding its share of the KV heads and SSM
+    state heads.  An int8 tree (``optim.quant.quantize_params``) runs so
+    too: its ``qw`` leaves stay whole and compute whole."""
     if group is not None:
         from repro_torch.dist.sharding import local_mesh
 
@@ -127,10 +129,9 @@ def run_static(params, cfg, prompts, *, new_tokens: int, chunk: int,
     device = prompts.device
     b, s = prompts.shape
     max_len = -(-s // chunk) * chunk + new_tokens
-    with tp.parallel(model=model):
-        tf.check_supported(cfg)
     caches = tf.init_caches(cfg, b, max_len, params["embed"]["table"].dtype, device,
-                            kv_heads=tf.cache_kv_heads(params, cfg))
+                            kv_heads=tf.cache_kv_heads(params, cfg),
+                            ssm_heads=tf.cache_ssm_heads(cfg, model))
     homes = {t.device for t in leaves(params) if isinstance(t, torch.Tensor)}
     if mesh is not None and model is None and len(homes) > 1:
         caches = place(caches, cache_specs(caches, mesh), mesh)

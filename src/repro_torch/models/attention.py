@@ -45,6 +45,9 @@ them all, as ``cache_specs`` leaves the heads dim whole there.  MLA's
 replicated param used on this rank's heads (``q_norm``, ``k_norm``,
 ``ckv_norm``, a K/V projection left whole) goes through ``copy``, so its
 gradient sums the ranks' shares.  The paged pools stay on one process.
+The enc-dec cross-attention splits on head boundaries: ``wq`` / ``wk`` /
+``wv`` by columns, ``wo`` by rows, so each rank's cross K/V holds its
+heads.
 """
 
 from __future__ import annotations
@@ -525,12 +528,26 @@ def cross_attn_init(gen, cfg, dtype, device):
     }
 
 
+def _cross_heads(p, cfg, key: str) -> int | None:
+    """This rank's cross-attention heads from ``p[key]``'s width, or None
+    where it is whole."""
+    w = width(p[key])
+    if not tp.split(w, cfg.num_heads * cfg.head_dim):
+        return None
+    if w % cfg.head_dim:
+        raise NotImplementedError(f"{cfg.name}: cross-attention heads split inside a head")
+    return w // cfg.head_dim
+
+
 def cross_attn_kv(p, cfg, enc_out):
     """Encoder K/V, computed once per request (the enc-dec 'cache'):
-    (B, T, H, D) each, ``num_heads`` heads."""
+    (B, T, H, D) each, ``num_heads`` heads (this rank's under tensor
+    parallelism)."""
     b, t, _ = enc_out.shape
-    k = dense_apply(p["wk"], enc_out).reshape(b, t, cfg.num_heads, cfg.head_dim)
-    v = dense_apply(p["wv"], enc_out).reshape(b, t, cfg.num_heads, cfg.head_dim)
+    if _cross_heads(p, cfg, "wk") is not None:
+        enc_out = tp.copy(enc_out)
+    k = dense_apply(p["wk"], enc_out).reshape(b, t, -1, cfg.head_dim)
+    v = dense_apply(p["wv"], enc_out).reshape(b, t, -1, cfg.head_dim)
     return {"k": k, "v": v}
 
 
@@ -539,10 +556,15 @@ def cross_attn_apply(p, cfg, x, kv):
     the reference, flash runs whenever S or T reaches FLASH_MIN_SEQ, a
     decode step's single query row against a long encoder output too."""
     b, s, _ = x.shape
-    q = dense_apply(p["wq"], x).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    hq = _cross_heads(p, cfg, "wq")
+    if hq is not None:
+        x = tp.copy(x)
+    q = dense_apply(p["wq"], x).reshape(b, s, hq or cfg.num_heads, cfg.head_dim)
+    if kv["k"].shape[2] != q.shape[2]:
+        raise ValueError(f"cross K/V of {kv['k'].shape[2]} heads for {q.shape[2]} query heads")
     t = kv["k"].shape[1]
     if s >= FLASH_MIN_SEQ or t >= FLASH_MIN_SEQ:
         out = flash_attend(q, kv["k"], kv["v"], bidirectional=True)
     else:
         out = softmax_attend(q, kv["k"], kv["v"])
-    return dense_apply(p["wo"], out.reshape(b, s, -1))
+    return _out(p, hq, out.reshape(b, s, -1))

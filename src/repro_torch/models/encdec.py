@@ -25,6 +25,16 @@ cross K/V: a list of per-layer ``{"k", "v"}`` (B, T, H, D).
 
 ``remat=True`` (training) recomputes every encoder and decoder block in
 the backward pass, as the reference's ``jax.checkpoint`` does.
+
+Under ``dist.tensor``'s ambient model group (one process per mesh
+position) the encoder's and decoder's attention, cross-attention and MLPs
+run on this rank's heads and columns (``models.attention``,
+``models.layers``), the embedding vocab-parallel and the untied
+``lm_head`` split over the vocabulary and gathered
+(``transformer.lm_head_logits``); a vocabulary the model size does not
+divide (seamless's 256,206 at 4) leaves both whole, and they compute
+whole.  The caches and cross K/V hold this rank's heads
+(:func:`cache_kv_heads`).
 """
 
 from __future__ import annotations
@@ -33,7 +43,6 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
-    dense_apply,
     dense_init,
     embedding_apply,
     embedding_init,
@@ -42,7 +51,7 @@ from repro_torch.models.layers import (
     rmsnorm_apply,
     rmsnorm_init,
 )
-from repro_torch.models.transformer import _positions, _remat
+from repro_torch.models.transformer import _positions, _remat, lm_head_logits
 
 
 def _enc_block_init(gen, cfg, dtype, device):
@@ -84,7 +93,7 @@ def _enc_block(p, cfg, x, positions):
     h, _ = attn.gqa_apply(p["attn"], cfg, rmsnorm_apply(p["norm1"], x, cfg.norm_eps),
                           positions, None, bidirectional=True)
     x = x + h
-    return x + gated_mlp_apply(p["mlp"], rmsnorm_apply(p["norm2"], x, cfg.norm_eps))
+    return x + gated_mlp_apply(p["mlp"], rmsnorm_apply(p["norm2"], x, cfg.norm_eps), cfg.d_ff)
 
 
 def encode(params, cfg, frame_embeds, *, remat: bool = False):
@@ -107,7 +116,8 @@ def _dec_block(p, cfg, x, positions, layer_kv, cache):
     x = x + h
     x = x + attn.cross_attn_apply(p["cross_attn"], cfg,
                                   rmsnorm_apply(p["norm_x"], x, cfg.norm_eps), layer_kv)
-    return x + gated_mlp_apply(p["mlp"], rmsnorm_apply(p["norm2"], x, cfg.norm_eps)), nc
+    return x + gated_mlp_apply(p["mlp"], rmsnorm_apply(p["norm2"], x, cfg.norm_eps),
+                               cfg.d_ff), nc
 
 
 def _dec_stack(params, cfg, x, positions, kv, caches, *, remat: bool = False):
@@ -125,7 +135,7 @@ def _dec_stack(params, cfg, x, positions, kv, caches, *, remat: bool = False):
 
 
 def _head(params, cfg, x):
-    return dense_apply(params["lm_head"], rmsnorm_apply(params["final_norm"], x, cfg.norm_eps))
+    return head_logits(params, cfg, rmsnorm_apply(params["final_norm"], x, cfg.norm_eps))
 
 
 def forward(params, cfg, frame_embeds, tokens, *, remat: bool = False):
@@ -138,7 +148,7 @@ def forward_hidden(params, cfg, frame_embeds, tokens, *, remat: bool = False):
     """Final-normed decoder states (the chunked fused CE's entry point)
     and aux = 0."""
     kv = cross_kv(params, cfg, encode(params, cfg, frame_embeds, remat=remat))
-    x = embedding_apply(params["embed"], tokens)
+    x = embedding_apply(params["embed"], tokens, cfg.vocab)
     x, _ = _dec_stack(params, cfg, x, _positions(0, x), kv, None, remat=remat)
     return (rmsnorm_apply(params["final_norm"], x, cfg.norm_eps),
             torch.zeros((), device=x.device))
@@ -146,11 +156,20 @@ def forward_hidden(params, cfg, frame_embeds, tokens, *, remat: bool = False):
 
 def head_logits(params, cfg, x):
     """LM head only (no final norm) — pairs with :func:`forward_hidden`."""
-    return dense_apply(params["lm_head"], x)
+    return lm_head_logits(params["lm_head"], cfg, x)
 
 
-def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda"):
-    return {"blocks": [attn.gqa_cache_init(cfg, batch, max_len, dtype, device)
+def cache_kv_heads(params, cfg) -> int:
+    """The KV heads the decoder's self-attention caches hold on this rank."""
+    return attn.cache_kv_heads(params["decoder"][0]["self_attn"], cfg)
+
+
+def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda",
+                kv_heads: int | None = None):
+    """``kv_heads``: this rank's share under tensor parallelism
+    (:func:`cache_kv_heads`); the config's by default."""
+    return {"blocks": [attn.gqa_cache_init(cfg, batch, max_len, dtype, device,
+                                           kv_heads=kv_heads)
                        for _ in range(cfg.num_layers)]}
 
 
@@ -159,13 +178,13 @@ def prefill(params, cfg, frame_embeds, tokens, caches):
     (as the reference; the chunked path in ``serve.step`` resumes from the
     cache's ``len``).  Returns (last_logits, caches, kv)."""
     kv = cross_kv(params, cfg, encode(params, cfg, frame_embeds))
-    x = embedding_apply(params["embed"], tokens)
+    x = embedding_apply(params["embed"], tokens, cfg.vocab)
     x, caches = _dec_stack(params, cfg, x, _positions(0, x), kv, caches)
     return _head(params, cfg, x[:, -1:]), caches, kv
 
 
 def decode_step(params, cfg, token, caches, kv):
-    x = embedding_apply(params["embed"], token)
+    x = embedding_apply(params["embed"], token, cfg.vocab)
     positions = _positions(caches["blocks"][0]["len"], x)
     x, caches = _dec_stack(params, cfg, x, positions, kv, caches)
     return _head(params, cfg, x), caches

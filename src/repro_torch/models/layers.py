@@ -20,7 +20,12 @@ and sums the ranks' lookups, its tied readout and an untied head give
 each rank's vocabulary slice and gather it; a gated MLP with ``w_gate`` /
 ``w_up`` split by columns and ``w_down`` by rows sums its ranks' outputs,
 a row-split layer's bias added once after the sum.  Whether a layer is
-split is read from its leaves' widths against the config's.
+split is read from its leaves' widths against the config's.  An RMSNorm
+over a width split across the model group (Mamba2's ``out_norm``) sums
+its squares across the group (``rmsnorm_split_apply``).  An int8 layer's
+``qw`` is never split (``dist.sharding``'s rule names ``w`` only), so it
+computes whole; a bias that the rule splits beside it (a column-parallel
+``b``) is gathered whole first.
 
 Quantized dense layers (``{"qw", "qscale"}`` dicts from
 ``optim.quant.quantize_params``) dispatch the same way through
@@ -209,7 +214,14 @@ def quant_dense_apply(p, x, act: str | None = None):
     lead, k = x.shape[:-1], x.shape[-1]
     qx, sx = quant_int8(x.reshape(-1, k))
     scale = p["qscale"].float() * sx
-    bias = p["b"].float() if "b" in p else None
+    bias = None
+    if "b" in p:
+        bias = p["b"]
+        if bias.shape[-1] != p["qw"].shape[-1]:
+            # this rank's slice of a column-parallel bias beside a whole
+            # int8 weight: the layer computes whole, so the bias is too
+            bias = tp.gather(bias, -1)
+        bias = bias.float()
     if use_gemm_kernel(x):
         y = dense_int8(qx, p["qw"], scale, bias=bias, act=act)
     else:
@@ -258,6 +270,17 @@ def rmsnorm_apply(p, x, eps: float = 1e-5):
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(x.dtype)
+
+
+def rmsnorm_split_apply(p, x, whole: int, eps: float = 1e-5):
+    """:func:`rmsnorm_apply` of a width split across the model group: ``x``
+    and ``p["scale"]`` hold this rank's slice of ``whole`` features, and
+    the sum of squares is summed over the group (forward and backward:
+    every rank reads it)."""
+    xf = x.float()
+    ss = tp.sum_across(xf.square().sum(dim=-1, keepdim=True), tp.model_group())
+    y = xf * torch.rsqrt(ss / whole + eps)
     return (y * p["scale"].float()).to(x.dtype)
 
 

@@ -31,11 +31,14 @@ embeddings.  The enc-dec model lives in ``encdec.py`` and ResNet-18 in
 ``resnet.py``; a CNN config raises ``NotImplementedError`` here.
 
 Under ``dist.tensor``'s ambient model group (one process per mesh
-position) the dense and MoE families run tensor and expert parallel: the
-embedding vocab-parallel, an untied ``lm_head`` split over the
-vocabulary, every head gathering its logits whole, so each rank of a
-model group reads the same logits; the SSM, hybrid, enc-dec and VLM
-families are refused there.
+position) every family runs tensor parallel (the MoE family also expert
+parallel): the embedding vocab-parallel, an untied ``lm_head`` split over
+the vocabulary, every head gathering its logits whole, so each rank of a
+model group reads the same logits; Mamba2 blocks on this rank's heads
+(``models.ssm``), the hybrid's shared block and MLP on its heads and
+columns, a VLM's ``embeds`` prepended to the summed lookup.  The caches
+hold this rank's KV heads (:func:`cache_kv_heads`) and SSM state heads
+(:func:`cache_ssm_heads`).
 
 ``remat=True`` (training) recomputes each block in the backward pass
 (``torch.utils.checkpoint`` around every block, the hybrid's shared
@@ -67,18 +70,10 @@ from repro_torch.models.layers import (
 
 
 def check_supported(cfg) -> None:
-    """Raise for a CNN config, whose model is ``models/resnet``, and under
-    a model group for every family tensor parallelism does not cover."""
+    """Raise for a CNN config, whose model is ``models/resnet``."""
     if cfg.family == "cnn":
         raise NotImplementedError(
             f"{cfg.name} is a CNN: its model is repro_torch.models.resnet")
-    if tp.model_group() is not None and (cfg.ssm_state or cfg.attn_every or cfg.is_enc_dec
-                                         or cfg.frontend):
-        from repro_torch.dist.sharding import MULTI_CARD_ITEM
-
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) under tensor parallelism is {MULTI_CARD_ITEM}: "
-            f"its dense and MoE families run so")
 
 
 # ---------------------------------------------------------------------------
@@ -211,7 +206,7 @@ def _shared_block(sa, cfg, x, positions, cache):
     h, na = attn.gqa_apply(sa["attn"], cfg, rmsnorm_apply(sa["norm"], x, cfg.norm_eps),
                            positions, cache)
     x = x + h
-    x = x + gated_mlp_apply(sa["mlp"], rmsnorm_apply(sa["mlp_norm"], x, cfg.norm_eps))
+    x = x + gated_mlp_apply(sa["mlp"], rmsnorm_apply(sa["mlp_norm"], x, cfg.norm_eps), cfg.d_ff)
     return x, na
 
 
@@ -276,7 +271,12 @@ def head_logits(params, cfg, x):
     A head split over the vocabulary gathers the whole logits."""
     if cfg.tie_embeddings:
         return embedding_logits(params["embed"], x, cfg.vocab)
-    head = params["lm_head"]
+    return lm_head_logits(params["lm_head"], cfg, x)
+
+
+def lm_head_logits(head, cfg, x):
+    """An untied head: split over the vocabulary, this rank's slice of the
+    logits gathered whole."""
     if "w" in head and tp.split(width(head), cfg.vocab):
         return tp.gather(dense_apply(head, tp.copy(x)), -1)
     return dense_apply(head, x)
@@ -284,16 +284,28 @@ def head_logits(params, cfg, x):
 
 def cache_kv_heads(params, cfg) -> int | None:
     """The KV heads a GQA config's dense caches hold on this rank (its
-    share under tensor parallelism), None for the others."""
+    share under tensor parallelism; a hybrid's shared block's), None for
+    the others."""
+    if cfg.attn_every:
+        return attn.cache_kv_heads(params["shared_attn"]["attn"], cfg)
     if cfg.uses_mla or _mixer_is_ssm(cfg) or not cfg.num_heads:
         return None
     return attn.cache_kv_heads(params["blocks"][0]["mixer"], cfg)
 
 
+def cache_ssm_heads(cfg, model=None) -> int | None:
+    """The SSM state heads an SSM or hybrid config's caches hold on a rank
+    of ``model`` (a ``collective.ModelGroup``; ``cache_specs`` splits them
+    over 'model'), None without a group or an SSM."""
+    if model is None or not _mixer_is_ssm(cfg):
+        return None
+    return ssm_mod.cache_heads(cfg, model.size)
+
+
 def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda", *,
                 cache_layout: str = "dense", page_size: int = 16,
                 num_pages: int | None = None, kv_dtype: str | None = None,
-                kv_heads: int | None = None):
+                kv_heads: int | None = None, ssm_heads: int | None = None):
     """Serving caches.  ``cache_layout="dense"`` (default): one
     (B, max_len, Hkv, D) K/V pair per layer (an SWA config's holds
     ``min(max_len, window)`` rows and rolls; MLA's is one (B, max_len,
@@ -304,7 +316,8 @@ def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device="cud
     ("f32"/"bf16"/"int8") sets the pools' precision, and int8 pools carry
     per-page-per-head scales.  ``kv_heads``: the heads a GQA layer's dense
     cache holds (this rank's share under tensor parallelism,
-    :func:`cache_kv_heads`)."""
+    :func:`cache_kv_heads`; a hybrid's shared block's), ``ssm_heads`` the
+    SSM state heads (:func:`cache_ssm_heads`)."""
     check_supported(cfg)
     if cache_layout == "paged":
         from repro_torch.serve.kv_cache import init_paged_caches
@@ -315,7 +328,7 @@ def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device="cud
         raise ValueError(f"cache_layout must be 'dense' or 'paged', got {cache_layout!r}")
     if _mixer_is_ssm(cfg):
         # O(1) recurrent state: no max_len
-        blocks = [ssm_mod.mamba2_cache_init(cfg, batch, dtype, device)
+        blocks = [ssm_mod.mamba2_cache_init(cfg, batch, dtype, device, ssm_heads)
                   for _ in range(cfg.num_layers)]
     else:
         one = attn.mla_cache_init if cfg.uses_mla else attn.gqa_cache_init
@@ -323,7 +336,8 @@ def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device="cud
         blocks = [one(cfg, batch, max_len, dtype, device, **kw) for _ in range(cfg.num_layers)]
     caches = {"blocks": blocks}
     if cfg.attn_every:
-        caches["shared_attn"] = [attn.gqa_cache_init(cfg, batch, max_len, dtype, device)
+        caches["shared_attn"] = [attn.gqa_cache_init(cfg, batch, max_len, dtype, device,
+                                                     kv_heads=kv_heads)
                                  for _ in range(_hybrid_groups(cfg))]
     return caches
 

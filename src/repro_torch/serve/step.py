@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import tensor as tp
 from repro_torch.models import encdec, transformer
 from repro_torch.models.layers import embedding_apply
 
@@ -140,7 +141,7 @@ def _encdec_chunk(params, cfg, piece, caches, kv, *, logit_index: int | None = N
     """One decoder prefill chunk against precomputed cross K/V, from the
     cache's ``len``.  Returns (hidden state at the chunk's last [real]
     position, caches); the head runs once, after the final chunk."""
-    x = embedding_apply(params["embed"], piece)
+    x = embedding_apply(params["embed"], piece, cfg.vocab)
     positions = transformer._positions(caches["blocks"][0]["len"], x)
     x, caches = encdec._dec_stack(params, cfg, x, positions, kv, caches)
     last = x[:, -1:] if logit_index is None else x[:, logit_index:logit_index + 1]
@@ -183,16 +184,30 @@ def make_serve_step(cfg, *, return_logits: bool = False):
 
 @torch.inference_mode()
 def generate(params, cfg, prompt, max_new: int, max_len: int,
-             dtype=torch.bfloat16, chunk: int = 4096, frames=None, embeds=None):
+             dtype=torch.bfloat16, chunk: int = 4096, frames=None, embeds=None, model=None):
     """Greedy generation: prompt (B, S) -> (B, max_new) tokens; an enc-dec
     config takes the encoder's ``frames`` (B, T, D), a VLM the ``embeds``
     (B, E, D) prepended to the prompt.  The caches live on the prompt's
-    device."""
+    device.  With ``model`` (a ``collective.ModelGroup``: one process per
+    mesh position, the params this position's 'model' slices) it runs
+    tensor parallel under ``dist.tensor.parallel``, the caches and cross
+    K/V at this rank's heads; every rank reads the same gathered logits
+    and takes the same greedy token."""
+    if model is None:
+        return _generate(params, cfg, prompt, max_new, max_len, dtype, chunk, frames, embeds)
+    with tp.parallel(model=model):
+        return _generate(params, cfg, prompt, max_new, max_len, dtype, chunk, frames, embeds)
+
+
+def _generate(params, cfg, prompt, max_new, max_len, dtype, chunk, frames, embeds):
     b = prompt.shape[0]
     if cfg.is_enc_dec:
-        caches = encdec.init_caches(cfg, b, max_len, dtype, prompt.device)
+        caches = encdec.init_caches(cfg, b, max_len, dtype, prompt.device,
+                                    kv_heads=encdec.cache_kv_heads(params, cfg))
     else:
-        caches = transformer.init_caches(cfg, b, max_len, dtype, prompt.device)
+        caches = transformer.init_caches(
+            cfg, b, max_len, dtype, prompt.device, kv_heads=transformer.cache_kv_heads(params, cfg),
+            ssm_heads=transformer.cache_ssm_heads(cfg, tp.model_group()))
     prefill = make_prefill_step(cfg, chunk)
     step = make_serve_step(cfg)
     kv = None

@@ -196,8 +196,6 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *, grad_accum: int = 1,
 
             batch = collective.shard_rows(batch, grad_accum, group.size, group.rank)
             params = collective.gather_tree(params, shards, group)
-        if model is not None:
-            transformer.check_supported(cfg)
         if grad_accum == 1:
             (loss, metrics), grads = value_and_grad(loss_fn, params, batch)
         else:

@@ -1615,3 +1615,123 @@ def test_fused_supervisor_on_card(cuda, tmp_path):
     executed = 8 + rb.steps_lost + 1 + 1  # + the poisoned step + the warm step
     assert tfl.flash_attention.launches - n0 == 2 * cfg.num_layers * executed
     assert all(x.device.type == "cuda" for x in sup.state["params"]["blocks"][0]["mixer"]["wq"].values())
+
+
+# the kernels at the SSM, hybrid, enc-dec and VLM families' local heads
+# under tensor parallelism at model 2 (the [tp] phase's shapes): zamba2's
+# shared block (16 / 16, D 80), seamless's encoder, decoder and
+# cross-attention (8 / 8, D 64; a decode step's S 1 cross call), internvl2's
+# first chunk (32 / 4, D 128: 256 patch embeddings + 512 tokens)
+GPU_FLASH_TP_FAMILIES = [
+    ("zamba2_shared_model2", dict(b=2, s=512, t=512, h=16, hkv=16, d=80, dv=80), {}),
+    ("seamless_encoder_model2", dict(b=2, s=1024, t=1024, h=8, hkv=8, d=64, dv=64),
+     dict(bidirectional=True)),
+    ("seamless_decoder_model2", dict(b=2, s=512, t=512, h=8, hkv=8, d=64, dv=64), {}),
+    ("seamless_cross_s512_model2", dict(b=2, s=512, t=1024, h=8, hkv=8, d=64, dv=64),
+     dict(bidirectional=True)),
+    ("seamless_cross_s1_model2", dict(b=2, s=1, t=1024, h=8, hkv=8, d=64, dv=64),
+     dict(bidirectional=True)),
+    ("internvl2_first_chunk_model2", dict(b=2, s=768, t=768, h=32, hkv=4, d=128, dv=128), {}),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,shape,opts", GPU_FLASH_TP_FAMILIES,
+                         ids=[c[0] for c in GPU_FLASH_TP_FAMILIES])
+def test_flash_kernel_at_tp_family_shapes_on_card(cuda, name, shape, opts):
+    q, k, v = _qkv(cuda, torch.float32, **shape, seed=len(name))
+    n0 = tfl.flash_attention.launches
+    got = tfl.flash_attention(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert tfl.flash_attention.launches == n0 + 1
+    want = tfl.flash_attention_ref(q, k, v, **opts)
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=TOL["float32"])
+
+
+GPU_DECODE_TP_FAMILIES = [
+    ("zamba2_model2", dict(h=16, hkv=16, d=80, t=520), 519),
+    ("seamless_model2", dict(h=8, hkv=8, d=64, t=520), 519),
+    ("internvl2_model2", dict(h=32, hkv=4, d=128, t=776), 775),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,shape,kv_len", GPU_DECODE_TP_FAMILIES,
+                         ids=[c[0] for c in GPU_DECODE_TP_FAMILIES])
+def test_decode_kernel_at_tp_family_shapes_on_card(cuda, name, shape, kv_len):
+    h, hkv, d, t = shape["h"], shape["hkv"], shape["d"], shape["t"]
+    q, k, v = _qkv(cuda, torch.float32, 2, 1, t, h, hkv, d, d, seed=len(name))
+    n0 = tdec.decode_attention.launches
+    got = tdec.decode_attention(q, k, v, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert tdec.decode_attention.launches == n0 + 1
+    want = tdec.decode_attention_ref(q, k, v, kv_len=kv_len)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=TOL["float32"])
+
+
+def _mamba2_tp(layers: int = 2):
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+
+    return dataclasses.replace(get_config("mamba2_2p7b"), num_layers=layers)
+
+
+def _mamba2_tp_batch(dev):
+    rng = np.random.default_rng(3)
+    return {"tokens": torch.from_numpy(rng.integers(0, 50_280, (2, 513))).long().to(dev)}
+
+
+def _mamba2_tp_child(rank, nprocs, init_method, out):
+    """One of two processes sharing card 0 over gloo: mamba2 (full width,
+    two layers) under ai_core_assignment on (1, 2), one AdamW step."""
+    from repro_torch.dist import collective
+    from repro_torch.dist.sharding import Mesh, model_shards, place
+    from repro_torch.ft.elastic import state_shardings
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import step as st
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    mesh = Mesh(np.array([dev, dev], dtype=object).reshape(1, 2), ("data", "model"))
+    data, model = collective.mesh_groups(mesh, init_method=init_method, rank=rank,
+                                         world_size=nprocs)
+    cfg = _mamba2_tp()
+    state = st.make_state(tf.init(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                                  dtype=torch.float32, device=dev))
+    specs = state_shardings(state, mesh, "ai_core_assignment")
+    state = place(state, specs, mesh, data, model)
+    held = state["params"]["blocks"][0]["mixer"]["in_proj"]["w"].shape
+    step = st.make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=4),
+                              model=model, model_shards=model_shards(specs["params"], mesh))
+    _, met = step(state, _mamba2_tp_batch(dev))
+    torch.save({"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+                "held": tuple(held)}, f"{out}/r{rank}.pt")
+    collective.close(data, model)
+
+
+@pytest.mark.gpu
+def test_mamba2_tensor_parallel_step_on_one_card_matches_one_process(cuda, tmp_path):
+    """Two gloo processes on card 0, one per position of a (1, 2) mesh:
+    mamba2's Mamba2 blocks on each process's heads (its half of in_proj's
+    columns); the step's loss and grad norm within 1e-5 of one process's."""
+    from repro_torch.dist import collective
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import step as st
+
+    collective.spawn(_mamba2_tp_child, 2, (str(tmp_path),), timeout=600,
+                     workdir=str(tmp_path))
+    recs = [torch.load(tmp_path / f"r{r}.pt") for r in range(2)]
+    cfg = _mamba2_tp()
+    state = st.make_state(tf.init(cfg, generator=torch.Generator(device=cuda).manual_seed(0),
+                                  dtype=torch.float32, device=cuda))
+    step = st.make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=4))
+    _, met = step(state, _mamba2_tp_batch(cuda))
+    whole = state["params"]["blocks"][0]["mixer"]["in_proj"]["w"].shape
+    for rec in recs:
+        assert rec["held"] == (whole[0], whole[1] // 2)
+        for key in ("loss", "grad_norm"):
+            assert abs(rec[key] - float(met[key])) <= 1e-5 * abs(float(met[key])), (key, rec)

@@ -26,19 +26,35 @@ CPU, and MoE routing across the data positions.
   set equals the reference's, some choices drop, and routing each
   process's rows alone would drop another set.  The router's gradient
   across data processes (aux weight 1, the load-balancing loss's path)
-  equals one process's.
+  equals one process's.  The SSM and hybrid families (mamba2_2p7b,
+  zamba2_2p7b: Mamba2 blocks on each rank's heads) under
+  ai_core_assignment on (1, 2) and (1, 4) and fused on (2, 2), the
+  enc-dec (seamless_m4t_large_v2, with 24 encoder frames a sample) and
+  VLM (internvl2_76b, 8 patch embeddings prepended) families under
+  ai_core_assignment on (1, 2), held the same way; their (1, 4) and
+  (2, 2) cases to the reference's (1, 2) run of the same arch
+  (``REF_RUN``) and to their own mesh's shards.  The reference's cases
+  compile in threads of its one subprocess.
 * Serving: ``launch.serve.run_static`` (f32) on (1, 2) and (2, 2): tokens
   equal to the one-process run's except at a top-2 margin below 1e-5
-  (printed), logits within 1e-5 of max|logit|.
+  (printed), logits within 1e-5 of max|logit|.  On (1, 2) also mamba2 and
+  zamba2 through ``run_static``, seamless and internvl2 through
+  ``serve.step.generate``, and int8 trees (``quantize_params``) of
+  qwen2_72b (random q/k/v biases, split beside whole int8 weights) and
+  zamba2, each held to its one-process run the same way; every process's
+  caches and cross K/V are the reference's ``cache_specs`` shards.
 * ``dist.tensor``'s four Functions and ``sum_across`` on 2 gloo
   processes, forward and backward against the whole computation,
-  including both adjoints of ``gather``; the launchers under ``torchrun
-  --nproc-per-node 4`` on the CPU, a world of another size refused
-  naming both commands.
+  including both adjoints of ``gather``; Mamba2's gathered ``in_proj`` and
+  its ``out_norm`` across the group the same way; the launchers under
+  ``torchrun --nproc-per-node 4`` on the CPU (the dense and MoE families,
+  then mamba2 training under fused and zamba2 serving), a world of
+  another size refused naming both commands.
 
 The children are spawned fresh (``collective.spawn``: one spawn per mesh
 shape running every case on it, a file store under the test's temporary
-directory, every child joined within a timeout).
+directory, every child joined within a timeout), while the reference's
+subprocess compiles: it writes its params and batches first.
 """
 
 import dataclasses
@@ -46,6 +62,7 @@ import os
 import re
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -80,9 +97,42 @@ CASES = {
     "mixtral_fused_2x2": ("mixtral_8x22b", "fused", (2, 2), None),
     "deepseek_ai_1x4": ("deepseek_v2_236b", "ai_core_assignment", (1, 4), None),
     "deepseek_sg_2x1": ("deepseek_v2_236b", "scatter_gather", (2, 1), DROP_FACTOR),
+    "mamba2_ai_1x2": ("mamba2_2p7b", "ai_core_assignment", (1, 2), None),
+    "mamba2_ai_1x4": ("mamba2_2p7b", "ai_core_assignment", (1, 4), None),
+    "mamba2_fused_2x2": ("mamba2_2p7b", "fused", (2, 2), None),
+    "zamba2_ai_1x2": ("zamba2_2p7b", "ai_core_assignment", (1, 2), None),
+    "zamba2_ai_1x4": ("zamba2_2p7b", "ai_core_assignment", (1, 4), None),
+    "zamba2_fused_2x2": ("zamba2_2p7b", "fused", (2, 2), None),
+    "seamless_ai_1x2": ("seamless_m4t_large_v2", "ai_core_assignment", (1, 2), None),
+    "internvl2_ai_1x2": ("internvl2_76b", "ai_core_assignment", (1, 2), None),
 }
+#: cases whose loss, grad norm and params are held to the reference's
+#: jitted step on another mesh of the same arch (its (1, 2) run: the
+#: reference's sharded steps agree across meshes to rounding), their shards
+#: read from their own mesh's specs; one compile fewer each
+REF_RUN = {"mamba2_ai_1x4": "mamba2_ai_1x2", "mamba2_fused_2x2": "mamba2_ai_1x2",
+           "zamba2_ai_1x4": "zamba2_ai_1x2", "zamba2_fused_2x2": "zamba2_ai_1x2"}
+#: the stubbed frontends' inputs: batch key and rows a sample (encoder
+#: frames, prepended patch embeddings)
+FRONT = {"seamless_m4t_large_v2": ("frames", 24), "internvl2_76b": ("embeds", 8)}
+#: serving on (1, 2) under ai_core_assignment: case -> (arch, entry point,
+#: int8 weights)
+SERVE_CASES = {
+    "mamba2_static": ("mamba2_2p7b", "run_static", False),
+    "zamba2_static": ("zamba2_2p7b", "run_static", False),
+    "zamba2_int8": ("zamba2_2p7b", "run_static", True),
+    "qwen2_int8": ("qwen2_72b", "run_static", True),
+    "seamless_generate": ("seamless_m4t_large_v2", "generate", False),
+    "internvl2_generate": ("internvl2_76b", "generate", False),
+}
+#: the caches' rows: run_static's (two 16-token chunks, 8 new) and generate's
+STATIC_LEN, GENERATE_LEN = 40, 48
+#: the families with Mamba2 blocks
+MAMBA_ARCHS = ("mamba2_2p7b", "zamba2_2p7b")
 SHAPES = sorted({c[2] for c in CASES.values()})
-SPAWN_TIMEOUT = 240
+SPAWN_TIMEOUT = 400
+#: how long the reference's subprocess may take
+REF_TIMEOUT = 600
 SERVE_NEW, SERVE_CHUNK = 8, 16
 
 _REF_SCRIPT = r"""
@@ -117,31 +167,79 @@ for arch in sorted({c[0] for c in CASES.values()}):
     batches = [rng.integers(0, cfg.vocab, (B, S + 1)).astype(np.int32) for _ in range(STEPS)]
     for i, t in enumerate(batches):
         res[f"{arch}/tokens{i}"] = t
+    if arch in FRONT:
+        key, rows = FRONT[arch]
+        frng = np.random.default_rng(6)
+        for i in range(STEPS):
+            res[f"{arch}/{key}{i}"] = frng.standard_normal((B, rows, cfg.d_model)).astype(
+                np.float32)
     for k, v in jax.tree_util.tree_flatten_with_path(states[arch]["params"])[0]:
         res[f"{arch}/params" + jax.tree_util.keystr(k)] = np.asarray(v)
+# the inputs first, so that the port's runs start while the steps compile
+np.savez(sys.argv[2] + ".tmp.npz", **res)
+os.replace(sys.argv[2] + ".tmp.npz", sys.argv[2])
 
-for name, (arch, strategy, (d, m), cf) in CASES.items():
-    cfg = config(arch, cf)
-    state0 = states[arch]
-    batches = [res[f"{arch}/tokens{i}"] for i in range(STEPS)]
+
+def batches_of(arch):
+    out = []
+    for i in range(STEPS):
+        b = {"tokens": jnp.asarray(res[f"{arch}/tokens{i}"])}
+        if arch in FRONT:
+            b[FRONT[arch][0]] = jnp.asarray(res[f"{arch}/{FRONT[arch][0]}{i}"])
+        out.append(b)
+    return out
+
+
+def compiled(name):
+    # the case's jitted step, compiled, and its state / batch shardings
+    arch, strategy, (d, m), cf = CASES[name]
+    state0, batch0 = states[arch], batches_of(arch)[0]
     # Auto axes (jax.make_mesh gives Explicit ones)
     mesh = Mesh(np.array(jax.devices()[:d * m]).reshape(d, m), ("data", "model"))
     with mesh:
         ps = param_specs(state0["params"], mesh, strategy)
-        ss = {"params": ps, "opt": OptState(mu=ps, nu=ps, step=P()), "step": P()}
-        bs = data_specs({"tokens": jnp.asarray(batches[0])}, mesh)
-        step = jax.jit(make_train_step(cfg, opt, grad_accum=GA),
-                       in_shardings=(ns(mesh, ss), ns(mesh, bs)),
-                       out_shardings=(ns(mesh, ss), None))
-        state = state0
-        for i, t in enumerate(batches):
-            state, met = step(state, {"tokens": jnp.asarray(t)})
-            res[f"{name}/loss{i}"] = np.asarray(met["loss"])
-            res[f"{name}/grad_norm{i}"] = np.asarray(met["grad_norm"])
-        for k, v in jax.tree_util.tree_flatten_with_path(state["params"])[0]:
-            key = jax.tree_util.keystr(k)
-            res[f"{name}/params" + key] = np.asarray(v)
-            res[f"{name}/shard" + key] = np.asarray(v.sharding.shard_shape(v.shape))
+        ss = ns(mesh, {"params": ps, "opt": OptState(mu=ps, nu=ps, step=P()), "step": P()})
+        bs = ns(mesh, data_specs(batch0, mesh))
+        step = jax.jit(make_train_step(config(arch, cf), opt, grad_accum=GA),
+                       in_shardings=(ss, bs), out_shardings=(ss, None))
+        return step.lower(state0, batch0).compile(), ss, bs
+
+
+# the cases' compiles run in threads (XLA compiles outside the GIL); their
+# steps then run in turn
+from concurrent.futures import ThreadPoolExecutor
+
+run = [name for name in CASES if name not in REF_RUN]
+with ThreadPoolExecutor(4) as pool:
+    steps = dict(zip(run, pool.map(compiled, run)))
+
+for name, (arch, strategy, (d, m), cf) in CASES.items():
+    cfg = config(arch, cf)
+    state0 = states[arch]
+    if name in REF_RUN:
+        # the metrics and params of the run named, the shards of this mesh
+        for key in [k for k in res if k.startswith(REF_RUN[name] + "/")]:
+            if "/shard" not in key:
+                res[name + key[len(REF_RUN[name]):]] = res[key]
+        mesh = Mesh(np.array(jax.devices()[:d * m]).reshape(d, m), ("data", "model"))
+        ps = param_specs(state0["params"], mesh, strategy)
+        flat = jax.tree_util.tree_flatten_with_path(state0["params"])[0]
+        for (k, v), sp in zip(flat, jax.tree_util.tree_leaves(
+                ps, is_leaf=lambda x: isinstance(x, P))):
+            res[f"{name}/shard" + jax.tree_util.keystr(k)] = np.asarray(
+                NamedSharding(mesh, sp).shard_shape(v.shape))
+        continue
+    batches = batches_of(arch)
+    step, ss, bs = steps[name]
+    state = jax.device_put(state0, ss)
+    for i, t in enumerate(batches):
+        state, met = step(state, jax.device_put(t, bs))
+        res[f"{name}/loss{i}"] = np.asarray(met["loss"])
+        res[f"{name}/grad_norm{i}"] = np.asarray(met["grad_norm"])
+    for k, v in jax.tree_util.tree_flatten_with_path(state["params"])[0]:
+        key = jax.tree_util.keystr(k)
+        res[f"{name}/params" + key] = np.asarray(v)
+        res[f"{name}/shard" + key] = np.asarray(v.sharding.shard_shape(v.shape))
     if cf:
         # the routing of step 1's first microbatch, op by op on one device
         calls = []
@@ -156,11 +254,37 @@ for name, (arch, strategy, (d, m), cf) in CASES.items():
         try:
             with jax.disable_jit():
                 make_loss_fn(cfg, remat=False)(state0["params"],
-                                               {"tokens": jnp.asarray(batches[0][:B // GA])})
+                                               {"tokens": batches[0]["tokens"][:B // GA]})
         finally:
             jax.lax.top_k = top_k
         for j, idx in enumerate(calls):
             res[f"{name}/route{j}"] = idx
+
+# the serving caches' shards on (1, 2): cache_specs, and for the cross K/V
+# the reference dry-run's (None, data, None, model, None)
+from repro.dist.sharding import cache_specs, fix_spec
+from repro.models import encdec, transformer
+
+mesh = Mesh(np.array(jax.devices()[:2]).reshape(1, 2), ("data", "model"))
+for name, (arch, entry, int8) in SERVE_CASES.items():
+    if int8:
+        continue
+    cfg = config(arch, None)
+    max_len = GENERATE_LEN if entry == "generate" else STATIC_LEN
+    mod = encdec if cfg.is_enc_dec else transformer
+    caches = {"caches": jax.eval_shape(lambda: mod.init_caches(cfg, 4, max_len, jnp.float32))}
+    specs = {"caches": cache_specs(caches["caches"], mesh)}
+    if cfg.is_enc_dec:
+        caches["kv"] = jax.eval_shape(
+            lambda p: encdec.cross_kv(p, cfg, jnp.zeros((4, FRONT[arch][1], cfg.d_model))),
+            jax.eval_shape(lambda: encdec.init(jax.random.PRNGKey(0), cfg, jnp.float32)))
+        specs["kv"] = jax.tree.map(
+            lambda l: P(*fix_spec((None, "data", None, "model", None), l.shape, mesh)),
+            caches["kv"])
+    flat_specs = jax.tree_util.tree_leaves(specs, is_leaf=lambda x: isinstance(x, P))
+    for (k, v), sp in zip(jax.tree_util.tree_flatten_with_path(caches)[0], flat_specs):
+        res[f"{name}/cache" + jax.tree_util.keystr(k)] = np.asarray(
+            NamedSharding(mesh, sp).shard_shape(v.shape))
 np.savez(sys.argv[1], **res)
 print("REF_TP_OK")
 """
@@ -186,21 +310,52 @@ def _nest(z, prefix):
 
 
 @pytest.fixture(scope="module")
-def reference(tmp_path_factory):
-    """The reference's jitted steps on 4 fake CPU devices, one subprocess."""
+def reference_run(tmp_path_factory):
+    """The reference's jitted steps on 4 fake CPU devices, one subprocess:
+    started here, its inputs (params, batches) written before its steps
+    compile.  Yields (process, inputs path, results path, log path)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    out = tmp_path_factory.mktemp("ref_tp") / "ref.npz"
+    tmp = tmp_path_factory.mktemp("ref_tp")
+    out, ins, log = tmp / "ref.npz", tmp / "inputs.npz", tmp / "ref.log"
     code = (f"B, S, GA, STEPS = {B}, {S}, {GA}, {STEPS}\nCASES = {CASES!r}\n"
-            + _REF_SCRIPT)
-    r = subprocess.run(
-        [sys.executable, "-c", code, str(out)], capture_output=True, text=True,
-        env={"PYTHONPATH": os.path.join(repo, "src"),
-             "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
-             "HOME": os.environ.get("HOME", "/tmp"),
-             "JAX_PLATFORMS": "cpu"},
-        cwd=repo, timeout=400)
-    assert "REF_TP_OK" in r.stdout, r.stdout + r.stderr
-    return str(out)
+            f"REF_RUN = {REF_RUN!r}\nFRONT = {FRONT!r}\nSERVE_CASES = {SERVE_CASES!r}\n"
+            f"STATIC_LEN, GENERATE_LEN = {STATIC_LEN}, {GENERATE_LEN}\n" + _REF_SCRIPT)
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", code, str(out), str(ins)], stdout=f, stderr=subprocess.STDOUT,
+            text=True, cwd=repo,
+            env={"PYTHONPATH": os.path.join(repo, "src"),
+                 "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
+                 "HOME": os.environ.get("HOME", "/tmp"),
+                 "JAX_PLATFORMS": "cpu"})
+    try:
+        yield proc, str(ins), str(out), log
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(10)
+
+
+@pytest.fixture(scope="module")
+def ref_inputs(reference_run):
+    """The reference's params and batches, once its subprocess wrote them."""
+    proc, ins, _, log = reference_run
+    deadline = time.monotonic() + REF_TIMEOUT
+    while not os.path.exists(ins):
+        assert proc.poll() is None, log.read_text()
+        assert time.monotonic() < deadline, "no reference inputs within the timeout"
+        time.sleep(0.5)
+    return ins
+
+
+@pytest.fixture(scope="module")
+def reference(reference_run, runs, one_process):
+    """The reference's results, once its subprocess ends (after the port's
+    runs and one-process steps, which overlap it)."""
+    proc, _, out, log = reference_run
+    proc.wait(REF_TIMEOUT)
+    assert "REF_TP_OK" in log.read_text(), log.read_text()
+    return out
 
 
 def _inputs(ref_path, case):
@@ -210,6 +365,10 @@ def _inputs(ref_path, case):
     params = convert.params_from_numpy(_nest(z, f"{arch}/params"), cfg, "cpu")
     batches = [{"tokens": torch.from_numpy(z[f"{arch}/tokens{i}"]).long()}
                for i in range(STEPS)]
+    if arch in FRONT:
+        key = FRONT[arch][0]
+        for i, b in enumerate(batches):
+            b[key] = torch.from_numpy(z[f"{arch}/{key}{i}"])
     return cfg, params, batches
 
 
@@ -255,7 +414,8 @@ def _train(case, ref_path, mesh, data, model):
     mshards = tsh.model_shards(specs["params"], mesh) if model is not None else None
     step = tstep.make_train_step(cfg, OPT, grad_accum=GA, group=data, shards=shards,
                                  model=model, model_shards=mshards)
-    rec = {}
+    rec = {"placed_bytes": sum(t.untyped_storage().nbytes() for _, t in flatten_with_path(state)
+                               if isinstance(t, torch.Tensor))}
     for i, batch in enumerate(batches):
         with _Routes() as calls:
             state, met = step(state, batch)
@@ -340,6 +500,135 @@ def _functions(model):
     return out
 
 
+def _front(arch):
+    """The serving cases' frontend stub input (B 4), or none."""
+    if arch not in FRONT:
+        return {}
+    key, rows = FRONT[arch]
+    x = np.random.default_rng(8).standard_normal((4, rows, _cfg(arch).d_model))
+    return {key: torch.from_numpy(x.astype(np.float32))}
+
+
+def _serve_params(arch, int8, mesh=None, data=None, model=None):
+    """A serving case's params (seed 0; a bias config's biases random; int8
+    from ``quantize_params``), this position's slices with a ``model``."""
+    from repro_torch.models import encdec
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.quant import quantize_params
+
+    cfg = _cfg(arch)
+    mod = encdec if cfg.is_enc_dec else tf
+    params = mod.init(cfg, generator=torch.Generator().manual_seed(0), dtype=torch.float32,
+                      device="cpu")
+    g = torch.Generator().manual_seed(9)
+    for blk in params.get("blocks", []):
+        for proj in blk["mixer"].values():
+            if isinstance(proj, dict) and "b" in proj:
+                proj["b"] = 0.5 * torch.randn(proj["b"].shape, generator=g)
+    if int8:
+        params = quantize_params(params)
+    if model is not None:
+        params = tsh.place(params, tsh.param_specs(params, mesh, "ai_core_assignment"), mesh,
+                           data, model)
+    return cfg, params
+
+
+class _Serving:
+    """Records what a serving run makes: the caches' and cross K/V's leaf
+    shapes and every head's logits."""
+
+    def __init__(self):
+        from repro_torch.models import encdec
+        from repro_torch.models import transformer as tf
+
+        self.spots = [(tf, "init_caches", "caches"), (encdec, "init_caches", "caches"),
+                      (encdec, "cross_kv", "kv"), (tf, "head_logits", "logits"),
+                      (encdec, "head_logits", "logits")]
+        self.rec = {"caches": [], "kv": [], "logits": []}
+
+    def __enter__(self):
+        self.orig = [getattr(mod, name) for mod, name, _ in self.spots]
+        for (mod, name, key), fn in zip(self.spots, self.orig):
+            def recording(*a, _fn=fn, _key=key, **kw):
+                out = _fn(*a, **kw)
+                self.rec[_key].append(out)
+                return out
+            setattr(mod, name, recording)
+        return self.rec
+
+    def __exit__(self, *exc):
+        for (mod, name, _), fn in zip(self.spots, self.orig):
+            setattr(mod, name, fn)
+
+
+def _shapes(tree):
+    return {path: tuple(t.shape) for path, t in flatten_with_path(tree)
+            if isinstance(t, torch.Tensor)}
+
+
+def _serve_case(name, mesh=None, data=None, model=None):
+    """A serving case (``SERVE_CASES``) on this position, or in one
+    process: tokens, the logits of every step, the caches' and cross
+    K/V's leaf shapes; ``generate``'s logits are its heads' outputs."""
+    from repro_torch.launch.serve import run_static
+    from repro_torch.serve.step import generate
+
+    arch, entry, int8 = SERVE_CASES[name]
+    cfg, params = _serve_params(arch, int8, mesh, data, model)
+    with _Serving() as made:
+        if entry == "run_static":
+            res = run_static(params, cfg, _prompts(), new_tokens=SERVE_NEW, chunk=SERVE_CHUNK,
+                             return_logits=True, mesh=mesh, group=data, model=model)
+            tokens, logits = res["tokens"], torch.stack(res["logits"], dim=1)
+        else:
+            tokens = generate(params, cfg, _prompts(), SERVE_NEW, GENERATE_LEN,
+                              dtype=torch.float32, model=model, **_front(arch))
+            logits = torch.cat([x[:, -1:] for x in made["logits"]], dim=1)
+    return {"tokens": tokens, "logits": logits, "caches": _shapes(made["caches"][0]),
+            "kv": _shapes(made["kv"][0]) if made["kv"] else {}}
+
+
+def _mamba_pieces(model, arch):
+    """Layer 0's gathered ``in_proj`` and its ``out_norm`` across the group
+    on this rank's slices, forward values and the grads of this rank's
+    loss (``_mamba_inputs``)."""
+    from repro_torch.models import layers, ssm
+
+    cfg, p, x, c, y_in = _mamba_inputs(arch)
+    d_inner = cfg.ssm_expand * cfg.d_model
+    out = {}
+    with tp.parallel(model=model):
+        w = p["in_proj"]["w"].chunk(model.size, dim=1)[model.rank].clone().requires_grad_()
+        xs = x.clone().requires_grad_()
+        y = ssm._in_proj({"in_proj": {"w": w}}, cfg, xs, True)
+        (y * c[model.rank]).sum().backward()
+        out["in_proj"] = (y.detach(), w.grad, xs.grad)
+        cols = slice(model.rank * d_inner // model.size, (model.rank + 1) * d_inner // model.size)
+        ys = y_in[..., cols].clone().requires_grad_()
+        scale = p["out_norm"]["scale"][cols].clone().requires_grad_()
+        y = layers.rmsnorm_split_apply({"scale": scale}, ys, d_inner, cfg.norm_eps)
+        (y * c[0][..., :d_inner][..., cols]).sum().backward()
+        out["out_norm"] = (y.detach(), ys.grad, scale.grad)
+    return out
+
+
+def _mamba_inputs(arch):
+    """``arch``'s scaled-down layer-0 Mamba2 params, an input x (B 2, L 5),
+    every rank's loss weights c over the fused projection's width, and a
+    (B 2, L 5, d_inner) input of ``out_norm`` with a random scale."""
+    from repro_torch.models import ssm
+
+    cfg = _cfg(arch)
+    g = torch.Generator().manual_seed(11)
+    p = ssm.mamba2_init(g, cfg, torch.float32, "cpu")
+    p["out_norm"]["scale"] = torch.randn(p["out_norm"]["scale"].shape, generator=g)
+    d_inner = cfg.ssm_expand * cfg.d_model
+    wide = p["in_proj"]["w"].shape[1]
+    x = torch.randn(2, 5, cfg.d_model, generator=g)
+    c = [torch.randn(2, 5, wide, generator=g) for _ in range(2)]
+    return cfg, p, x, c, torch.randn(2, 5, d_inner, generator=g)
+
+
 def _child(rank, nprocs, init_method, shape, ref_path, prompts, out_dir):
     torch.set_num_threads(1)
     mesh, data, model = _join(rank, nprocs, init_method, shape)
@@ -348,6 +637,8 @@ def _child(rank, nprocs, init_method, shape, ref_path, prompts, out_dir):
     if shape == (1, 2):
         rec["serve"] = _serve("ai_core_assignment", mesh, data, model, prompts)
         rec["functions"] = _functions(model)
+        rec["serve_cases"] = {name: _serve_case(name, mesh, data, model) for name in SERVE_CASES}
+        rec["mamba"] = {arch: _mamba_pieces(model, arch) for arch in MAMBA_ARCHS}
     if shape == (2, 2):
         rec["serve"] = _serve("fused", mesh, data, model, prompts)
     if shape == (2, 1):
@@ -361,14 +652,14 @@ def _prompts():
 
 
 @pytest.fixture(scope="module")
-def runs(reference, tmp_path_factory):
+def runs(ref_inputs, tmp_path_factory):
     """Every process's records, per mesh shape."""
     out = {}
     for shape in SHAPES:
         d, m = shape
         n = d * m
         path = tmp_path_factory.mktemp(f"tp_{d}x{m}")
-        collective.spawn(_child, n, (shape, reference, _prompts(), str(path)),
+        collective.spawn(_child, n, (shape, ref_inputs, _prompts(), str(path)),
                          timeout=SPAWN_TIMEOUT, workdir=str(path))
         out[shape] = [torch.load(path / f"tp_{r}.pt") for r in range(n)]
     return out
@@ -401,8 +692,8 @@ def _one_process(ref_path, case):
 
 
 @pytest.fixture(scope="module")
-def one_process(reference):
-    return {case: _one_process(reference, case) for case in CASES}
+def one_process(ref_inputs):
+    return {case: _one_process(ref_inputs, case) for case in CASES}
 
 
 def _close(a, b, rtol):
@@ -498,6 +789,22 @@ def test_processes_hold_the_reference_slices(runs, reference, case):
             assert torch.equal(leaf, expect), (case, rank, path)
 
 
+@pytest.mark.parametrize("case", list(CASES))
+def test_placed_state_bytes_equal_the_stand_in(runs, reference, case):
+    """Every process's placed train state (params and both moments, its
+    slices) holds exactly the bytes ``launch.dryrun.tree_bytes`` gives a
+    device for the state under the case's specs."""
+    from repro_torch.launch.dryrun import tree_bytes
+
+    _, strategy, (d, m), _ = CASES[case]
+    mesh = make_mesh_for([CPU] * (d * m), model_axis=m)
+    _, params, _ = _inputs(reference, case)
+    state = tstep.make_state(params)
+    want = tree_bytes(state, state_shardings(state, mesh, strategy), mesh)
+    for rec in _recs(runs, case):
+        assert rec["placed_bytes"] == want, (case, rec["placed_bytes"], want)
+
+
 def _keep(routes, cap):
     """The reference's kept set: token-major positions over the
     microbatch's choices, against ``cap``."""
@@ -572,24 +879,111 @@ def test_static_serving_per_mesh_position(runs, shape):
                      device="cpu")
     one = run_static(params, cfg, _prompts(), new_tokens=SERVE_NEW, chunk=SERVE_CHUNK,
                      return_logits=True)
-    logits = torch.stack(one["logits"], dim=1)
-    top2 = logits.topk(2, dim=-1).values
-    margin = top2[..., 0] - top2[..., 1]
     for rec in recs:
         assert torch.equal(rec["tokens"], recs[0]["tokens"])
         assert rec["tokens"].shape == (4, SERVE_NEW)
-    got = recs[0]["tokens"]
-    for row in range(got.shape[0]):
-        diff = (got[row] != one["tokens"][row]).nonzero()
+    _hold_to_one_process(shape, recs[0]["tokens"], torch.stack(recs[0]["logits"], dim=1),
+                         one["tokens"], torch.stack(one["logits"], dim=1))
+
+
+def _hold_to_one_process(label, tokens, logits, one_tokens, one_logits):
+    """The margin rule: tokens equal to one process's but at a top-2 margin
+    below ``MARGIN_TOL`` (printed); a row equal throughout has its logits
+    within 1e-5 of max|logit|."""
+    top2 = one_logits.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    for row in range(tokens.shape[0]):
+        diff = (tokens[row] != one_tokens[row]).nonzero()
         if len(diff):
             at = int(diff[0])
-            print(f"{shape} row {row}: first differing token at {at}, one-process margin "
+            print(f"{label} row {row}: first differing token at {at}, one-process margin "
                   f"{float(margin[row, at]):.3e}")
             assert float(margin[row, at]) < MARGIN_TOL
             continue
-        got_logits = torch.stack([x[row] for x in recs[0]["logits"]])
-        err = float((got_logits - logits[row]).abs().max())
-        assert err <= 1e-5 * float(logits[row].abs().max()), (shape, row, err)
+        err = float((logits[row] - one_logits[row]).abs().max())
+        assert err <= 1e-5 * float(one_logits[row].abs().max()), (label, row, err)
+
+
+@pytest.fixture(scope="module")
+def one_process_serving():
+    return {name: _serve_case(name) for name in SERVE_CASES}
+
+
+@pytest.mark.parametrize("case", list(SERVE_CASES))
+def test_family_serving_per_mesh_position(runs, one_process_serving, case):
+    """The SSM and hybrid families through ``run_static``, enc-dec and VLM
+    through ``generate``, and int8 trees, on (1, 2): every process reads
+    the same tokens, held to one process under the margin rule.  int8
+    qwen2_72b keeps whole ``qw`` leaves beside its split column-parallel
+    biases (gathered: without that the bias slice meets a whole product);
+    int8 zamba2 computes its Mamba2 blocks whole against an SSM cache of
+    this rank's heads."""
+    arch, _, int8 = SERVE_CASES[case]
+    recs = [r["serve_cases"][case] for r in runs[(1, 2)]]
+    one = one_process_serving[case]
+    for rec in recs:
+        assert torch.equal(rec["tokens"], recs[0]["tokens"])
+        assert rec["tokens"].shape == (4, SERVE_NEW)
+        assert rec["logits"].shape == one["logits"].shape
+    _hold_to_one_process(case, recs[0]["tokens"], recs[0]["logits"], one["tokens"],
+                         one["logits"])
+    cfg = _cfg(arch)
+    if cfg.ssm_state:
+        heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+        for rec in recs:
+            for path, shape in rec["caches"].items():
+                if path[-1] == "ssm":
+                    assert shape[1] == heads // 2, (case, path, shape)
+                if path[-1] == "conv":
+                    assert shape == one["caches"][path], (case, path, shape)
+
+
+@pytest.mark.parametrize("case", [c for c, spec in SERVE_CASES.items() if not spec[2]])
+def test_serving_caches_hold_the_reference_slices(runs, reference, case):
+    """Every process's caches (SSM state heads split, conv states whole, KV
+    heads split) and an enc-dec's cross K/V (this rank's heads) are the
+    reference's ``shard_shape`` of them on (1, 2) (an enc-dec's caches are
+    the reference's stacked dict under ``blocks``)."""
+    z = np.load(reference)
+    want = {k[len(f"{case}/cache"):]: tuple(int(x) for x in v[1:])
+            for k, v in z.items() if k.startswith(f"{case}/cache") and not k.endswith("['len']")}
+    encdec = _cfg(SERVE_CASES[case][0]).is_enc_dec
+    for rec in (r["serve_cases"][case] for r in runs[(1, 2)]):
+        got = {f"['{key}']" + _ref_key(path[1:] if encdec and key == "caches" else path): shape
+               for key in ("caches", "kv") for path, shape in rec[key].items()}
+        assert got == want, case
+
+
+@pytest.mark.parametrize("arch", MAMBA_ARCHS)
+def test_mamba2_in_proj_and_out_norm_against_the_whole_computation(runs, arch):
+    """On 2 processes: ``in_proj``'s column slice gathered whole (the ranks
+    read it differently: its weight's gradient sums both ranks' reads) and
+    ``out_norm`` over the split ``d_inner`` (the sum of squares across the
+    group), forward and backward against the whole computation."""
+    from repro_torch.models import layers
+
+    cfg, p, x, c, y_in = _mamba_inputs(arch)
+    d_inner = cfg.ssm_expand * cfg.d_model
+    w = p["in_proj"]["w"].clone().requires_grad_()
+    xs = x.clone().requires_grad_()
+    y = xs @ w
+    (y * (c[0] + c[1])).sum().backward()
+    ys = y_in.clone().requires_grad_()
+    scale = p["out_norm"]["scale"].clone().requires_grad_()
+    normed = layers.rmsnorm_apply({"scale": scale}, ys, cfg.norm_eps)
+    (normed * c[0][..., :d_inner]).sum().backward()
+    for rank, rec in enumerate(runs[(1, 2)]):
+        got_y, got_w, got_x = rec["mamba"][arch]["in_proj"]
+        torch.testing.assert_close(got_y, y.detach())
+        torch.testing.assert_close(got_w, w.grad.chunk(2, dim=1)[rank])
+        torch.testing.assert_close(got_x, xs.grad)
+        alone = torch.einsum("bli,blo->io", x, c[rank]).chunk(2, dim=1)[rank]
+        assert not torch.allclose(got_w, alone)
+        cols = slice(rank * d_inner // 2, (rank + 1) * d_inner // 2)
+        got_y, got_ys, got_scale = rec["mamba"][arch]["out_norm"]
+        torch.testing.assert_close(got_y, normed.detach()[..., cols])
+        torch.testing.assert_close(got_ys, ys.grad[..., cols])
+        torch.testing.assert_close(got_scale, scale.grad[cols])
 
 
 def test_tensor_functions_against_the_whole_computation(runs):
@@ -649,15 +1043,18 @@ def test_a_split_leaf_needs_a_model_group():
                                init_method="file:///nonexistent", rank=0, world_size=2)
 
 
-def test_tensor_parallel_refuses_the_other_families():
+def test_check_supported_refuses_only_the_cnn():
+    """Under a model group every LM family runs; a CNN config is refused
+    (its model is ``models/resnet``)."""
     from repro_torch.models import transformer as tf
 
     model = collective.ModelGroup(0, 2, "gloo")
     with tp.parallel(model=model):
-        for arch in ("mamba2_2p7b", "zamba2_2p7b", "seamless_m4t_large_v2", "internvl2_76b"):
-            with pytest.raises(NotImplementedError, match="item 16"):
-                tf.check_supported(get_config(arch).scaled_down())
-        tf.check_supported(_cfg("deepseek_v2_236b"))
+        with pytest.raises(NotImplementedError, match="CNN"):
+            tf.check_supported(get_config("resnet18_vta"))
+        for arch in ("mamba2_2p7b", "zamba2_2p7b", "seamless_m4t_large_v2", "internvl2_76b",
+                     "deepseek_v2_236b"):
+            tf.check_supported(get_config(arch).scaled_down())
 
 
 def _torchrun(nproc, module, args, cwd, timeout=240):
@@ -672,27 +1069,38 @@ def _torchrun(nproc, module, args, cwd, timeout=240):
     return [x for x in r.stdout.splitlines() if x and not x.startswith("*")]
 
 
-def test_launchers_per_mesh_position(tmp_path):
+@pytest.mark.parametrize("family", ["dense_moe", "ssm_hybrid"])
+def test_launchers_per_mesh_position(tmp_path, family):
     """Both launchers under ``torchrun --nproc-per-node 4`` on the CPU, one
-    process per position of the (2, 2) mesh: process 0 alone prints; the
-    fused checkpoint (gathered over both groups by process 0) resumes in
-    one process."""
+    process per position of the (2, 2) mesh: process 0 alone prints.  The
+    dense and MoE families: the fused checkpoint (gathered over both groups
+    by process 0) resumes in one process, mixtral serves.  The SSM and
+    hybrid families: mamba2 trains under fused, zamba2 serves under
+    ai_core_assignment."""
     from repro_torch.launch import train as ttrain
 
-    ck = tmp_path / "ck"
     smoke = ["--device", "cpu", "--smoke", "--seq", "32", "--batch", "4"]
-    out = _torchrun(4, "repro_torch.launch.train",
-                    smoke + ["--steps", "2", "--ckpt", str(ck), "--ckpt-every", "2"], tmp_path)
-    assert out == ["device cpu  arch qwen3_0p6b  strategy fused  mesh {'data': 2, 'model': 2}",
-                   "done"]
-    state = ttrain.main(smoke + ["--steps", "3", "--ckpt", str(ck)])
-    assert int(state["step"]) == 3
-    out = _torchrun(4, "repro_torch.launch.serve",
-                    ["--device", "cpu", "--smoke", "--batch", "4", "--prompt", "32",
-                     "--new-tokens", "4", "--strategy", "ai_core_assignment", "--arch",
-                     "mixtral_8x22b"], tmp_path)
-    assert out[0] == "mesh {'data': 2, 'model': 2}  arch mixtral_8x22b  strategy " \
-                     "ai_core_assignment"
+    serve = ["--device", "cpu", "--smoke", "--batch", "4", "--prompt", "32", "--new-tokens",
+             "4", "--strategy", "ai_core_assignment"]
+    if family == "dense_moe":
+        ck = tmp_path / "ck"
+        out = _torchrun(4, "repro_torch.launch.train",
+                        smoke + ["--steps", "2", "--ckpt", str(ck), "--ckpt-every", "2"],
+                        tmp_path)
+        assert out == ["device cpu  arch qwen3_0p6b  strategy fused  mesh {'data': 2, "
+                       "'model': 2}", "done"]
+        state = ttrain.main(smoke + ["--steps", "3", "--ckpt", str(ck)])
+        assert int(state["step"]) == 3
+        arch = "mixtral_8x22b"
+    else:
+        out = _torchrun(4, "repro_torch.launch.train",
+                        smoke + ["--steps", "2", "--arch", "mamba2_2p7b", "--strategy", "fused"],
+                        tmp_path)
+        assert out == ["device cpu  arch mamba2_2p7b  strategy fused  mesh {'data': 2, "
+                       "'model': 2}", "done"]
+        arch = "zamba2_2p7b"
+    out = _torchrun(4, "repro_torch.launch.serve", serve + ["--arch", arch], tmp_path)
+    assert out[0] == f"mesh {{'data': 2, 'model': 2}}  arch {arch}  strategy ai_core_assignment"
     assert len(out) == 3 and out[2].startswith("decode 3 steps: ")
 
 
