@@ -229,9 +229,12 @@ ENGINE_POOL, ENGINE_REQUESTS, SPEC_REQUESTS, SPEC_K = 600, 16, 8, 4
 ACT_TOL = 1e-5
 PROJ = [("mixer", "wq"), ("mixer", "wk"), ("mixer", "wv"), ("mixer", "wo"),
         ("ffn", "w_gate"), ("ffn", "w_up"), ("ffn", "w_down")]
-# 7 projections in each of 28 layers per forward call; the static path makes
-# 4 prefill-chunk calls and 31 decode calls
-EXPECT_DEQUANT = 7 * 28 * (PROMPT // CHUNK + NEW_TOKENS - 1)  # 6860
+# 7 projections in each layer per forward call; the static path makes 4
+# prefill-chunk calls and 31 decode calls.  int8 static and the int8 engine
+# run the main path's first 14 of 28 layers (a depth cut for run time;
+# every width and gate kept): dequant 7 x 14 x 35 = 3430 launches on the
+# static path (6860 at 28 layers)
+INT8_LAYERS = 14
 # the projection whose N-contiguous-weight time ``time_dequant`` logs
 NCONTIG_PROJ = ("ffn", "w_down")
 # ResNet-18 convolutions at batch 1, 224 x 224 (the paper's workload):
@@ -810,13 +813,16 @@ def int8_static_phase(torch, params, qparams, cfg, prompts, dev, card: str):
 
     check(layers.gemm_impl() == "auto" and layers.attention_impl() == "auto",
           "the int8 path runs with gemm and attention impl auto")
+    L = cfg.num_layers
+    calls = PROMPT // CHUNK + NEW_TOKENS - 1
+    expect = (L * (PROMPT // CHUNK), L * (NEW_TOKENS - 1), 7 * L * calls)
     reset_counts()
     res = run_static(qparams, cfg, prompts, new_tokens=NEW_TOKENS, chunk=CHUNK,
                      return_logits=True)
     counts = (flash_attention.launches, decode_attention.launches, vta_gemm.launches["dequant"])
-    log(f"[int8 static] launches: vta_gemm dequant {counts[2]} (expect {EXPECT_DEQUANT} = 196 x "
-        f"{PROMPT // CHUNK + NEW_TOKENS - 1} forward calls), flash {counts[0]}, decode {counts[1]}")
-    check(counts == (EXPECT_FLASH, EXPECT_DECODE, EXPECT_DEQUANT),
+    log(f"[int8 static] {L} layers; launches: vta_gemm dequant {counts[2]} (expect {expect[2]} "
+        f"= {7 * L} x {calls} forward calls), flash {counts[0]}, decode {counts[1]}")
+    check(counts == expect,
           "the int8 path's projections and attention all went through the kernels")
     tokens = res["tokens"]
     check(tokens.shape == (BATCH, NEW_TOKENS), f"int8 token shape {tuple(tokens.shape)}")
@@ -850,7 +856,7 @@ def int8_static_phase(torch, params, qparams, cfg, prompts, dev, card: str):
     check(torch.equal(logits, gemm_plain), "int8 logits equal to the plain-GEMM run")
     # every kernel on its plain version, and the f32 weights: the attention
     # kernels' ~1e-6 differences move int8 codes at rounding ties, and over
-    # 28 layers the two int8 runs part by int8 rounding noise; that noise is
+    # the layers the two int8 runs part by int8 rounding noise; that noise is
     # measured by the f32 weights' distance from the int8 run, and the two
     # int8 runs must stay within twice it
     with plain_versions():
@@ -2611,6 +2617,10 @@ SERVE_FT_EVENTS = {
 SERVE_FT_INT8 = [("int8 decode_nan", None, {}, (20,)),
                  ("int8 device_loss", "device_loss:step=25,lose=1", {"devices": [0, 1, 2, 3]},
                   ())]
+# the fault and deadline runs take the main path's first 14 layers (a depth
+# cut for run time), held to a clean supervised run at that depth; the
+# clean run at full depth stays held to the [engine] run
+SERVE_FT_LAYERS = 14
 # the int8 runs hold the kernels to the plain GEMM within the same runs, so
 # they take the first 4 layers (depth cut to keep the whole run under 900 s;
 # every width and gate kept)
@@ -2644,9 +2654,9 @@ PIPE_LOSS_TOL, PIPE_GRAD_TOL, PIPE_LOGIT_TOL = 1e-5, 1e-4, 1e-4
 # run's (the reference's gate: the re-pad is a pure gather, only the f32 sums
 # of re-cut stages move)
 FT_BATCH, FT_SEQ, FT_FUSED_STEPS, FT_PIPE_STEPS = 4, 512, 8, 12
-# depth cut 28 -> 12 for run time (the main path's first 12 layers): the
+# depth cut 28 -> 8 for run time (the main path's first 8 layers): the
 # plans' events, the four stages and every gate stay
-FT_LAYERS = 12
+FT_LAYERS = 8
 FT_FUSED_PLAN = "nan:step=3;ckpt_crash:step=4"
 FT_SLOW_PLAN, FT_KILL_PLAN = "slowdown:step=3,stage=2,factor=3", "kill:step=7,lose=1"
 FT_RECUT_RTOL = 5e-2
@@ -2725,8 +2735,9 @@ def leak_check(eng, what: str) -> None:
 def serve_ft_phase(torch, params, qparams, cfg, dev, card: str, clean: dict) -> None:
     """``ServeSupervisor`` over the engine trace at full width.  The clean
     supervised run equals the unsupervised ``[engine]`` run (tokens and
-    counters, no event); each fault run records exactly its planned events,
-    its streams equal the clean run's under the margin rule, and its drained
+    counters, no event); each fault run, on the first ``SERVE_FT_LAYERS``
+    layers, records exactly its planned events, its streams equal a clean
+    supervised run's at that depth under the margin rule, and its drained
     pool leaks nothing; a degrade leaves no kernel launch behind it and
     ``restore_dispatchers`` puts ``auto`` back; on int8 weights and pools
     (the first ``SERVE_FT_INT8_LAYERS`` layers), decode_nan and device_loss
@@ -2785,9 +2796,23 @@ def serve_ft_phase(torch, params, qparams, cfg, dev, card: str, clean: dict) -> 
     leak_check(eng, "[serve-ft] clean")
     del sup, eng
 
+    # the fault and deadline runs' reference: a clean supervised run on the
+    # first SERVE_FT_LAYERS layers
+    cfg_c = dataclasses.replace(cfg, num_layers=SERVE_FT_LAYERS)
+    p_c = dict(params, blocks=params["blocks"][:SERVE_FT_LAYERS])
+    sup = supervise(p=p_c, c=cfg_c)
+    done, cut_s = drive_supervisor(torch, sup, reqs)
+    check(sup.events == [] and sup.recoveries == 0 and len(done) == len(reqs),
+          f"[serve-ft] clean run at {SERVE_FT_LAYERS} layers: no event ({sup.events})")
+    cut = {"toks": {rid: list(r.tokens) for rid, r in done.items()}, "seconds": cut_s}
+    leak_check(sup.engine, f"[serve-ft] clean at {SERVE_FT_LAYERS} layers")
+    log(f"[serve-ft] clean supervised run at {SERVE_FT_LAYERS} of {cfg.num_layers} layers "
+        f"(the fault and deadline runs' reference): {cut_s:.2f} s, no event")
+    del sup
+
     # one run per fault kind; the deadline run after them
     for label, plan, sup_kw, nan_steps in SERVE_FT_RUNS:
-        sup = supervise(plan, **sup_kw)
+        sup = supervise(plan, p=p_c, c=cfg_c, **sup_kw)
         state, planned = {}, []
         arm = arm_decode_nan(nan_steps, planned)
 
@@ -2819,9 +2844,9 @@ def serve_ft_phase(torch, params, qparams, cfg, dev, card: str, clean: dict) -> 
                   f"{state.get('at', (None,))[0]}")
         check(all(not r.cancelled and len(r.tokens) == r.max_new for r in done.values())
               and len(done) == len(reqs), f"[serve-ft] {label}: every request finished")
-        diverged = margin_check(torch, params, cfg, dev, reqs,
+        diverged = margin_check(torch, p_c, cfg_c, dev, reqs,
                                 {rid: list(r.tokens) for rid, r in done.items()},
-                                clean["toks"], f"serve-ft {label} vs the clean run", LOGIT_TOL)
+                                cut["toks"], f"serve-ft {label} vs the clean run", LOGIT_TOL)
         leak_check(sup.engine, f"[serve-ft] {label}")
         recov = [(e.kind, round(e.recovery_s * 1e3, 3)) for e in sup.events if e.recovery_s]
         log(f"[serve-ft] {label}: plan {plan or ';'.join(planned)}; events {got}, "
@@ -2833,8 +2858,8 @@ def serve_ft_phase(torch, params, qparams, cfg, dev, card: str, clean: dict) -> 
         del sup
 
     # a deadline that expires mid-trace: half the clean run's wall time
-    deadline_ms = clean["seconds"] * 1e3 / 2
-    sup = supervise()
+    deadline_ms = cut["seconds"] * 1e3 / 2
+    sup = supervise(p=p_c, c=cfg_c)
     done, secs = drive_supervisor(torch, sup, reqs, deadline_ms=deadline_ms)
     got = events(sup)
     cancelled = {rid for rid, r in done.items() if r.cancelled}
@@ -2844,11 +2869,11 @@ def serve_ft_phase(torch, params, qparams, cfg, dev, card: str, clean: dict) -> 
     check(all(e.detail["expired_since_last_check"] for e in sup.events),
           "[serve-ft] deadline: each cancelled within one step of its deadline")
     finished = {rid: list(r.tokens) for rid, r in done.items() if rid not in cancelled}
-    diverged = margin_check(torch, params, cfg, dev, reqs, finished,
-                            {rid: clean["toks"][rid] for rid in finished},
+    diverged = margin_check(torch, p_c, cfg_c, dev, reqs, finished,
+                            {rid: cut["toks"][rid] for rid in finished},
                             "serve-ft deadline vs the clean run", LOGIT_TOL)
     for rid in cancelled:
-        have, want = list(done[rid].tokens), clean["toks"][rid]
+        have, want = list(done[rid].tokens), cut["toks"][rid]
         check(len(have) < len(want), f"[serve-ft] deadline: request {rid} stopped early")
     leak_check(sup.engine, "[serve-ft] deadline")
     late = max(e.detail["late_s"] for e in sup.events)
@@ -3424,6 +3449,305 @@ def train_ft_phase(torch, params, cfg, dev, card: str) -> int:
     return n_a + n_b + n_c + n_d
 
 
+# the [train-ft-multi] phase: TrainSupervisor across processes, qwen3_0p6b at
+# full width and [tp]'s depth (MULTI_LAYERS), f32, B 4 x 512 (flash runs),
+# 4 gloo processes sharing the card under fused: (2, 2), one process per mesh
+# position, until a kill leaves (3, 1), one per data position over 3 of the 4
+# (batch 4 computed whole by each); checkpoints every 2 steps (process 0
+# writes).  The plan: a NaN at step 1 (rollback), a checkpoint write crash
+# armed at step 2 (while the save of step 2, seconds at full width, is
+# still writing: it dies, and the save at 4 finds it and retries), a kill
+# of one device at step 4; 5 steps (the last on (3, 1)).  (A crash armed
+# while no write is in flight waits for the next one, so the step it shows
+# at depends on the disk: armed at step 1 it took the step-0 anchor's write
+# on the card)
+FT_MULTI_PROCS, FT_MULTI_STEPS = 4, 5
+FT_MULTI_PLAN = "nan:step=1;ckpt_crash:step=2;kill:step=4,lose=1"
+# losses against the one-process supervisor on a 4-entry mesh of the card
+FT_MULTI_TOL = 1e-5
+FT_MULTI_TIMEOUT = 900
+
+
+def _ft_event(e) -> dict:
+    """An event's gated fields: kind, step, steps lost, error type,
+    devices, restored step."""
+    detail = {k: v for k, v in e.detail.items() if k in ("devices", "restored_step")}
+    if "error" in e.detail:
+        detail["error"] = e.detail["error"].split("(")[0]
+    return {"kind": e.kind, "step": e.step, "steps_lost": e.steps_lost, "detail": detail}
+
+
+def ft_multi_child(rank, nprocs, init_method, job):
+    """One process of the ``[train-ft-multi]`` phase: the supervisor run
+    over the world's devices (``job["devs"]``), its events, losses,
+    skipped set, step times, collective seconds and flash launches; the
+    final params gathered whole.  Process 0 then runs the same plan in one
+    process on ``[its device] * 4`` and holds the final params to it (all
+    of them, and where ``TP_GRAD_FLOOR`` decides), after the others have
+    left the card.  Writes its
+    record as JSON to ``job["out"]/ft_<rank>.json``."""
+    import math
+    import shutil
+
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.dist import collective
+    from repro_torch.ft.faults import FaultPlan
+    from repro_torch.ft.supervisor import TrainSupervisor
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import step as st
+    from repro_torch.tree import leaves as leaves_of
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, devs = job["cfg"], [torch.device(d) for d in job["devs"]]
+    dev = devs[rank]
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    coll = {"s": 0.0, "calls": 0}
+
+    def timed(fn):
+        def run(*a, **kw):
+            sync()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                sync()
+                coll["s"] += time.perf_counter() - t0
+                coll["calls"] += 1
+        return run
+
+    for name in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor"):
+        setattr(tdist, name, timed(getattr(tdist, name)))
+
+    def init_fn():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return st.make_state(tf.init(cfg, generator=gen, dtype=torch.float32, device=dev))
+
+    def supervisor(devices, root, **world):
+        return TrainSupervisor(cfg, steps=FT_MULTI_STEPS, seq=FT_SEQ, batch=FT_BATCH,
+                               strategy="fused", devices=devices,
+                               fault_plan=FaultPlan.parse(FT_MULTI_PLAN), ckpt_dir=root,
+                               ckpt_every=2, init_fn=init_fn, **world)
+
+    def finite(xs):
+        return [x for x in xs if not math.isnan(x)]
+
+    # the seconds of the checkpoint saves (every process gathers, process
+    # 0 writes) and restores
+    spent = {"save": 0.0, "restore": 0.0}
+    for method, key in (("_save", "save"), ("_load_latest", "restore")):
+        def timed_method(self, *a, _orig=getattr(TrainSupervisor, method), _key=key, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _orig(self, *a, **kw)
+            finally:
+                spent[_key] += time.perf_counter() - t0
+        setattr(TrainSupervisor, method, timed_method)
+
+    flash_attention.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    sup = supervisor(devs, job["root"], init_method=init_method, rank=rank, world_size=nprocs)
+    try:
+        res = sup.run()
+        sync()
+        wall = time.perf_counter() - t0
+        rec = {"rank": rank, "backend": sup.world.backend, "member": sup._member,
+               "events": [_ft_event(e) for e in res.events], "skipped": sorted(sup.skipped),
+               "losses": res.losses, "step_ms": [1e3 * x for x in finite(res.step_times)],
+               "collective_s": coll["s"], "collectives": coll["calls"], "wall_s": wall,
+               "save_s": spent["save"], "restore_s": spent["restore"],
+               "flash": flash_attention.launches,
+               "layout": [None if g is None else g.size for g in (sup._data, sup._model)]}
+        whole = None
+        if sup._member:
+            shards = sup._shards and sup._shards["params"]
+            mshards = sup._mshards and sup._mshards["params"]
+            whole = collective.gather_tree(
+                collective.gather_tree(sup.state["params"], shards, sup._data), mshards,
+                sup._model)
+            if rank:
+                whole = None
+    finally:
+        sup.close()
+    del sup, res
+    if cuda:
+        torch.cuda.empty_cache()
+    if rank == 0:
+        # the one-process supervisor, the same plan on a 4-entry mesh of this
+        # device; the grads each opt step took (the last taking of a step is
+        # the final trajectory's): where every one clears the floor.  The
+        # world's checkpoints go first (process 0 wrote them all)
+        shutil.rmtree(job["root"], ignore_errors=True)
+        clear = {}
+        apply = st.adamw.apply
+
+        def spy(c, p, g, s_, norm_fn=st.adamw.global_norm):
+            clear[int(s_.step)] = [t.abs() >= TP_GRAD_FLOOR for t in leaves_of(g)]
+            return apply(c, p, g, s_, norm_fn)
+
+        flash_attention.launches = 0
+        st.adamw.apply = spy
+        try:
+            sync()
+            t0 = time.perf_counter()
+            one = supervisor([dev] * nprocs, job["root"] + "_one")
+            ores = one.run()
+            sync()
+            rec["one_process"] = {
+                "events": [_ft_event(e) for e in ores.events], "skipped": sorted(one.skipped),
+                "losses": ores.losses, "step_ms": [1e3 * x for x in ores.step_times],
+                "wall_s": time.perf_counter() - t0, "flash": flash_attention.launches}
+        finally:
+            st.adamw.apply = apply
+        decided = None
+        for step in range(FT_MULTI_STEPS):
+            decided = clear[step] if decided is None else [
+                a & b for a, b in zip(decided, clear[step])]
+        errs = []
+        for a, b, c in zip(leaves_of(whole), leaves_of(one.state["params"]), decided):
+            d = (a - b).abs()
+            errs.append((float((d * c).max()), float(d.max()), int((~c).sum())))
+        rec["param_err"] = max(e[0] for e in errs)
+        rec["param_err_all"] = max(e[1] for e in errs)
+        rec["undecided"] = sum(e[2] for e in errs)
+        del one, whole, clear, decided
+    with open(Path(job["out"]) / f"ft_{rank}.json", "w") as f:
+        json.dump(rec, f)
+
+
+def train_ft_multi_phase(torch, cfg, dev, card: str) -> int:
+    """``TrainSupervisor`` across processes (``FT_MULTI_*``): 4 gloo
+    processes sharing the card run the plan in lockstep over fused (2, 2)
+    -> (3, 1) (``collective.spawn``, a file store and the checkpoints
+    under ``build/``).  Gates against the one-process supervisor with the
+    same plan on ``[card] * 4``: every process's events (kind, step, steps
+    lost, error type, ``devices``, ``restored_step``) equal to it (the
+    ``ckpt_retry`` on process 0 alone, which writes the checkpoints; the
+    process whose device left stops at its ``rescale``), the skipped set
+    equal, every loss within ``FT_MULTI_TOL`` (the departed process's up
+    to its loss), the final params within ``TP_PARAM_TOL`` over every
+    element (printed too where every final-trajectory step's one-process
+    gradient clears ``TP_GRAD_FLOOR``), flash launches a process exact (2 x layers a step
+    execution: warm steps, poisoned and replayed steps included).  With 4
+    or more cards the job runs again over NCCL on distinct cards.  Prints
+    the step time a process and the collectives' share of the run.
+    Returns the processes' flash launches."""
+    import math
+    import shutil
+
+    from repro_torch.dist import collective
+
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    free = shutil.disk_usage(build).free
+    check(free >= FT_DISK_BYTES, f"[train-ft-multi] {free / 2 ** 30:.1f} GiB free under "
+          f"{build}, the checkpoints need {FT_DISK_BYTES / 2 ** 30:.1f}")
+    layouts = [("gloo, one card shared", [str(dev)] * FT_MULTI_PROCS)]
+    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if n >= FT_MULTI_PROCS:
+        layouts.append(("nccl, distinct cards", [f"cuda:{i}" for i in range(FT_MULTI_PROCS)]))
+    L = cfg.num_layers
+    total = 0
+    log(f"[train-ft-multi] {cfg.name} full width f32, {L} layers, batch {FT_BATCH} x seq "
+        f"{FT_SEQ}, plan {FT_MULTI_PLAN!r}, {FT_MULTI_STEPS} steps, checkpoints every 2")
+    for label, devs in layouts:
+        out = build / "ft_multi"
+        shutil.rmtree(out, ignore_errors=True)
+        out.mkdir(parents=True)
+        job = dict(cfg=cfg, devs=devs, out=str(out), root=str(out / "ck"))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        collective.spawn(ft_multi_child, FT_MULTI_PROCS, (job,), timeout=FT_MULTI_TIMEOUT,
+                         workdir=str(out))
+        log(f"[train-ft-multi] {label}: {FT_MULTI_PROCS} processes on {devs} done in "
+            f"{time.perf_counter() - t0:.1f} s (the run, process 0's one-process run)")
+        recs = [json.loads((out / f"ft_{r}.json").read_text()) for r in range(FT_MULTI_PROCS)]
+        shutil.rmtree(out, ignore_errors=True)
+        want_backend = "nccl" if label.startswith("nccl") else "gloo"
+        check(all(r["backend"] == want_backend for r in recs),
+              f"[train-ft-multi] {label}: backend {[r['backend'] for r in recs]}")
+        one = recs[0]["one_process"]
+        for who, evs in [("one process", one["events"])] + [
+                (f"process {r}", rec["events"]) for r, rec in enumerate(recs)]:
+            log(f"[train-ft-multi] {label} {who} events: {evs}")
+        kinds = [e["kind"] for e in one["events"]]
+        check(kinds == ["rollback", "ckpt_retry", "rescale"],
+              f"[train-ft-multi] {label}: one-process events {one['events']}")
+        check(all(math.isfinite(x) for x in one["losses"]),
+              f"[train-ft-multi] {label}: one-process losses {one['losses']}")
+        kill = one["events"][2]
+        check(kill["detail"]["devices"] == f"{FT_MULTI_PROCS}->{FT_MULTI_PROCS - 1}",
+              f"[train-ft-multi] {label}: {kill}")
+        rbs = [e for e in one["events"] if e["kind"] == "rollback"]
+        # step executions: the warm step, every step up to the kill's, the
+        # replayed and poisoned ones, then the warm step and the restored run
+        before = 1 + kill["step"] + 1 + sum(e["steps_lost"] + 1 for e in rbs)
+        runs = before + 1 + FT_MULTI_STEPS - kill["detail"]["restored_step"]
+        check(one["flash"] == 2 * L * runs, f"[train-ft-multi] {label}: one process flash "
+              f"{one['flash']}, expect {2 * L * runs}")
+        check([r["member"] for r in recs] == [True] * (FT_MULTI_PROCS - 1) + [False],
+              f"[train-ft-multi] {label}: members {[r['member'] for r in recs]}")
+        check(all(r["layout"] == [FT_MULTI_PROCS - 1, None] for r in recs[:-1]),
+              f"[train-ft-multi] {label}: the survivors' layout "
+              f"{[r['layout'] for r in recs]} (one process per data position, (3, 1))")
+        for r, rec in enumerate(recs):
+            events = one["events"] if r == 0 else [e for e in one["events"]
+                                                   if e["kind"] != "ckpt_retry"]
+            if not rec["member"]:
+                events = events[:[e["kind"] for e in events].index("rescale") + 1]
+            check(rec["events"] == events, f"[train-ft-multi] {label} process {r}: events "
+                  f"{rec['events']} vs {events}")
+            losses = [x for x in rec["losses"] if not math.isnan(x)]
+            check(len(losses) == (FT_MULTI_STEPS if rec["member"] else kill["step"]),
+                  f"[train-ft-multi] {label} process {r}: {len(losses)} losses")
+            check(all(abs(a - b) <= FT_MULTI_TOL * abs(b)
+                      for a, b in zip(losses, one["losses"])),
+                  f"[train-ft-multi] {label} process {r}: losses {losses} vs one process "
+                  f"{one['losses']}")
+            if rec["member"]:
+                check(rec["skipped"] == one["skipped"], f"[train-ft-multi] {label} process "
+                      f"{r}: skipped {rec['skipped']} vs {one['skipped']}")
+            expect = 2 * L * (runs if rec["member"] else before)
+            check(rec["flash"] == expect, f"[train-ft-multi] {label} process {r}: flash "
+                  f"{rec['flash']}, expect {expect}")
+            total += rec["flash"]
+        err = recs[0]["param_err_all"]
+        check(err <= TP_PARAM_TOL, f"[train-ft-multi] {label}: final params {err} from one "
+              f"process (tol {TP_PARAM_TOL})")
+        for e in one["events"]:
+            log(f"[train-ft-multi] {label}   [{e['kind']}] at step {e['step']}: lost "
+                f"{e['steps_lost']} steps {e['detail']} (every process; ckpt_retry on "
+                f"process 0, which writes)")
+        step_ms = [sum(r["step_ms"]) / len(r["step_ms"]) for r in recs]
+        share = [100 * r["collective_s"] / r["wall_s"] for r in recs]
+        log(f"[train-ft-multi] {label}: losses within {FT_MULTI_TOL} of one process "
+            f"({recs[0]['losses'][-1]:.6f} vs {one['losses'][-1]:.6f} at step "
+            f"{FT_MULTI_STEPS}); final params within {err:.3e} over every element (tol "
+            f"{TP_PARAM_TOL}), {recs[0]['param_err']:.3e} where every step's gradient clears "
+            f"{TP_GRAD_FLOOR}, {recs[0]['undecided']} elements not; skipped {one['skipped']}")
+        log(f"[train-ft-multi] {label}: mean step ms a process {[round(x, 1) for x in step_ms]}"
+            f" vs one process {sum(one['step_ms']) / len(one['step_ms']):.1f}; collectives "
+            f"{[round(x, 1) for x in share]} % of each process's run "
+            f"({[r['collectives'] for r in recs]} calls, run "
+            f"{[round(r['wall_s'], 1) for r in recs]} s, of it checkpoint saves "
+            f"{[round(r['save_s'], 1) for r in recs]} s and restores "
+            f"{[round(r['restore_s'], 1) for r in recs]} s; one process {one['wall_s']:.1f} s); "
+            f"flash {[r['flash'] for r in recs]} a process; on {card}")
+    return total
+
+
 def tune_phase(torch, params, cfg, dev, card: str, untuned: dict) -> dict:
     """``core.autotune.tune_runtime`` on the card at the main path's shapes
     (``TUNE_GRIDS``: flash's prefill call at B 1, S 2048, the paged kernel
@@ -3581,6 +3905,139 @@ MULTI_TOL = 1e-5
 # held at this distance, its loss and grad norm at MULTI_TOL
 MULTI_PLAIN_TOL = 1e-4
 MULTI_TIMEOUT = 600
+# the MoE pipeline across the [multi] processes: mixtral_8x22b at full width,
+# bf16 params, depth 56 -> 1 (one stage a process: the (2, 1) data mesh), one
+# microbatch of B 2 x 512 (a row a process), GPipe and 1F1B: the pipe's loss
+# and grads in each process (the schedules' grads equal, checked), then their
+# mean over the processes and its norm (a leaf at a time) as the train step
+# takes them before AdamW.  Cuts: depth, and no AdamW update:
+# a process holds the whole layer list under the pipeline's layout, and at
+# depth 1 its bf16 params, f32 gradient accumulators, bf16 moments and
+# AdamW's new trees come to ~56 GB, two processes ~112 GB of the card's 80;
+# the loss, aux, gradients and routing are what the capacity repair moves.
+# Loss, aux, grad norm and every gradient leaf are held at MULTI_TOL: a
+# process runs its data shard as one process runs it, and the pipe sums
+# every gradient, the table's too, in f32
+MULTI_MOE_ARCH, MULTI_MOE_LAYERS, MULTI_MOE_DTYPE = "mixtral_8x22b", 1, "bfloat16"
+
+
+def multi_moe(torch, job, rank, group, rows, dev, sync) -> dict:
+    """The ``[multi]`` processes' MoE pipeline job (``MULTI_MOE_ARCH``): per
+    schedule, this process's loss, aux and grad norm (averaged over the
+    processes) and step 1's routing (each call's expert choices and kept
+    set); process 0 then runs the same pipe in one process, its data shards
+    in turn, after the others have freed the card."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist import collective
+    from repro_torch.dist.sharding import data_shards, param_specs, place
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as st
+    from repro_torch.tree import flatten_with_path
+
+    cfg = job["moe_cfg"]
+    dtype = getattr(torch, MULTI_MOE_DTYPE)
+    tokens = SyntheticLM(cfg.vocab, job["seq"], job["batch"], seed=0).batch(0)["tokens"]
+    batch = {"tokens": torch.from_numpy(tokens).long().to(dev)}
+    dmesh, _ = _multi_meshes(torch, rows)
+    one_mesh, _ = _multi_meshes(torch, [rows[0]] * len(rows))
+
+    def free():
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # process 0 keeps 1F1B's mean gradients on the host, a leaf at a time,
+    # and holds the one-process pipe's against them leaf by leaf (GPipe's
+    # mean is held to 1F1B's norm and to one process's; each host copy of
+    # the ~11.6 GB mean takes ~9 s)
+    kept = {"1f1b": {}} if rank == 0 else None
+
+    def run(grp, mesh):
+        params = tf.init(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                         dtype=dtype, device=dev)
+        specs = param_specs(params, mesh, "pipeline")
+        shards = data_shards(specs, mesh) if grp is not None else None
+        mine = place(params, specs, mesh, grp)
+        del params
+        out = {}
+        for schedule in ("gpipe", "1f1b"):
+            lg = st.make_pipeline_train_step(cfg, adamw.AdamWConfig(lr=1e-3), mesh,
+                                             num_microbatches=1, schedule=schedule,
+                                             group=grp, shards=shards).loss_and_grad
+            calls, orig = [], moe_mod.dispatch_slots
+
+            def recording(exp_flat, *a, _calls=calls, _orig=orig):
+                got = _orig(exp_flat, *a)
+                if not torch.is_grad_enabled():  # the forward units, in order
+                    _calls.append((exp_flat.tolist(), got[1].tolist()))
+                return got
+
+            flash_attention.launches = 0
+            sync()
+            collective.barrier(grp)
+            t0 = time.perf_counter()
+            moe_mod.dispatch_slots = recording
+            try:
+                whole = collective.gather_tree(mine, shards, grp)
+                (loss, metrics), grads = lg(whole, batch)
+                del whole
+                loss, metrics = collective.pmean((loss, metrics), grp)
+                flat = flatten_with_path(grads)
+                del grads
+                # this process's own gradients' squared norm: the two
+                # schedules' bitwise-equal gradients read equal
+                local = sum(float(torch.linalg.vector_norm(g)) ** 2 for _, g in flat)
+                # the mean over the processes and its norm a leaf at a time,
+                # each leaf's own gradient freed as its mean is taken (a
+                # whole tree's bucketed all_reduce would hold the gradients
+                # twice more)
+                total = torch.zeros((), dtype=torch.float32, device=dev)
+                gaps = {}
+                for i in range(len(flat)):
+                    (path, g), flat[i] = flat[i], None
+                    if grp is not None:
+                        (g,) = collective.pmean([g], grp)
+                    g = g.float()
+                    total = total + g.square().sum()
+                    key = "/".join(map(str, path))
+                    if kept is not None and schedule in kept:
+                        if grp is not None:
+                            kept[schedule][key] = g.cpu()
+                        else:
+                            # the one-process pipe's leaf against the
+                            # processes' mean: |difference|, |one
+                            # process|, worst element
+                            d = kept[schedule].pop(key).to(dev) - g
+                            gaps[key] = (float(torch.linalg.vector_norm(d)),
+                                         float(torch.linalg.vector_norm(g)),
+                                         float(d.abs().max()))
+                            del d
+                    del g
+                rec = dict(loss=float(loss), aux=float(metrics["aux"]), local=local,
+                           grad_norm=float(torch.sqrt(total)), gaps=gaps)
+                del flat
+            finally:
+                moe_mod.dispatch_slots = orig
+            sync()
+            rec.update(ms=(time.perf_counter() - t0) * 1e3, routes=calls,
+                       flash=flash_attention.launches,
+                       peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30
+                       if dev.type == "cuda" else 0.0)
+            out[schedule] = rec
+        del mine
+        free()
+        return out
+
+    rec = run(group, dmesh)
+    collective.barrier(group)
+    if rank == 0:
+        one = run(None, one_mesh)
+        for s in ("gpipe", "1f1b"):
+            rec[s]["one_process"] = one[s]
+    collective.barrier(group)
+    return rec
 
 
 def _multi_meshes(torch, rows):
@@ -3753,12 +4210,17 @@ def multi_child(rank, nprocs, init_method, job):
         serve["one_process_margin"] = (top2[..., 0] - top2[..., 1]).tolist()
         serve["one_process_decode_ms"] = ref["decode_s"] * 1e3
     rec["serve"] = serve
+    del params
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    rec["moe"] = multi_moe(torch, job, rank, group, rows, dev, sync)
     with open(Path(job["out"]) / f"multi_{rank}.json", "w") as f:
         json.dump(rec, f)
     group.close()
 
 
-def multi_phase(torch, cfg, dev, card: str) -> dict:
+def multi_phase(torch, cfg, dev, card: str, moe_cfg=None) -> dict:
     """Multi-card execution over the data axes at qwen3_0p6b's full width:
     ``MULTI_PROCS`` processes, one per data position (``dist.collective``,
     spawned fresh, a file store under ``build/``), each on its rows of the
@@ -3775,13 +4237,24 @@ def multi_phase(torch, cfg, dev, card: str) -> dict:
     (``launch.dryrun.tree_bytes``), fused's below scatter_gather's; the
     gathered tokens equal the one-process run's where its top-2 margin
     clears the tolerance.  The data strategies are also held to the plain
-    one-process step (grad_accum 1), params within ``MULTI_PLAIN_TOL``.  A
-    failed child, collective or join fails the phase; nothing falls back
-    to one process.  Returns the kernels' launches in the
+    one-process step (grad_accum 1), params within ``MULTI_PLAIN_TOL``.
+    Then the MoE pipeline (``MULTI_MOE_ARCH``, ``moe_cfg`` in a CPU
+    rehearsal): per schedule every process reads the same loss, aux and
+    grad norm, within ``MULTI_TOL`` of the one-process pipe with its data
+    shards in turn, and under 1F1B each leaf of the processes' mean
+    gradient too;
+    each process's routing (experts and kept set of every call) equal to
+    its shard's there; GPipe == 1F1B; flash launches exact.  A failed
+    child, collective or join fails the phase; nothing falls back to one
+    process.  Returns the kernels' launches in the
     multi-process runs, summed over processes."""
     import shutil
 
+    from repro_torch.configs.base import get_config
     from repro_torch.dist import collective
+
+    if moe_cfg is None:
+        moe_cfg = dataclasses.replace(get_config(MULTI_MOE_ARCH), num_layers=MULTI_MOE_LAYERS)
 
     # each process's row: its pipeline stage devices (the data mesh takes
     # the first); one card shared by both processes, then distinct cards
@@ -3800,7 +4273,7 @@ def multi_phase(torch, cfg, dev, card: str) -> dict:
         shutil.rmtree(out, ignore_errors=True)
         out.mkdir(parents=True)
         job = dict(cfg=cfg, rows=rows, seq=MULTI_SEQ, batch=MULTI_BATCH, steps=MULTI_STEPS,
-                   new=MULTI_NEW, out=str(out))
+                   new=MULTI_NEW, out=str(out), moe_cfg=moe_cfg)
         if dev.type == "cuda":
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
@@ -3898,6 +4371,71 @@ def multi_phase(torch, cfg, dev, card: str) -> dict:
             f"{serves[0]['decode_ms']:.1f} ms on process 0 vs "
             f"{serves[0]['one_process_decode_ms']:.1f} ms in one process; flash "
             f"{serves[0]['flash']}, decode {serves[0]['decode']} launches a process")
+        total["flash_attention"] += multi_check_moe(label, [r["moe"] for r in recs], moe_cfg,
+                                                    card)
+    return total
+
+
+def multi_check_moe(label: str, recs: list, cfg, card: str) -> int:
+    """The [multi] MoE pipeline's gates (``multi_phase``); returns its flash
+    launches over the processes."""
+    name = f"{cfg.name} pipeline ({cfg.num_layers} layer, {MULTI_MOE_DTYPE})"
+    total = 0
+    # a forward unit, its backward re-run and the remat recompute: three
+    # flash calls a layer a microbatch on a process's one data shard, one
+    # process running both shards in turn
+    per, per_one = 3 * cfg.num_layers, 3 * cfg.num_layers * len(recs)
+    for sched in ("gpipe", "1f1b"):
+        runs = [r[sched] for r in recs]
+        one = runs[0]["one_process"]
+        got = [(r["loss"], r["aux"], r["grad_norm"]) for r in runs]
+        check(len(set(got)) == 1, f"[multi] {label} {name} {sched}: processes read {got}")
+        for key in ("loss", "aux", "grad_norm"):
+            a, b = runs[0][key], one[key]
+            check(abs(a - b) <= MULTI_TOL * abs(b), f"[multi] {label} {name} {sched}: {key} "
+                  f"{a} vs one process {b} (tol {MULTI_TOL})")
+        # 1F1B: each leaf of the processes' mean gradient against one process's
+        gaps = one["gaps"]
+        check(len(gaps) > 0 or sched == "gpipe", f"[multi] {label} {name} {sched}: no "
+              f"gradient leaf compared")
+        for leaf, (diff, norm, _) in gaps.items():
+            check(diff <= MULTI_TOL * norm, f"[multi] {label} {name} {sched}: gradient "
+                  f"{leaf} |processes' mean - one process| {diff:.3e}, |one process| "
+                  f"{norm:.3e} (tol {MULTI_TOL})")
+        worst = max(gaps, key=lambda k: gaps[k][0] / gaps[k][1] if gaps[k][1] else gaps[k][0],
+                    default=None)
+        calls = len(runs[0]["routes"])
+        kept = dropped = 0
+        for j, run in enumerate(runs):
+            mine = one["routes"][j * calls:(j + 1) * calls]
+            check(run["routes"] == mine, f"[multi] {label} {name} {sched} process {j}: "
+                  f"routing differs from its data shard's in one process")
+            for _, keep in run["routes"]:
+                kept += sum(keep)
+                dropped += len(keep) - sum(keep)
+            check(run["flash"] == per, f"[multi] {label} {name} {sched} process {j}: flash "
+                  f"{run['flash']} launches, expect {per}")
+            total += run["flash"]
+        check(one["flash"] == per_one, f"[multi] {label} {name} {sched} one process: flash "
+              f"{one['flash']}, expect {per_one}")
+        log(f"[multi] {label} {name} {sched}: loss {runs[0]['loss']:.6f}, aux "
+            f"{runs[0]['aux']:.6f}, grad_norm {runs[0]['grad_norm']:.6f} (one process "
+            f"{one['loss']:.6f} / {one['aux']:.6f} / {one['grad_norm']:.6f}); "
+            + (f"worst of {len(gaps)} gradient leaves {worst} {gaps[worst][0]:.3e} of "
+               f"{gaps[worst][1]:.3e} (worst element {gaps[worst][2]:.3e}); " if gaps else "")
+            + f"kept choices "
+            f"{kept}, dropped {dropped}, equal to one process's shards; pipe + mean "
+            f"{[round(r['ms'], 1) for r in runs]} ms a process vs one process "
+            f"{one['ms']:.1f} ms; peak device memory a process "
+            f"{[round(r['peak_gib'], 2) for r in runs]} GiB; flash {per} a process; on {card}")
+    for a, b in zip(recs[0]["gpipe"]["routes"], recs[0]["1f1b"]["routes"]):
+        check(a == b, f"[multi] {label} {name}: GPipe and 1F1B route differently")
+    for who, pair in [(f"process {r}", (rec["gpipe"], rec["1f1b"])) for r, rec in
+                      enumerate(recs)] + [("one process", (recs[0]["gpipe"]["one_process"],
+                                                           recs[0]["1f1b"]["one_process"]))]:
+        check(all(pair[0][k] == pair[1][k] for k in ("loss", "aux", "local", "grad_norm")),
+              f"[multi] {label} {name} {who}: GPipe != 1F1B (loss, aux, |own grads|^2, "
+              f"grad norm)")
     return total
 
 
@@ -3959,6 +4497,13 @@ TP_FAMILY_LAYERS = {"mamba2_2p7b": 16, "zamba2_2p7b": 12, "internvl2_76b": 2}
 TP_FUSED_LAYERS = 6
 TP_SEAMLESS_LAYERS = 6
 TP_FRAMES, TP_PATCHES = 1024, 256
+# qwen3 training under ai_core_assignment (1, 2) with each gradient
+# compressor (optim.compress): the int8 scale and the top-k threshold of a
+# leaf split over 'model' come from the whole leaf across the group; loss
+# and grad norm within TP_TOL of the same rows and compressor in one process
+TP_COMPRESSORS = ("int8", "topk")
+# their depth: qwen3's first 7 layers (a cut for run time)
+TP_COMPRESS_LAYERS = 7
 
 
 def _tp_mesh(torch, devs, shape):
@@ -4048,8 +4593,24 @@ def tp_greedy(torch, params, cfg, prompts, new: int, chunk: int, max_len: int, e
     return torch.cat(toks, dim=1), torch.stack(logits, dim=1)
 
 
+def tp_compressor(name):
+    """A [tp] task's gradient compressor (``optim.compress``), or None."""
+    from repro_torch.optim.compress import Int8Compressor, TopKCompressor
+
+    return {"int8": Int8Compressor(), "topk": TopKCompressor(), None: None}[name]
+
+
+def tp_state(st, params, dtype, comp):
+    """A [tp] task's first train state; a compressor's with a zero ``ef``,
+    placed as the params are."""
+    state = st.make_state(params, dtype)
+    if comp is not None:
+        state["ef"] = comp.init(params)
+    return state
+
+
 def tp_reference(torch, ctx, cfg, strategy, opt, make_params, dtype, batches, free,
-                 sync) -> dict:
+                 sync, comp=None) -> dict:
     """The task's train steps in one process, on every process in turn
     after the processes' own steps (process 0 first, alone, its step times
     the phase's one-process reading; then the others together): the same
@@ -4068,7 +4629,7 @@ def tp_reference(torch, ctx, cfg, strategy, opt, make_params, dtype, batches, fr
     out = None
     for turn in (0, 1):
         if (rank == 0) == (turn == 0):
-            state = st.make_state(make_params(), dtype)
+            state = tp_state(st, make_params(), dtype, comp)
             specs = state_shardings(state, mesh, strategy)["params"]
             dsh = data_shards(specs, mesh) if data is not None else None
             msh = model_shards(specs, mesh)
@@ -4084,7 +4645,7 @@ def tp_reference(torch, ctx, cfg, strategy, opt, make_params, dtype, batches, fr
                 grads.append(mine(g))
                 return apply(c, p, g, s_, norm_fn)
 
-            one = st.make_train_step(cfg, opt, grad_accum=shape[0])
+            one = st.make_train_step(cfg, opt, grad_accum=shape[0], compress=comp)
             steps = []
             st.adamw.apply = spy
             try:
@@ -4170,8 +4731,9 @@ def tp_task(torch, task, ctx):
         batches = [dict(tokens=torch.from_numpy(gen.batch(i)["tokens"]).long().to(dev),
                         **tp_frontend(torch, cfg, dev, task["batch"], side, 2 + i))
                    for i in range(task["steps"])]
+        comp = tp_compressor(task.get("compress"))
         state, specs, expect = placed_in_turn(
-            lambda: st.make_state(make_params(), dtype),
+            lambda: tp_state(st, make_params(), dtype, comp),
             lambda s: state_shardings(s, mesh, strategy))
         rec["placed_bytes"] = sum(t.untyped_storage().nbytes() for t in tree_leaves(state)
                                   if isinstance(t, torch.Tensor))
@@ -4179,7 +4741,7 @@ def tp_task(torch, task, ctx):
         shards = data_shards(specs["params"], mesh) if data is not None else None
         mshards = model_shards(specs["params"], mesh)
         step = st.make_train_step(cfg, opt, group=data, shards=shards, model=model,
-                                  model_shards=mshards)
+                                  model_shards=mshards, compress=comp)
         # the gradients AdamW takes, this process's slices of them, for the
         # comparison with one process after the steps
         taken = []
@@ -4218,7 +4780,7 @@ def tp_task(torch, task, ctx):
             # params: over every element, and where every step's update is
             # decided (TP_GRAD_FLOOR, TP_TIE)
             ref = tp_reference(torch, ctx, cfg, strategy, opt, make_params, dtype, batches,
-                               free, sync)
+                               free, sync, comp)
             rec["one_process"] = ref["steps"]
             clear = None
             for got, one in zip(taken, ref["grads"]):
@@ -4516,6 +5078,10 @@ def tp_phase(torch, dev, card: str, configs=None) -> dict:
         ("deepseek_v2_236b", MOE_LAYERS), ("mixtral_8x22b", TP_MIXTRAL_LAYERS))}
     check("deepseek_v2_236b" in MOE_TOKENS,
           "[tp] the [moe] phase recorded deepseek's one-process tokens")
+    compressors = [dict(kind="train", cfg=config(ARCH, TP_COMPRESS_LAYERS),
+                        strategy="ai_core_assignment", seq=TP_SEQ, batch=TP_BATCH,
+                        steps=TP_STEPS, compare=True, compress=name)
+                   for name in TP_COMPRESSORS]
     qwen_tasks = {
         (1, 2): dict(kind="train", cfg=qwen, strategy="ai_core_assignment", seq=TP_SEQ,
                      batch=TP_BATCH, steps=TP_STEPS, serve=(TP_BATCH, TP_SEQ, TP_SEQ, TP_NEW),
@@ -4530,7 +5096,7 @@ def tp_phase(torch, dev, card: str, configs=None) -> dict:
                       serve=(batch, prompt, chunk, new)),
                  dict(kind="train", cfg=moe["mixtral_8x22b"], strategy="ai_core_assignment",
                       dtype=TP_MIXTRAL_DTYPE, seq=TP_SEQ, batch=TP_BATCH, steps=TP_STEPS),
-                 *pairs],
+                 *compressors, *pairs],
         (2, 2): [qwen_tasks[(2, 2)], *fused]}
     n = torch.cuda.device_count() if dev.type == "cuda" else 1
     cards = [f"cuda:{i}" for i in range(n)]
@@ -4548,7 +5114,12 @@ def tp_phase(torch, dev, card: str, configs=None) -> dict:
             label = f"{cfg.name} {task['strategy']} {shape} ({where})"
             check(all(r["backend"] == want for r in recs),
                   f"[tp] {label}: backend {[r['backend'] for r in recs]}")
-            if cfg is qwen:
+            if task.get("compress"):
+                # the compressors' scale and threshold span the model group
+                total["flash_attention"] += tp_check_train(
+                    f"{label} {task['compress']} compressor", recs, 2 * cfg.num_layers, card,
+                    params=False)
+            elif cfg is qwen:
                 tp_check_qwen(label, recs, shape, qwen, card, total)
             elif cfg is moe["deepseek_v2_236b"]:
                 tp_check_deepseek(recs, cfg, card, total)
@@ -5083,14 +5654,21 @@ def main() -> int:
     n_train_flash += multi["flash_attention"]
     n_multi_decode = multi["decode_attention"]
     lap("multi")
+    n_train_flash += train_ft_multi_phase(
+        torch, dataclasses.replace(cfg, num_layers=MULTI_LAYERS), dev, f"{kind} ({smi})")
+    lap("train-ft-multi")
     check(layers.attention_impl() == "auto" and layers.gemm_impl() == "auto"
           and layers.tuning_table() is None,
           "the dispatch reads auto, untuned, after the serving-fault, training and tuning phases")
 
     # ---- the VTA path and int8 serving: the third ------------------------------
     n_none, n_req, vta_operands = vta_phase(torch, gen, dev)
-    n_deq = int8_static_phase(torch, params, qparams, cfg, prompts, dev, f"{kind} ({smi})")
-    int8_engine_phase(torch, qparams, cfg, dev, f"{kind} ({smi})")
+    icfg = dataclasses.replace(cfg, num_layers=INT8_LAYERS)
+    iparams = dict(params, blocks=params["blocks"][:INT8_LAYERS])
+    iqparams = dict(qparams, blocks=qparams["blocks"][:INT8_LAYERS])
+    n_deq = int8_static_phase(torch, iparams, iqparams, icfg, prompts, dev, f"{kind} ({smi})")
+    int8_engine_phase(torch, iqparams, icfg, dev, f"{kind} ({smi})")
+    del iparams, iqparams
     lap("vta and int8")
 
     # ---- the VTA ALU, ResNet-18 and the planner: the fourth --------------------

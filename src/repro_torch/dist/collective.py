@@ -154,6 +154,58 @@ def data_group(mesh, *, init_method: str | None = None, rank: int | None = None,
     return DataGroup(rank, world_size, backend)
 
 
+def init_world(backend: str, *, init_method: str | None = None, rank: int,
+               world_size: int) -> DataGroup:
+    """Join a world of ``world_size`` processes over ``backend`` (the
+    default process group) and return it as a group (``pg`` None); the
+    caller has made its device current."""
+    dist.init_process_group(backend, init_method=init_method or "env://", rank=rank,
+                            world_size=world_size, timeout=TIMEOUT)
+    return DataGroup(rank, world_size, backend)
+
+
+def subgroups(mesh, rank: int, backend: str, per_position: bool):
+    """This process's ``(data, model, active)`` groups for ``mesh`` inside a
+    world that exists already (:func:`init_world`): one process per mesh
+    position (``per_position``, 'model' over 2 or more positions: rank
+    ``r`` at ``(r // m, r % m)``) or one per data position (rank ``r`` at
+    data position ``r``).  The layout's processes are the world's first
+    ``n`` ranks; ``active`` holds all ``n`` (the default group when ``n``
+    is the world).  A group of one position is None, and so is each
+    group of a rank past ``n`` (a process whose devices left the mesh).
+    Every process of the world calls this, in the same order, for every
+    mesh it forms: ``new_group`` asks that of members and non-members
+    alike."""
+    from repro_torch.dist.sharding import MDL, data_positions
+
+    m = mesh.shape.get(MDL, 1) if per_position else 1
+    dp = data_positions(mesh)
+    n = dp * m
+    world = dist.get_world_size()
+    if n > world:
+        raise ValueError(f"a mesh {mesh.shape} of {n} processes in a world of {world}")
+    active_pg = None
+    if 1 < n < world:
+        active_pg = dist.new_group(list(range(n)), timeout=TIMEOUT, backend=backend)
+    model_pg = data_pg = active_pg
+    p, k = divmod(rank, m)
+    if m > 1:
+        for q in range(dp):
+            g = dist.new_group([q * m + j for j in range(m)], timeout=TIMEOUT, backend=backend)
+            if q == p:
+                model_pg = g
+        for j in range(m):
+            g = dist.new_group([q * m + j for q in range(dp)], timeout=TIMEOUT,
+                               backend=backend) if dp > 1 else None
+            if j == k:
+                data_pg = g
+    if rank >= n:
+        return None, None, None
+    return (DataGroup(p, dp, backend, data_pg) if dp > 1 else None,
+            ModelGroup(k, m, backend, model_pg) if m > 1 else None,
+            DataGroup(rank, n, backend, active_pg) if n > 1 else None)
+
+
 def mesh_groups(mesh, *, init_method: str | None = None, rank: int | None = None,
                 world_size: int | None = None):
     """Join a world of one process per mesh position (``rank`` / ``world_size``
@@ -183,19 +235,9 @@ def mesh_groups(mesh, *, init_method: str | None = None, rank: int | None = None
     if device.type == "cuda" and device.index is not None:
         torch.cuda.set_device(device)
     backend = backend_for(mesh, per_position=True)
-    dist.init_process_group(backend, init_method=init_method or "env://", rank=rank,
-                            world_size=world_size, timeout=TIMEOUT)
-    model_pg = data_pg = None
-    for q in range(dp):
-        g = dist.new_group([q * m + j for j in range(m)], timeout=TIMEOUT, backend=backend)
-        if q == p:
-            model_pg = g
-    for j in range(m):
-        g = dist.new_group([q * m + j for q in range(dp)], timeout=TIMEOUT, backend=backend)
-        if j == k:
-            data_pg = g
-    data = DataGroup(p, dp, backend, data_pg) if dp > 1 else None
-    return data, ModelGroup(k, m, backend, model_pg)
+    init_world(backend, init_method=init_method, rank=rank, world_size=world_size)
+    data, model, _ = subgroups(mesh, rank, backend, per_position=True)
+    return data, model
 
 
 def _to_host(t: torch.Tensor) -> torch.Tensor:
@@ -230,6 +272,15 @@ def all_reduce_sum(tensors: list, group) -> list:
     """The elementwise sums across processes of a list of tensors, one
     ``all_reduce`` per dtype bucket (packed in list order, on the first
     tensor's home device), each sum returned on its tensor's device."""
+    return _all_reduce(tensors, group, dist.ReduceOp.SUM)
+
+
+def all_reduce_max(tensors: list, group) -> list:
+    """:func:`all_reduce_sum`'s twin for the elementwise maxima."""
+    return _all_reduce(tensors, group, dist.ReduceOp.MAX)
+
+
+def _all_reduce(tensors: list, group, op) -> list:
     out = list(tensors)
     buckets: dict = {}
     for i, t in enumerate(tensors):
@@ -237,7 +288,7 @@ def all_reduce_sum(tensors: list, group) -> list:
     for idx in buckets.values():
         home = _home(group, tensors[idx[0]])
         flat = torch.cat([tensors[i].reshape(-1).to(home) for i in idx])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group.pg)
+        dist.all_reduce(flat, op=op, group=group.pg)
         pos = 0
         for i in idx:
             n = tensors[i].numel()
@@ -316,6 +367,30 @@ def all_gather(t: torch.Tensor, shard, group) -> torch.Tensor:
     # transposed layout rounds differently)
     pieces = whole.chunk(group.size)[::group.size // n]
     return torch.cat(pieces, dim=0).to(t.device).movedim(0, dim).contiguous()
+
+
+def gather_first(t: torch.Tensor, shard, group):
+    """The whole of a leaf from each process's slice (``shard`` (dim, n)),
+    on the group's first process alone (where the gather ran: the host
+    for a CUDA tensor under gloo); None on the others."""
+    dim, n = shard
+    src = _leading(t, dim, group)
+    parts = [torch.empty_like(src) for _ in range(group.size)] if group.rank == 0 else None
+    dst = 0 if group.pg is None else dist.get_global_rank(group.pg, 0)
+    dist.gather(src, parts, dst=dst, group=group.pg)
+    if group.rank:
+        return None
+    return torch.cat(parts[::group.size // n], dim=0).movedim(0, dim).contiguous()
+
+
+def gather_tree_first(tree, shards, group):
+    """``tree`` with every sharded leaf gathered whole on the group's first
+    process (:func:`gather_first`; a checkpoint's writer); on the others
+    those leaves are None.  The identity without a group."""
+    if group is None or shards is None:
+        return tree
+    return unflatten(tree, [t if s is None else gather_first(t, s, group)
+                            for t, s in _shard_pairs(tree, shards)])
 
 
 def all_gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:

@@ -378,7 +378,9 @@ def make_pipeline_loss_and_grad(cfg, mesh, num_microbatches: int = 8,
     where the microbatch splits in ``ndp`` effective shards) through the
     stages of its own row (``dist.sharding.local_mesh``) and returns that
     shard's loss and grads; ``train.step.make_pipeline_train_step``
-    averages them across processes.
+    averages them across processes.  An MoE layer's capacity comes from
+    the global batch's tokens in either case, so each process drops the
+    choices the reference's pipe drops in its data shard.
     """
     stages = num_stages(mesh)
     if cfg.attn_every or cfg.is_enc_dec:
@@ -478,20 +480,22 @@ def make_pipeline_loss_and_grad(cfg, mesh, num_microbatches: int = 8,
         return gblocks, ghead, dxq, ce_acc, aux_acc
 
     def loss_and_grad(params, batch):
+        # router capacity from the GLOBAL batch's tokens, read before a
+        # group cuts it to this process's rows; each call clamps it to its
+        # own tokens (transformer._ffn_apply)
+        b, s = batch["tokens"].shape[0], batch["tokens"].shape[1] - 1
+        run = _make_run_stage(cfg, _moe_global_capacity(cfg, b * s), remat=remat)
         if group is not None:
-            b = batch["tokens"].shape[0]
-            ndp = _data_shards(mesh, m, b // m, batch["tokens"].shape[1] - 1, cfg.d_model)
+            ndp = _data_shards(mesh, m, b // m, s, cfg.d_model)
             batch = shard_rows(batch, m, ndp, group.rank // (group.size // ndp))
         tokens = batch["tokens"]
         inp_tok, tgt = tokens[:, :-1], tokens[:, 1:]
-        table = params["embed"]["table"].detach().requires_grad_()
-        with torch.enable_grad():
-            x = tf._embed({"embed": {"table": table}}, cfg, inp_tok)
+        table = params["embed"]["table"].detach()
+        x = tf._embed({"embed": {"table": table}}, cfg, inp_tok)
         b, s, d = x.shape
         if b % m:
             raise ValueError(f"batch {b} not divisible by {m} microbatches")
         _check_padded(params["blocks"], stages, max_d, 1)
-        run = _make_run_stage(cfg, _moe_global_capacity(cfg, b * s), remat=remat)
         mb = b // m
         # the dp factor that survives spec repair: a microbatch that does
         # not divide the data axes replicates, and the dX normalizer is
@@ -539,9 +543,13 @@ def make_pipeline_loss_and_grad(cfg, mesh, num_microbatches: int = 8,
         aux = mean([stage_sum(sh[4]) for sh in shards]) / m
         dx = torch.cat([sh[2][i] / ndp if ndp > 1 else sh[2][i]
                         for i in range(m) for sh in shards], dim=0)
-        dx = dx.to(x.device).to(x.dtype)
-        (d_table,) = _grad([x], [dx], [table])
-        d_table = d_table.float()
+        # the lookup's gradient (its backward's index_put_) sums each
+        # token's dX rows in f32, as the stages' grads accumulate: a sum in
+        # a narrower dtype loses a frequent token's low bits, the more the
+        # more rows one call sums (one process over every data shard's
+        # rows, a process of a data group over its own)
+        d_table = torch.zeros(table.shape, dtype=f32, device=table.device).index_put_(
+            (inp_tok.to(table.device),), dx.to(table.device, f32), accumulate=True)
         if tied:  # table grad: lookup (outside) + tied logits (in-pipe)
             d_table = d_table + ghead["embed"]["table"]
         gpad = []

@@ -47,9 +47,16 @@ def make_mesh_for(devices=None, model_axis: int | None = None) -> Mesh:
 
 def state_shardings(state_like, mesh, strategy: str = "fused"):
     """Spec tree of a train state: ``param_specs`` for the params and both
-    moments, ``()`` (replicated) for the step counters."""
+    moments, ``()`` (replicated) for the step counters.  A state with a
+    compressor's error feedback (``"ef"``, one f32 leaf a param) gives it
+    the params' specs, so that it is placed, gathered for a checkpoint
+    and restored as the params are (the reference's state has no ``ef``
+    spec: its compressors run outside its launchers)."""
     pspecs = param_specs(state_like["params"], mesh, strategy)
-    return {"params": pspecs, "opt": OptState(mu=pspecs, nu=pspecs, step=()), "step": ()}
+    specs = {"params": pspecs, "opt": OptState(mu=pspecs, nu=pspecs, step=()), "step": ()}
+    if "ef" in state_like:
+        specs["ef"] = pspecs
+    return specs
 
 
 def rescale(ckpt_dir: str, state_like, new_mesh, strategy: str = "fused"):

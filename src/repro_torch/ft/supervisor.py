@@ -45,16 +45,58 @@ consumes exactly the batches the fault-free run would.
 
 Where the port differs: the fresh state comes from ``init_fn`` (default:
 ``train.step.init_state`` with a ``torch.Generator`` seeded with
-``seed`` on the first device), not from a PRNG key — a test passes the
-reference's params through ``repro_torch.convert`` there.  The restore
-template is a ``meta`` copy of the first state's structure, so it holds
-no second state.  The
-default devices are the CUDA devices torch sees; a device may be listed
-several times (one card playing four pipeline stages), and stages on
-distinct devices are refused by ``make_pipeline_train_step`` (ROADMAP.md
-item 16).  There is no jit: one discarded step after each (re)build keeps
-first-launch time out of the monitor's samples, as the reference's
-warm-up does for compilation.
+``seed`` on this process's device), not from a PRNG key — a test passes
+the reference's params through ``repro_torch.convert`` there.  The
+restore template is a ``meta`` copy of the first state's structure, so
+it holds no second state.  The default devices are the CUDA devices
+torch sees; a device may be listed several times (one card playing four
+pipeline stages).  There is no jit: one discarded step after each
+(re)build keeps first-launch time out of the monitor's samples, as the
+reference's warm-up does for compilation.
+
+**Across processes** (``rank`` / ``world_size`` / ``init_method``, or
+torchrun's environment, naming a world of more than one process): the
+reference runs every non-pipeline strategy as one SPMD program over
+``make_mesh_for(devices)``; here every process of the world runs this
+loop in lockstep over that mesh, ``devices`` listing the whole world's
+(the CPU or one card listed once a process).  One process per mesh
+position under ``fused`` / ``ai_core_assignment`` with 'model' over 2 or
+more positions, else one per data position (``dist.collective``; gloo
+where processes share a card or run on the CPU, NCCL on distinct cards);
+the world must have exactly that many processes.  ``pipeline`` keeps
+its ``(1, stages)`` mesh in one process, as the reference does, and
+refuses a world.  The decisions:
+
+* *Agreement.*  After every step the processes take the maximum, over
+  the whole world, of (devices lost, loss non-finite, done): one
+  ``all_reduce``.  The loss is already a ``pmean``, so a poisoned shard
+  reaches every process; kills and NaNs are read from each process's
+  copy of the plan, and the maximum makes any one process's evidence
+  every process's.  Straggler verdicts rest on each process's
+  ``time.monotonic()`` and only move a pipeline's cuts, which no world
+  runs.  The latest checkpoint step is the one process 0 reads after its
+  ``ckpt.wait()``, sent to the others by an ``all_reduce`` (MAX over
+  -1 elsewhere).
+* *Checkpoints.*  Process 0 alone writes the state gathered whole over
+  both groups (the launchers' rule), gathered to it alone
+  (``collective.gather_tree_first``); every process restores it whole on
+  its own device and keeps its slices.  A
+  ``ckpt_crash`` therefore fires, and is recorded as ``ckpt_retry``, on
+  process 0 only: every other process records the same events without
+  it, and every process the same steps, restored steps and losses.
+* *Re-forming after a loss.*  The survivors' mesh is
+  ``make_mesh_for(devices[:n - lost])`` (4 -> 3 turns (2, 2) into (3, 1),
+  so one process per mesh position becomes one per data position); its
+  groups are new ``torch.distributed`` groups over the world's first
+  ranks (``collective.subgroups``), which every process, the departing
+  ones included, makes in the same order.  A process past the new
+  layout stops stepping: it records the ``rescale`` event (the restored
+  step from the same ``all_reduce``), keeps taking part in the
+  agreement and in later re-formings, and leaves with the others after
+  the final barrier; its ``losses`` hold the steps it ran (NaN after).
+* *Rows that do not divide.*  Batch 4 over 3 data positions: every
+  process computes the whole batch (``train.step.make_train_step``), as
+  the reference's jit computes the whole batch's mean.
 """
 
 from __future__ import annotations
@@ -68,9 +110,20 @@ import numpy as np
 import torch
 
 from repro_torch.data.pipeline import SyntheticLM
-from repro_torch.dist.sharding import Mesh, place, stage_devices
+from repro_torch.dist import collective
+from repro_torch.dist.sharding import (
+    MDL,
+    TP_STRATEGIES,
+    Mesh,
+    data_positions,
+    data_shards,
+    model_shards,
+    place,
+    row_devices,
+    stage_devices,
+)
 from repro_torch.ft import checkpoint as ckpt_mod
-from repro_torch.ft.elastic import make_mesh_for, rescale, state_shardings
+from repro_torch.ft.elastic import make_mesh_for, state_shardings
 from repro_torch.ft.faults import one_shot_write_fault
 from repro_torch.ft.health import HeartbeatMonitor
 from repro_torch.ft.straggler import StragglerMonitor
@@ -120,6 +173,9 @@ class TrainSupervisor:
 
     ``init_fn()`` returns a fresh canonical (unpadded) train state; it is
     called at start and again by a rollback that finds no checkpoint.
+    ``rank`` / ``world_size`` / ``init_method`` (or torchrun's
+    environment) make this process one of a world (module docstring);
+    :meth:`close` leaves it.
     """
 
     def __init__(self, cfg, opt_cfg: AdamWConfig | None = None, *,
@@ -132,7 +188,8 @@ class TrainSupervisor:
                  recut_cooldown: int | None = None,
                  dtype=torch.float32, seed: int = 0,
                  max_inject_sleep_s: float = 1.0, max_rollbacks: int = 8,
-                 verbose: bool = False, init_fn=None):
+                 verbose: bool = False, init_fn=None, init_method: str | None = None,
+                 rank: int | None = None, world_size: int | None = None):
         self.cfg = cfg
         self.opt_cfg = opt_cfg or AdamWConfig(lr=1e-3, warmup_steps=5,
                                               total_steps=steps)
@@ -158,8 +215,16 @@ class TrainSupervisor:
         self.verbose = verbose
         self._init_fn = init_fn  # None: _fresh_state (no bound method: no cycle)
 
+        # across processes: the world, this process's groups for the
+        # current mesh, and whether its devices are still in the mesh
+        self.world = self._join(init_method, rank, world_size)
+        self._lead = self.world is None or self.world.rank == 0
+        self._data = self._model = self._active = None
+        self._member, self._formed = True, None
+        self.device = self._own_device(self._mesh_for(self.devices))
+        self.ckpt_root = ckpt_dir or None
         self.ckpt = (ckpt_mod.AsyncCheckpointer(ckpt_dir, keep=keep)
-                     if ckpt_dir else None)
+                     if ckpt_dir and self._lead else None)
         self.ckpt_every = ckpt_every
         fresh = (self._init_fn or self._fresh_state)()
         # canonical (unpadded) state template for topology-free restore:
@@ -178,13 +243,89 @@ class TrainSupervisor:
     # -- build / rebuild ----------------------------------------------------
 
     def _log(self, msg: str) -> None:
-        if self.verbose:
+        if self.verbose and self._lead:
             print(f"[supervisor] {msg}", flush=True)
 
     def _fresh_state(self):
-        dev = self.devices[0]
-        gen = torch.Generator(device=dev).manual_seed(self.seed)
-        return init_state(self.cfg, generator=gen, dtype=self.dtype, device=dev)
+        gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        return init_state(self.cfg, generator=gen, dtype=self.dtype, device=self.device)
+
+    # -- across processes ---------------------------------------------------
+
+    def _per_position(self, mesh) -> bool:
+        """One process per mesh position (tensor parallelism), or one per
+        data position."""
+        return self.strategy in TP_STRATEGIES and mesh.shape.get(MDL, 1) > 1
+
+    def _processes(self, mesh) -> int:
+        return mesh.size if self._per_position(mesh) else data_positions(mesh)
+
+    def _own_device(self, mesh, rank=None):
+        """This process's device (``rank`` of the world): its mesh
+        position's, or its data row's first; the mesh's first in one
+        process, a pipeline's first stage's."""
+        if self.strategy == "pipeline":
+            return stage_devices(mesh)[0]
+        if rank is None:
+            if self.world is None:
+                return mesh.distinct_devices()[0]
+            rank = self.world.rank
+        rows = row_devices(mesh)
+        if self._per_position(mesh):
+            m = mesh.shape[MDL]
+            return rows[rank // m][rank % m]
+        return rows[rank][0]
+
+    def _join(self, init_method, rank, world_size):
+        """The world this process belongs to, or None for one process."""
+        if rank is None or world_size is None:
+            env = collective.requested_world()
+            if init_method is None and env is None:
+                return None
+            if env is None:
+                raise ValueError("an init_method needs rank and world_size")
+            rank, world_size = env
+        if world_size == 1:
+            return None
+        if self.strategy == "pipeline":
+            raise ValueError(f"the pipeline supervisor runs its (1, stages) mesh in one "
+                             f"process, as the reference's does, not in {world_size}")
+        mesh = make_mesh_for(self.devices)
+        need = self._processes(mesh)
+        if world_size != need:
+            how = "mesh position" if self._per_position(mesh) else "data position"
+            raise ValueError(f"{world_size} processes for {self.strategy} on the mesh "
+                             f"{mesh.shape}: the supervisor runs one process per {how}, "
+                             f"{need}")
+        device = self._own_device(mesh, rank)
+        if device.type == "cuda" and device.index is not None:
+            torch.cuda.set_device(device)
+        backend = collective.backend_for(mesh, per_position=self._per_position(mesh))
+        return collective.init_world(backend, init_method=init_method, rank=rank,
+                                     world_size=world_size)
+
+    def _regroup(self) -> None:
+        """This process's groups for the current mesh, made once a device
+        count (every process makes them in the same order)."""
+        if self.world is None or self._formed == len(self.devices):
+            return
+        self._data, self._model, self._active = collective.subgroups(
+            self.mesh, self.world.rank, self.world.backend, self._per_position(self.mesh))
+        self._member = self.world.rank < self._processes(self.mesh)
+        self._formed = len(self.devices)
+
+    def _agree(self, values: list, group) -> list:
+        """The elementwise maxima of ``values`` (ints) over ``group``."""
+        if group is None:
+            return values
+        t = torch.tensor(values, dtype=torch.float64,
+                         device=self.device if group.backend == "nccl" else "cpu")
+        (t,) = collective.all_reduce_max([t], group)
+        return [int(x) for x in t.tolist()]
+
+    def close(self) -> None:
+        """Leave the world (every process, after :meth:`run`)."""
+        collective.close(self.world)
 
     def _mesh_for(self, devices) -> Mesh:
         if self.strategy == "pipeline":
@@ -200,7 +341,9 @@ class TrainSupervisor:
         """(Re)build mesh, step function, specs and state for the CURRENT
         device set + boundaries.  ``canonical`` installs a restored
         unpadded state; ``padded`` installs an already-padded live state
-        (the re-cut path); neither -> fresh init."""
+        (the re-cut path); neither -> fresh init.  Across processes the
+        mesh's groups are made first; a process past the new layout stops
+        there."""
         cfg = self.cfg
         if self.strategy == "pipeline":
             from repro_torch.core.autotune import tune_microbatches
@@ -248,14 +391,24 @@ class TrainSupervisor:
         else:
             self.stages = 1
             self.mesh = self._mesh_for(self.devices)
-            self.step_fn = make_train_step(cfg, self.opt_cfg,
-                                           grad_accum=self.grad_accum)
+            self._regroup()
+            if not self._member:
+                self.state = None
+                return
+            self.device = self._own_device(self.mesh)
             state = canonical if canonical is not None else (self._init_fn or self._fresh_state)()
             self._stage_shares = (1.0,)
-            self.device = self.mesh.distinct_devices()[0]
 
         self.specs = state_shardings(state, self.mesh, self.strategy)
-        self.state = place(state, self.specs, self.mesh)
+        self._shards = data_shards(self.specs, self.mesh) if self._data is not None else None
+        self._mshards = (model_shards(self.specs, self.mesh)
+                         if self._model is not None else None)
+        if self.strategy != "pipeline":
+            self.step_fn = make_train_step(
+                cfg, self.opt_cfg, grad_accum=self.grad_accum, group=self._data,
+                shards=self._shards and self._shards["params"], model=self._model,
+                model_shards=self._mshards and self._mshards["params"])
+        self.state = place(state, self.specs, self.mesh, self._data, self._model)
         # one discarded step: first launches and the GEMM heuristics' first
         # calls must not reach the monitor as a (spurious) straggler; the
         # step returns new tensors, so self.state is untouched
@@ -276,7 +429,7 @@ class TrainSupervisor:
         if self.strategy == "pipeline":
             canonical = pad_pipeline_state(canonical, self.cfg,
                                            self.boundaries)
-        self.state = place(canonical, self.specs, self.mesh)
+        self.state = place(canonical, self.specs, self.mesh, self._data, self._model)
 
     # -- checkpointing ------------------------------------------------------
 
@@ -284,12 +437,21 @@ class TrainSupervisor:
         if self.strategy == "pipeline":
             return unpad_pipeline_state(self.state, self.cfg,
                                         self.boundaries)
+        if self.world is not None:
+            # the state whole on process 0, which writes: over the data
+            # group, then over the model group of data position 0
+            whole = collective.gather_tree_first(self.state, self._shards, self._data)
+            if collective.process_index(self._data) == 0:
+                whole = collective.gather_tree_first(whole, self._mshards, self._model)
+            return whole
         return self.state
 
     def _save(self, step: int) -> None:
-        if self.ckpt is None:
+        if self.ckpt_root is None:
             return
         st = self._canonical_state()
+        if self.ckpt is None:
+            return
         try:
             self.ckpt.save(st, step)
         except Exception as e:
@@ -304,23 +466,34 @@ class TrainSupervisor:
                       "retrying")
             self.ckpt.save(st, step)
 
-    def _load_latest(self):
-        """(canonical_state, step) from the newest complete checkpoint,
-        placed for the current device set, or None.  A pending failed
-        write surfaces here and is recorded — it cannot have produced a
-        corrupt checkpoint."""
-        if self.ckpt is None:
+    def _latest(self, group):
+        """The newest complete checkpoint's step, or None: process 0's
+        reading after its pending write (a failed one surfaces here: it
+        cannot have produced a corrupt checkpoint), sent over ``group``."""
+        step = -1
+        if self.ckpt is not None:
+            try:
+                self.ckpt.wait()
+            except Exception as e:
+                ckpt_mod.sweep_tmp(self.ckpt.root)
+                self._log(f"pending checkpoint write had failed: {e!r}")
+            latest = ckpt_mod.latest_step(self.ckpt.root)
+            step = -1 if latest is None else latest
+        (step,) = self._agree([step], group)
+        return None if step < 0 else step
+
+    def _load_latest(self, group=None):
+        """(canonical_state, step) from the newest complete checkpoint, or
+        None; the step agreed over ``group`` (default: the processes of
+        the current mesh).  The state is read whole onto this process's
+        device; ``_setup`` / ``_install_state`` place it (its slices)."""
+        if self.ckpt_root is None:
             return None
-        try:
-            self.ckpt.wait()
-        except Exception as e:
-            ckpt_mod.sweep_tmp(self.ckpt.root)
-            self._log(f"pending checkpoint write had failed: {e!r}")
-        step = ckpt_mod.latest_step(self.ckpt.root)
+        step = self._latest(self._active if group is None else group)
         if step is None:
             return None
-        state = rescale(os.path.join(self.ckpt.root, f"step_{step}"), self._like,
-                        self._mesh_for(self.devices), self.strategy)
+        state = ckpt_mod.restore(os.path.join(self.ckpt_root, f"step_{step}"), self._like,
+                                 device=self.device)
         return state, step
 
     # -- fault handling -----------------------------------------------------
@@ -336,10 +509,22 @@ class TrainSupervisor:
         self.devices = self.devices[: before - lost]
         # the dead topology's state and step go before the restore lands
         self.state = None
-        loaded = self._load_latest()
-        canonical, rstep = loaded if loaded else (None, 0)
-        self.boundaries = None  # re-cut for the shrunken stage count
-        self._setup(canonical=canonical)
+        leaving = self._member
+        if self.world is not None:
+            # the survivors' groups first: the restore lands as slices
+            self.mesh = self._mesh_for(self.devices)
+            self._regroup()
+        if self._member:
+            loaded = self._load_latest(self.world)
+            canonical, rstep = loaded if loaded else (None, 0)
+            self.boundaries = None  # re-cut for the shrunken stage count
+            self._setup(canonical=canonical)
+        else:
+            # a departing process learns the restored step with the others
+            rstep = self._latest(self.world) if self.ckpt_root is not None else None
+            rstep = rstep or 0
+            if not leaving:  # left at an earlier loss: nothing to record
+                return t
         self.events.append(RecoveryEvent(
             "rescale", t, steps_lost=t - rstep,
             recovery_s=time.perf_counter() - t0,
@@ -463,10 +648,27 @@ class TrainSupervisor:
 
     def run(self) -> SupervisorResult:
         t = int(self.state["step"])
-        if self.ckpt is not None and ckpt_mod.latest_step(self.ckpt.root) is None:
+        if self.ckpt_root is not None and self._latest(self._active) is None:
             self._save(t)  # step-0 anchor so the first rollback has a target
         rollbacks = 0
-        while t < self.steps:
+        while True:
+            if not self._member:
+                # devices gone: follow the others' decisions, step nothing
+                lost, bad, done = self._agree([0, 0, 0], self.world)
+                if done:
+                    break
+                if lost:
+                    self._handle_kill(lost, t)
+                elif bad:
+                    rollbacks += 1
+                    if rollbacks > self.max_rollbacks:
+                        raise RuntimeError(
+                            f"{rollbacks} rollbacks: loss is persistently "
+                            "non-finite, refusing to loop forever")
+                continue
+            if t >= self.steps:
+                self._agree([0, 0, 1], self.world)  # every process is done
+                break
             if self.plan is not None and self.ckpt is not None:
                 # write-path injection (detection is the save exception
                 # itself, recorded as a ckpt_retry event in _save)
@@ -490,13 +692,16 @@ class TrainSupervisor:
             events = self._observe(t, t_compute, loss)
             lost = sum(e.detail["lost"] for e in events
                        if e.kind == "device_loss")
+            bad = any(e.kind == "nan" for e in events)
+            # across processes: any process's evidence is every process's
+            lost, bad, _ = self._agree([lost, int(bad), 0], self.world)
             if lost:
                 # the step's output ran on the pre-loss topology —
                 # discard it and restore from the checkpoint
                 del new_state, metrics
                 t = self._handle_kill(lost, t)
                 continue
-            if any(e.kind == "nan" for e in events):
+            if bad:
                 rollbacks += 1
                 if rollbacks > self.max_rollbacks:
                     raise RuntimeError(
@@ -517,7 +722,7 @@ class TrainSupervisor:
                 # (every stage's sample for this step is in by then)
                 self._maybe_recut(t - 1, slow[-1].detail["stragglers"],
                                   slow[-1].detail["rates"])
-            if (self.ckpt is not None and self.ckpt_every
+            if (self.ckpt_root is not None and self.ckpt_every
                     and t % self.ckpt_every == 0):
                 self._save(t)
 
@@ -528,8 +733,10 @@ class TrainSupervisor:
                 ckpt_mod.sweep_tmp(self.ckpt.root)
                 self.events.append(RecoveryEvent(
                     "ckpt_retry", t, detail={"error": repr(e)}))
-        losses = [self._losses[i] for i in range(self.steps)]
-        times = [self._times[i] for i in range(self.steps)]
+        collective.barrier(self.world)
+        # a process that left the mesh ran only the steps before its loss
+        losses = [self._losses.get(i, float("nan")) for i in range(self.steps)]
+        times = [self._times.get(i, float("nan")) for i in range(self.steps)]
         return SupervisorResult(
             losses=losses, step_times=times, events=self.events,
             boundaries_history=self.boundaries_history,

@@ -70,7 +70,6 @@ from repro_torch.dist.collective import (
     requested_world,
 )
 from repro_torch.dist.sharding import (
-    MULTI_CARD_ITEM,
     SHARDING_STRATEGIES,
     cache_specs,
     data_shards,
@@ -352,8 +351,9 @@ def main(argv=None):
     tf.check_supported(cfg)
     world = requested_world()
     if (args.supervise or args.fault_plan or args.deadline_ms) and world and world[1] > 1:
-        raise SystemExit(f"--supervise / --fault-plan / --deadline-ms run in one process; "
-                         f"across {world[1]} processes they are {MULTI_CARD_ITEM}")
+        raise SystemExit(f"--supervise / --fault-plan / --deadline-ms supervise the paged "
+                         f"engine, which serves from one device as the reference's does: "
+                         f"run them in one process, not {world[1]}")
     kinds = ("flash_prefill", "paged_decode") if args.engine == "paged" else ("flash_prefill",)
     with tuning_from(args.autotune, args.tuning_file, cfg=cfg, kinds=kinds, device=device):
         return run(cfg, args, device)

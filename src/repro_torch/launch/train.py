@@ -47,6 +47,12 @@ under ``ft.supervisor.TrainSupervisor`` over the devices of
 checkpoint-crash retry; checkpoints under ``--ckpt`` every
 ``--ckpt-every`` steps) and prints the reference's summary: the final
 loss, the mean step ms and one line per recovery event, then ``done``.
+Under torchrun every process runs the supervisor over the world's
+devices (one process per mesh position under ai_core_assignment /
+fused with a 'model' axis, else one per data position; ``--device cpu``
+lists the CPU once per process) and process 0 alone prints; the
+pipeline supervisor keeps its ``(1, stages)`` mesh in one process, as
+the reference's does, and exits under torchrun naming that command.
 ``--autotune`` tunes flash's blocks with ``core.autotune.tune_runtime``
 on the device before training (saved to ``--tuning-file`` when given);
 ``--tuning-file`` alone installs a saved table (``launch.tuning``).
@@ -65,12 +71,11 @@ from repro_torch.data.pipeline import Prefetcher, SyntheticLM
 from repro_torch.dist.collective import (
     barrier,
     close,
-    gather_tree,
+    gather_tree_first,
     process_index,
     requested_world,
 )
 from repro_torch.dist.sharding import (
-    MULTI_CARD_ITEM,
     SHARDING_STRATEGIES,
     data_shards,
     model_shards,
@@ -101,6 +106,9 @@ def run_supervised(cfg, args, devices):
     from repro_torch.ft.supervisor import TrainSupervisor
 
     plan = FaultPlan.parse(args.fault_plan) if args.fault_plan else None
+    world = requested_world()
+    if world and world[1] > 1 and devices[0].type == "cpu":
+        devices = devices * world[1]
     sup = TrainSupervisor(
         cfg, AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=args.steps),
         steps=args.steps, seq=args.seq, batch=args.batch,
@@ -108,7 +116,12 @@ def run_supervised(cfg, args, devices):
         microbatches=args.microbatches, grad_accum=args.grad_accum,
         ckpt_dir=args.ckpt or None, ckpt_every=args.ckpt_every,
         fault_plan=plan, devices=devices, verbose=True)
-    res = sup.run()
+    try:
+        res = sup.run()
+    finally:
+        sup.close()
+    if process_index(sup.world):
+        return res
     print(f"final loss {res.final_loss:.4f}  "
           f"mean step {1e3 * sum(res.step_times) / len(res.step_times):.1f}ms  "
           f"events {len(res.events)}")
@@ -173,9 +186,11 @@ def main(argv=None):
                      device=device):
         if args.supervise or args.fault_plan:
             world = requested_world()
-            if world and world[1] > 1:
-                raise SystemExit(f"--supervise / --fault-plan run in one process; across "
-                                 f"{world[1]} processes they are {MULTI_CARD_ITEM}")
+            if world and world[1] > 1 and args.strategy == "pipeline":
+                raise SystemExit(f"the pipeline supervisor runs its (1, stages) mesh in one "
+                                 f"process, as the reference's does: run python -m "
+                                 f"repro_torch.launch.train --strategy pipeline --supervise "
+                                 f"..., not torchrun with {world[1]} processes")
             return run_supervised(cfg, args, mesh_devices(device))
         return run(cfg, args, device)
 
@@ -253,7 +268,10 @@ def run(cfg, args, device):
                       f"gnorm {float(metrics['grad_norm']):.2f} "
                       f"stragglers {mon.report().stragglers}")
             if args.ckpt and (step + 1) % args.ckpt_every == 0:
-                whole = gather_tree(gather_tree(state, shards, group), mshards, model)
+                # the state whole on process 0, which writes
+                whole = gather_tree_first(state, shards, group)
+                if process_index(group) == 0:
+                    whole = gather_tree_first(whole, mshards, model)
                 if ckpt:
                     ckpt.save(whole, step + 1)
                 del whole

@@ -131,21 +131,24 @@ def _update(opt_cfg, state, loss, metrics, grads, compress, group, shards, model
     group (each FSDP leaf's grad kept as this process's slice of the
     mean), then the compressor runs on the global gradient and AdamW
     updates this process's slices with the global norm, which counts each
-    model slice (``model_shards``) once.  Returns (new_state, metrics)."""
+    model slice (``model_shards``) once.  With a compressor the grads are
+    ``pmean``ed whole, the compressor runs on them and on ``ef`` gathered
+    whole over the data group (each leaf split over 'model' stays this
+    rank's slice: the compressor reduces across ``model``), and both are
+    cut back to this process's slices: ``ef`` lives in the state as this
+    process's slices, as the params do.  Returns (new_state, metrics)."""
     norm_fn = adamw.global_norm
     if group is not None or model is not None:
         from repro_torch.dist import collective
 
         loss, metrics = collective.pmean((loss, metrics), group)
         if compress is not None:
-            if model is not None:
-                from repro_torch.dist.sharding import MULTI_CARD_ITEM
-
-                raise NotImplementedError(f"a gradient compressor under tensor "
-                                          f"parallelism is {MULTI_CARD_ITEM}")
             grads = collective.pmean(grads, group)
-            grads, state = compress.apply(grads, state)
+            if "ef" in state:
+                state = dict(state, ef=collective.gather_tree(state["ef"], shards, group))
+            grads, state = compress.apply(grads, state, model=model, model_shards=model_shards)
             grads = collective.slice_tree(grads, shards, group)
+            state = dict(state, ef=collective.slice_tree(state["ef"], shards, group))
         else:
             grads = collective.pmean_scatter(grads, shards, group)
 
@@ -182,19 +185,27 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *, grad_accum: int = 1,
     runs the loss tensor and expert parallel over the model group on the
     leaves' 'model' slices (``model_shards``, ``dist.sharding.model_shards``
     of the specs); the FSDP gather over the data group then gives each
-    leaf's (whole, model slice) block."""
+    leaf's (whole, model slice) block.
+
+    A microbatch whose rows do not divide the data positions (batch 4
+    over 3) is computed whole by every data position, as the reference's
+    jit computes the whole batch's mean whatever its data axes: the mean
+    of the processes' equal gradients is their value, and MoE layers
+    route the whole microbatch in each process."""
     loss_fn = make_loss_fn(cfg, aux_weight, remat)
 
     def train_step(state, batch):
-        with tp.parallel(model=model, routing=group):
-            return _step(state, batch)
+        split = group is not None and (len(batch["tokens"]) // grad_accum) % group.size == 0
+        with tp.parallel(model=model, routing=group if split else None):
+            return _step(state, batch, split)
 
-    def _step(state, batch):
+    def _step(state, batch, split):
         params = state["params"]
         if group is not None:
             from repro_torch.dist import collective
 
-            batch = collective.shard_rows(batch, grad_accum, group.size, group.rank)
+            if split:
+                batch = collective.shard_rows(batch, grad_accum, group.size, group.rank)
             params = collective.gather_tree(params, shards, group)
         if grad_accum == 1:
             (loss, metrics), grads = value_and_grad(loss_fn, params, batch)
@@ -284,18 +295,13 @@ def make_pipeline_train_step(cfg, opt_cfg: adamw.AdamWConfig, mesh, *,
     its data shard of the global batch through its own row's stages, and
     the loss and grads are averaged across processes before the update
     (``shards`` as in :func:`make_train_step`: the non-stacked leaves that
-    ``pipeline`` splits over the data axes).
+    ``pipeline`` splits over the data axes).  An MoE config routes as the
+    reference's pipe does: each data position its own microbatch rows,
+    against a capacity sized from the global batch, the aux loss averaged
+    over the data positions.
     """
     from repro_torch.dist.pipeline import make_pipeline_loss_and_grad
 
-    if group is not None and cfg.moe_experts:
-        from repro_torch.dist.sharding import MULTI_CARD_ITEM
-
-        # the pipe sizes capacity from its own rows and routes each
-        # microbatch's shard alone; the global routing of make_train_step
-        # is not wired through it
-        raise NotImplementedError(f"{cfg.name} is MoE: the pipeline across processes routes "
-                                  f"each process's rows alone, and is {MULTI_CARD_ITEM}")
     loss_grad = make_pipeline_loss_and_grad(
         cfg, mesh, num_microbatches=num_microbatches, boundaries=boundaries,
         schedule=schedule, aux_weight=aux_weight, remat=remat, group=group)

@@ -16,6 +16,20 @@ position (``repro_torch.dist.collective``), gloo on the CPU.
   process at lr 1e-3); every process reads the same metrics; under
   ``fused`` each process holds only its FSDP slices and the gathered
   params equal the one-process params.
+* The MoE pipeline across processes: mixtral_8x22b and deepseek_v2_236b
+  ``scaled_down(num_layers=2)`` at capacity factor 0.75, one microbatch
+  (its data shards' calls route half the global batch's tokens against
+  the global capacity) and ids drawn from the vocabulary's first
+  ``MOE_IDS`` (a skewed load), so choices drop; GPipe and 1F1B on the (2, 2)
+  mesh (2 processes x 2 stages), two steps: loss, aux and grad norm
+  within 1e-5 of the reference's jitted pipe on the same Auto-axis mesh
+  and of the one-process pipe (its data shards in turn); params within
+  1e-5 of the one-process pipe's wherever both steps' gradients clear
+  ``GRAD_FLOOR`` (and no farther from the reference's than its own plus
+  1e-5); GPipe == 1F1B bitwise; each layer's kept set of step 1 equal
+  to the reference pipe's (its data shard's rows routed op by op under
+  ``jax.disable_jit`` against the global capacity), with drops, where a
+  capacity sized from the process's own rows would keep another set.
 * Serving: 2 processes run ``launch.serve.run_static`` (f32) on their
   rows of the prompts; the gathered tokens equal the one-process run's.
   A token may differ only where the one-process top-2 margin is below
@@ -56,6 +70,15 @@ B, S, GA, STEPS = 8, 32, 2, 2
 #: strategy -> (mesh shape, processes)
 CASES = {"scatter_gather": ((4, 1), 4), "fused": ((4, 1), 4), "pipeline": ((2, 2), 2)}
 SPAWN_TIMEOUT = 240
+#: the MoE pipeline's configs: 2 layers (one a stage), capacity factor
+#: 0.75 and one microbatch, so that the data shards' calls drop choices
+MOE_ARCHS, MOE_LAYERS, MOE_CF, MOE_M = ("mixtral_8x22b", "deepseek_v2_236b"), 2, 0.75, 1
+#: the MoE batches draw their ids from the first MOE_IDS of the vocabulary:
+#: few distinct tokens skew the routers' load past the capacity
+MOE_IDS = 4
+#: one-process gradients below this (100 x AdamW's eps) make AdamW's
+#: first updates amplify summation order
+GRAD_FLOOR = 1e-6
 
 _REF_SCRIPT = r"""
 import os, sys
@@ -103,6 +126,59 @@ for strategy, ((d, m), _) in CASES.items():
             res[f"{strategy}/grad_norm{i}"] = np.asarray(met["grad_norm"])
         for k, v in jax.tree_util.tree_flatten_with_path(state["params"])[0]:
             res[f"{strategy}/params" + jax.tree_util.keystr(k)] = np.asarray(v)
+
+# the MoE pipeline: the jitted pipe on the (2, 2) mesh, then step 1's
+# routing of each data shard's rows op by op (the pipe's stage arithmetic
+# on those rows) against the global capacity
+import dataclasses
+from repro.dist.pipeline import _moe_global_capacity
+from repro.models import transformer as jtf
+
+mesh = Mesh(np.array(jax.devices()).reshape(2, 2), ("data", "model"))
+for arch in MOE_ARCHS:
+    mcfg = dataclasses.replace(get_config(arch).scaled_down(num_layers=MOE_LAYERS),
+                               moe_capacity_factor=MOE_CF)
+    mstate = init_state(jax.random.PRNGKey(0), mcfg, jnp.float32, jnp.float32)
+    mrng = np.random.default_rng(6)
+    toks = [mrng.integers(0, MOE_IDS, (B, S + 1)).astype(np.int32) for _ in range(STEPS)]
+    for i, t in enumerate(toks):
+        res[f"{arch}/tokens{i}"] = t
+    for k, v in jax.tree_util.tree_flatten_with_path(mstate["params"])[0]:
+        res[f"{arch}/params" + jax.tree_util.keystr(k)] = np.asarray(v)
+    with mesh:
+        step = jax.jit(make_pipeline_train_step(mcfg, opt, mesh, num_microbatches=MOE_M,
+                                                schedule="1f1b"))
+        state = mstate
+        for i, t in enumerate(toks):
+            state, met = step(state, {"tokens": jnp.asarray(t)})
+            for key in ("loss", "aux", "grad_norm"):
+                res[f"{arch}/{key}{i}"] = np.asarray(met[key])
+    for k, v in jax.tree_util.tree_flatten_with_path(state["params"])[0]:
+        res[f"{arch}/final" + jax.tree_util.keystr(k)] = np.asarray(v)
+    cap = _moe_global_capacity(mcfg, B * S)
+    calls = []
+    top_k = jax.lax.top_k
+
+    def recording(x, k):
+        vals, idx = top_k(x, k)
+        calls.append(np.asarray(idx))
+        return vals, idx
+
+    jax.lax.top_k = recording
+    try:
+        with jax.disable_jit():
+            mb, r = B // MOE_M, B // MOE_M // 2
+            for i in range(MOE_M):
+                for j in range(2):
+                    rows = jnp.asarray(toks[0][i * mb + j * r:i * mb + (j + 1) * r, :-1])
+                    x = jtf._embed(mstate["params"], mcfg, rows, None)
+                    pos = jnp.broadcast_to(jnp.arange(x.shape[1]), x.shape[:2])
+                    for layer in range(mcfg.num_layers):
+                        p = jax.tree.map(lambda a: a[layer], mstate["params"]["blocks"])
+                        x, _, _ = jtf.block_apply(p, mcfg, x, pos, None, moe_cap=cap)
+                        res[f"{arch}/route{i}_{j}_{layer}"] = calls.pop()
+    finally:
+        jax.lax.top_k = top_k
 np.savez(sys.argv[1], **res)
 print("REF_MULTIPROC_OK")
 """
@@ -132,7 +208,9 @@ def reference(tmp_path_factory):
     (the device override must not leak into this process)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = tmp_path_factory.mktemp("ref_multiproc") / "ref.npz"
-    code = f"B, S, GA, STEPS = {B}, {S}, {GA}, {STEPS}\nCASES = {CASES!r}\n" + _REF_SCRIPT
+    code = (f"B, S, GA, STEPS = {B}, {S}, {GA}, {STEPS}\nCASES = {CASES!r}\n"
+            f"MOE_ARCHS, MOE_LAYERS, MOE_CF, MOE_M, MOE_IDS = {MOE_ARCHS!r}, {MOE_LAYERS}, "
+            f"{MOE_CF}, {MOE_M}, {MOE_IDS}\n" + _REF_SCRIPT)
     r = subprocess.run(
         [sys.executable, "-c", code, str(out)], capture_output=True, text=True,
         env={"PYTHONPATH": os.path.join(repo, "src"),
@@ -164,9 +242,86 @@ def _storage_bytes(tree) -> int:
                if isinstance(t, torch.Tensor))
 
 
+def _moe_cfg(arch):
+    import dataclasses
+
+    return dataclasses.replace(get_config(arch).scaled_down(num_layers=MOE_LAYERS),
+                               moe_capacity_factor=MOE_CF)
+
+
+def _moe_inputs(ref_path, arch):
+    z = dict(np.load(ref_path))
+    cfg = _moe_cfg(arch)
+    params = convert.params_from_numpy(_nest(z, f"{arch}/params"), cfg, "cpu")
+    batches = [{"tokens": torch.from_numpy(z[f"{arch}/tokens{i}"]).long()}
+               for i in range(STEPS)]
+    return z, cfg, params, batches
+
+
+class _Routes:
+    """Records the (gate_idx, keep) of every ``moe.dispatch_slots`` call
+    outside autograd: the pipe's forward units, in schedule order."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as tmoe
+
+        self.orig, self.calls = tmoe.dispatch_slots, []
+
+        def recording(exp_flat, *a):
+            out = self.orig(exp_flat, *a)
+            if not torch.is_grad_enabled():
+                self.calls.append((exp_flat.clone(), out[1].clone()))
+            return out
+
+        tmoe.dispatch_slots = recording
+        return self.calls
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as tmoe
+
+        tmoe.dispatch_slots = self.orig
+
+
+def _moe_pipeline(ref_path, arch, schedule, mesh, group=None):
+    """Two pipelined steps of ``arch``'s MoE config on ``mesh`` (its data
+    shards across ``group``'s processes, or in turn in one process): the
+    metrics, step 1's routing, the params (gathered) and the grads each
+    step's AdamW update took (this process's)."""
+    from repro_torch.optim import adamw
+
+    _, cfg, params, batches = _moe_inputs(ref_path, arch)
+    state = tstep.make_state(params)
+    specs = state_shardings(state, mesh, "pipeline")
+    shards = tsh.data_shards(specs["params"], mesh) if group is not None else None
+    state = tsh.place(state, specs, mesh, group=group)
+    step = tstep.make_pipeline_train_step(cfg, OPT, mesh, num_microbatches=MOE_M,
+                                          schedule=schedule, group=group, shards=shards)
+    rec = {"grads": []}
+    apply = adamw.apply
+
+    def spy(c, p, g, st, norm_fn=adamw.global_norm):
+        rec["grads"].append(dict(flatten_with_path(g)))
+        return apply(c, p, g, st, norm_fn)
+
+    tstep.adamw.apply = spy
+    try:
+        for i, batch in enumerate(batches):
+            with _Routes() as calls:
+                state, met = step(state, batch)
+            if i == 0:
+                rec["routes"] = calls
+            for key in ("loss", "aux", "grad_norm"):
+                rec[f"{key}{i}"] = met[key].item()
+    finally:
+        tstep.adamw.apply = apply
+    rec["params"] = collective.gather_tree(state["params"], shards, group)
+    return rec
+
+
 def _train_child(rank, nprocs, init_method, ref_path, strategies, out_dir):
     """One data position: each strategy's two steps from the reference's
-    params on the global batches; saves metrics and the gathered params."""
+    params on the global batches; saves metrics and the gathered params
+    (and for the pipeline the MoE pipe's records)."""
     torch.set_num_threads(1)
     z, cfg, params, batches = _inputs(ref_path)
     group = None
@@ -189,6 +344,11 @@ def _train_child(rank, nprocs, init_method, ref_path, strategies, out_dir):
             rec[f"loss{i}"] = met["loss"].item()
             rec[f"grad_norm{i}"] = met["grad_norm"].item()
         rec["params"] = collective.gather_tree(state["params"], shards, group)
+        if strategy == "pipeline":
+            rec["moe"] = {(arch, sched): _moe_pipeline(ref_path, arch, sched, mesh, group)
+                          for arch in MOE_ARCHS for sched in ("gpipe", "1f1b")}
+            for r in rec["moe"].values():
+                del r["grads"]
         torch.save(rec, os.path.join(out_dir, f"{strategy}_{rank}.pt"))
     group.close()
 
@@ -292,6 +452,92 @@ def test_train_across_processes(multiproc, reference, strategy, against):
         assert err <= own + PARAM_TOL, (path, err, own)
 
 
+@pytest.fixture(scope="module")
+def moe_one_process(reference):
+    """The one-process MoE pipe on the (2, 2) mesh (its data shards in
+    turn), per arch."""
+    mesh = make_mesh_for([CPU] * 4, model_axis=2)
+    return {arch: _moe_pipeline(reference, arch, "1f1b", mesh) for arch in MOE_ARCHS}
+
+
+def _keep(routes, cap):
+    """The reference's kept set: token-major positions over the call's
+    choices, against ``cap``."""
+    flat = routes.reshape(-1)
+    onehot = np.eye(int(flat.max()) + 1, dtype=np.int64)[flat]
+    pos = ((np.cumsum(onehot, axis=0) - 1) * onehot).sum(-1)
+    return pos < cap
+
+
+@pytest.mark.parametrize("schedule", ["gpipe", "1f1b"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_pipeline_across_processes(multiproc, reference, moe_one_process, arch, schedule):
+    """Loss, aux and grad norm of both steps within 1e-5 of the
+    reference's pipe and of one process, every process reading the same;
+    the gathered params within 1e-5 of one process's where both steps'
+    gradients clear ``GRAD_FLOOR``; GPipe == 1F1B bitwise."""
+    z, cfg, _, _ = _moe_inputs(reference, arch)
+    recs = [r["moe"][(arch, schedule)] for r in multiproc["pipeline"]]
+    one = moe_one_process[arch]
+    for i in range(STEPS):
+        for key in ("loss", "aux", "grad_norm"):
+            got = [r[f"{key}{i}"] for r in recs]
+            assert len(set(got)) == 1, (arch, key, i, got)
+            ref = float(z[f"{arch}/{key}{i}"])
+            assert _close(got[0], ref, RTOL), (arch, schedule, key, i, got[0], ref)
+            assert _close(got[0], one[f"{key}{i}"], RTOL), (arch, schedule, key, i, got[0],
+                                                            one[f"{key}{i}"])
+    want = dict(flatten_with_path(convert.params_from_numpy(_nest(z, f"{arch}/final"), cfg,
+                                                            "cpu")))
+    base = dict(flatten_with_path(one["params"]))
+    for path, a in flatten_with_path(recs[0]["params"]):
+        b, r = base[path], want[path]
+        clear = ((one["grads"][0][path].abs() >= GRAD_FLOOR)
+                 & (one["grads"][1][path].abs() >= GRAD_FLOOR))
+        err = float(((a - b).abs() * clear).max())
+        assert err <= PARAM_TOL, (arch, schedule, path, err)
+        own = float(((b - r).abs() * clear).max())
+        assert float(((a - r).abs() * clear).max()) <= own + PARAM_TOL, (arch, path)
+    other = [r["moe"][(arch, "gpipe" if schedule == "1f1b" else "1f1b")]
+             for r in multiproc["pipeline"]]
+    for a, b in zip(recs, other):
+        assert all(a[f"{k}{i}"] == b[f"{k}{i}"] for k in ("loss", "aux", "grad_norm")
+                   for i in range(STEPS))
+        assert all(torch.equal(x, y) for x, y in zip(leaves(a["params"]), leaves(b["params"])))
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_pipeline_keeps_the_reference_set(multiproc, reference, moe_one_process, arch):
+    """Step 1's routing: each process's calls (its data shard's rows, one
+    a layer) choose the experts the reference pipe's do and keep its set
+    against the capacity sized from the global batch; some choices drop,
+    and a capacity sized from the process's own rows would keep another
+    set.  The one-process pipe's shards keep the same."""
+    from repro_torch.models.moe import capacity_for
+
+    z, cfg, _, _ = _moe_inputs(reference, arch)
+    n = (B // MOE_M // 2) * S
+    cap, local = (min(capacity_for(cfg, tokens), n) for tokens in (B * S, B * S // 2))
+    one = moe_one_process[arch]["routes"]
+    dropped, differs = 0, 0
+    for j, rec in enumerate(multiproc["pipeline"]):
+        for schedule in ("gpipe", "1f1b"):
+            calls = rec["moe"][(arch, schedule)]["routes"]
+            assert len(calls) == MOE_M * cfg.num_layers
+            for c, (idx, keep) in enumerate(calls):
+                i, layer = divmod(c, cfg.num_layers)
+                ref = z[f"{arch}/route{i}_{j}_{layer}"]
+                np.testing.assert_array_equal(idx.numpy(), ref.reshape(-1))
+                want = _keep(ref, cap)
+                np.testing.assert_array_equal(keep.numpy(), want)
+                # the one-process pipe: microbatch i's shards in turn
+                o_idx, o_keep = one[(i * 2 + j) * cfg.num_layers + layer]
+                assert torch.equal(o_idx, idx) and torch.equal(o_keep, keep)
+                dropped += int((~want).sum())
+                differs += int((_keep(ref, local) != want).any())
+    assert dropped and differs, (arch, dropped, differs)
+
+
 def test_fused_holds_only_its_slices(multiproc):
     """Under ``fused`` each process holds a quarter of every FSDP leaf: the
     placed state is smaller than scatter_gather's, and every process's
@@ -352,6 +598,7 @@ def _collectives_child(rank, nprocs, init_method, out_dir):
     group = collective.data_group(mesh, init_method=init_method, rank=rank, world_size=nprocs)
     mine = collective.pmean_scatter(_tensors(rank), SHARDS, group)
     rec = {"mine": mine, "whole": collective.gather_tree(mine, SHARDS, group),
+           "first": collective.gather_tree_first(mine, SHARDS, group),
            "norm": collective.global_norm(mine, SHARDS, group)}
     torch.save(rec, os.path.join(out_dir, f"coll_{rank}.pt"))
     group.close()
@@ -360,8 +607,9 @@ def _collectives_child(rank, nprocs, init_method, out_dir):
 def test_collectives_over_shared_slices(tmp_path):
     """4 processes: ``pmean_scatter`` leaves each its slice of the mean
     (one ``reduce_scatter`` a sharded leaf, also where several positions
-    share a slice), ``gather_tree`` rebuilds the whole mean and
-    ``global_norm`` counts each slice once."""
+    share a slice), ``gather_tree`` rebuilds the whole mean on every
+    process and ``gather_tree_first`` on the first alone (a checkpoint's
+    writer), and ``global_norm`` counts each slice once."""
     collective.spawn(_collectives_child, 4, (str(tmp_path),), timeout=SPAWN_TIMEOUT,
                      workdir=str(tmp_path))
     mean = {k: sum(_tensors(r)[k] for r in range(4)) / 4 for k in SHARDS}
@@ -374,6 +622,10 @@ def test_collectives_over_shared_slices(tmp_path):
             torch.testing.assert_close(rec["mine"][k], want[k], rtol=1e-6, atol=1e-6)
             torch.testing.assert_close(rec["whole"][k], mean[k], rtol=1e-6, atol=1e-6)
             assert rec["whole"][k].is_contiguous()
+            if r == 0 or SHARDS[k] is None:
+                assert torch.equal(rec["first"][k], rec["whole"][k]), (r, k)
+            else:
+                assert rec["first"][k] is None, (r, k)
         torch.testing.assert_close(rec["norm"], norm, rtol=1e-6, atol=1e-6)
 
 
@@ -433,7 +685,8 @@ def test_launchers_under_torchrun(tmp_path):
     """Both launchers under ``torchrun --nproc-per-node 2`` on the CPU:
     process 0 alone prints the reference's lines with the global mesh; the
     train launcher's fused checkpoint (written gathered by process 0) is
-    resumed by the one-process launcher."""
+    resumed by the one-process launcher; ``--fault-plan`` runs the
+    supervisor in both processes to ``done``."""
     from repro_torch.launch import train as ttrain
 
     ck = tmp_path / "ck"
@@ -444,6 +697,11 @@ def test_launchers_under_torchrun(tmp_path):
                    "done"]
     state = ttrain.main(smoke + ["--steps", "3", "--ckpt", str(ck)])
     assert int(state["step"]) == 3
+    # the supervised loop across the two processes: a rollback, then done
+    out = _torchrun("repro_torch.launch.train",
+                    smoke + ["--steps", "4", "--fault-plan", "nan:step=2", "--ckpt",
+                             str(tmp_path / "sup"), "--ckpt-every", "2"], tmp_path)
+    assert out[-1] == "done" and out[-2].startswith("  [rollback] at step 2: lost 0 steps")
     out = _torchrun("repro_torch.launch.serve", ["--device", "cpu", "--smoke", "--batch", "4",
                                                  "--prompt", "32", "--new-tokens", "4"], tmp_path)
     assert out[0] == "mesh {'data': 2, 'model': 1}  arch qwen3_0p6b  strategy fused"
@@ -451,8 +709,9 @@ def test_launchers_under_torchrun(tmp_path):
 
 
 def test_launchers_refuse_one_process_paths_across_processes(monkeypatch):
-    """In a world of two processes the paged engine and the supervisors
-    exit before any group is made."""
+    """In a world of two processes the paged engine, the serving
+    supervisor and the pipeline's training supervisor exit before any
+    group is made."""
     from repro_torch.launch import serve as tserve
     from repro_torch.launch import train as ttrain
 
@@ -461,10 +720,10 @@ def test_launchers_refuse_one_process_paths_across_processes(monkeypatch):
     smoke = ["--device", "cpu", "--smoke"]
     with pytest.raises(SystemExit, match="serves from one device"):
         tserve.main(smoke + ["--engine", "paged"])
-    with pytest.raises(SystemExit, match="item 16"):
+    with pytest.raises(SystemExit, match="serves from one device as the reference's does"):
         tserve.main(smoke + ["--engine", "paged", "--supervise"])
-    with pytest.raises(SystemExit, match="item 16"):
-        ttrain.main(smoke + ["--fault-plan", "nan:step=3"])
+    with pytest.raises(SystemExit, match=r"pipeline supervisor .* in one process"):
+        ttrain.main(smoke + ["--strategy", "pipeline", "--fault-plan", "nan:step=3"])
 
 
 def test_lone_process_on_many_positions_exits():

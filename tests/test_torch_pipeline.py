@@ -192,6 +192,28 @@ def test_attention_grads_nonzero_through_pipe():
             assert x.abs().max() > 0, path
 
 
+def test_bf16_data_shards_equal_each_shard_alone():
+    """bf16 params on a (2, 1) mesh: the loss and every gradient leaf within
+    1e-5 (of the loss, of the leaf's norm) of the f32 mean of each data
+    shard's pipe run alone — what processes, one a data position, compute.
+    Tokens from the vocabulary's first 4 repeat in both shards: the table's
+    gradient sums each token's rows in f32, where a bf16 sum over both
+    shards' rows at once rounds apart from the shards' own sums (~1e-2)."""
+    cfg = _cfg(num_layers=2)
+    params = ttf.init(cfg, generator=torch.Generator().manual_seed(0), dtype=torch.bfloat16,
+                      device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, 4, (2, 65))).long()
+    (loss, _), grads = pl.make_pipeline_loss_and_grad(cfg, _mesh(2, 1), 1)(
+        params, {"tokens": tokens})
+    one = pl.make_pipeline_loss_and_grad(cfg, _mesh(1, 1), 1)
+    alone = [one(params, {"tokens": tokens[i:i + 1]}) for i in range(2)]
+    want = (alone[0][0][0] + alone[1][0][0]) / 2
+    assert abs(float(loss) - float(want)) <= LOSS_RTOL * abs(float(want))
+    for (path, g), a, b in zip(flatten_with_path(grads), leaves(alone[0][1]), leaves(alone[1][1])):
+        w = (a.float() + b.float()) / 2
+        assert float((g.float() - w).norm()) <= 1e-5 * float(w.norm()), path
+
+
 @pytest.mark.parametrize("stages,m", [(1, 1), (2, 1), (2, 3), (3, 2), (4, 4), (4, 6)])
 def test_schedule_counts_match_oracle(stages, m):
     cfg = get_config("qwen3_0p6b").scaled_down(num_layers=stages + 1, d_model=32, vocab=64)

@@ -19,6 +19,23 @@
   ``jax.sharding.Mesh``, Auto axes); the port runs them on ``[cpu] * 4``.
   Events (re-cut boundaries, rates, ``4->3`` with the restored step) and
   ``boundaries_history`` equal, losses within 1e-5 relative.
+* Across processes (gloo on the CPU, ``collective.spawn``, the file's
+  clock in every child): the reference's fused supervisor on 4 fake
+  devices with the fused plan plus ``kill:step=7,lose=1`` ((2, 2) ->
+  (3, 1): batch 4 over 3 data positions), its scatter_gather one on 2
+  ((2, 1) -> (1, 1)) and its persistent-NaN refusal on 4, from the same
+  subprocess as the pipeline runs (in both packages each background
+  checkpoint write there starts ``SLOW_WRITE_S`` late, so that the write a
+  crash armed after a save kills is that save's, as at full size); the
+  port runs each as 4 (2) processes
+  of one world (one per mesh position, then per data position) and as
+  one process on ``[cpu] * 4`` (``* 2``).  Every process's events equal
+  the reference's in kind, step, steps lost, error type, ``devices`` and
+  ``restored_step`` (the ``ckpt_retry`` on process 0 alone: it alone
+  writes checkpoints; the process whose device left stops at its
+  ``rescale``), the skipped set equal, every loss within 1e-5 (the
+  departed process's up to its loss), and every process raises the
+  reference's error where the NaN persists.
 * ``state_shardings`` equals the reference's specs on a 1 x 1 mesh for the
   four strategies; ``rescale`` restores a checkpoint the reference wrote
   (a state in the port's per-layer layout) bitwise, onto a fused and a
@@ -50,6 +67,7 @@ from repro.optim.adamw import AdamWConfig as JAdamWConfig  # noqa: E402
 from repro.train import step as jstep  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.dist import collective  # noqa: E402
 from repro_torch.dist import sharding as tsh  # noqa: E402
 from repro_torch.ft import checkpoint as tckpt  # noqa: E402
 from repro_torch.ft import elastic as telastic  # noqa: E402
@@ -189,15 +207,68 @@ PIPE_RUNS = {"clean": ("", 12, False),
              "slowdown": ("slowdown:step=3,stage=2,factor=3", 12, False),
              "kill": ("kill:step=7,lose=1", 10, True)}
 
+#: runs across processes: name -> (strategy, devices, fault plan, steps,
+#: max_rollbacks)
+FUSED_PLAN = "nan:step=3;ckpt_crash:step=4"
+SPMD_RUNS = {
+    "fused_kill": ("fused", 4, FUSED_PLAN + ";kill:step=7,lose=1", 8, 8),
+    "scatter_gather_kill": ("scatter_gather", 2, FUSED_PLAN + ";kill:step=7,lose=1", 8, 8),
+    "persistent_nan": ("fused", 4, ";".join(f"nan:step={s}" for s in range(20)), 4, 3),
+}
+
+#: a background checkpoint write starts this many (real) seconds late in
+#: the runs across processes, in both packages: the plans arm a write crash
+#: at the step after a save, and only a write still in flight then is the
+#: one that dies (a write that already landed passes the crash to the
+#: next, whose failure a restore then finds first: another event list)
+SLOW_WRITE_S = 0.3
+SLOW_WRITES = r"""
+import time as _time
+
+
+def slow_writes(mod, delay):
+    # mod._write, started ``delay`` seconds late; returns the original
+    orig = mod._write
+
+    def _write(*a, **kw):
+        _time.sleep(delay)
+        return orig(*a, **kw)
+
+    mod._write = _write
+    return orig
+"""
+exec(SLOW_WRITES)
+
 _REF_SCRIPT = r"""
 import json, os, sys, tempfile
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import jax
 from repro.configs.base import get_config
+from repro.ft import checkpoint as ckpt_mod
 from repro.ft import supervisor as sup_mod
 from repro.ft.faults import FaultPlan
 exec(CLOCK)
-cfg = get_config("qwen3_0p6b").scaled_down(**PIPE)
+exec(SLOW_WRITES)
 out = {}
+fused = get_config("qwen3_0p6b").scaled_down(**FUSED)
+write = slow_writes(ckpt_mod, SLOW_WRITE_S)
+for name, (strategy, n, spec, steps, most) in SPMD_RUNS.items():
+    sup_mod.time = FakeClock()
+    with tempfile.TemporaryDirectory() as d:
+        sup = sup_mod.TrainSupervisor(
+            fused, steps=steps, seq=16, batch=4, strategy=strategy, seed=0,
+            fault_plan=FaultPlan.parse(spec), ckpt_dir=d, ckpt_every=2,
+            devices=jax.devices()[:n], max_rollbacks=most)
+        try:
+            res = sup.run()
+            out[name] = {"losses": res.losses, "error": None}
+        except Exception as e:
+            out[name] = {"losses": None, "error": type(e).__name__ + ": " + str(e)}
+    out[name].update(skipped=sorted(sup.skipped),
+                     events=[{"kind": e.kind, "step": e.step, "steps_lost": e.steps_lost,
+                              "detail": e.detail} for e in sup.events])
+ckpt_mod._write = write
+cfg = get_config("qwen3_0p6b").scaled_down(**PIPE)
 for name, (spec, steps, ckpt) in RUNS.items():
     sup_mod.time = FakeClock()
     with tempfile.TemporaryDirectory() as d:
@@ -221,7 +292,9 @@ def reference_runs(tmp_path_factory):
     subprocess (the device override must not leak into this process)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = tmp_path_factory.mktemp("ref_supervisor") / "ref.json"
-    code = f"CLOCK = {CLOCK!r}\nPIPE = {PIPE!r}\nRUNS = {PIPE_RUNS!r}\n" + _REF_SCRIPT
+    code = (f"CLOCK = {CLOCK!r}\nPIPE = {PIPE!r}\nRUNS = {PIPE_RUNS!r}\nFUSED = {FUSED!r}\n"
+            f"SPMD_RUNS = {SPMD_RUNS!r}\nSLOW_WRITES = {SLOW_WRITES!r}\n"
+            f"SLOW_WRITE_S = {SLOW_WRITE_S!r}\n" + _REF_SCRIPT)
     r = subprocess.run(
         [sys.executable, "-c", code, str(out)], capture_output=True, text=True,
         env={"PYTHONPATH": os.path.join(repo, "src"),
@@ -261,6 +334,118 @@ def test_pipeline_runs_match_reference(reference_runs, monkeypatch, tmp_path, na
         ev, = res.events_of("rescale")
         assert ev.detail["devices"] == "4->3" and ev.detail["stages"] == 3
         assert ev.steps_lost <= 2 and len(res.boundaries_history[-1]) == 4
+
+
+# ---------------------------------------------------------------------------
+# across processes: one world, lockstep decisions, regrouping after a loss
+# ---------------------------------------------------------------------------
+
+
+def _spmd_child(rank, nprocs, init_method, names, root):
+    """One process of each run of ``names`` (a world each), under the
+    file's clock: its events, losses, skipped set and error."""
+    torch.set_num_threads(1)
+    cfg, init_fn = _init_fn(FUSED)
+    slow_writes(tckpt, SLOW_WRITE_S)
+    out = {}
+    for name in names:
+        strategy, n, spec, steps, most = SPMD_RUNS[name]
+        tsup.time = FakeClock()
+        sup = tsup.TrainSupervisor(
+            cfg, steps=steps, seq=16, batch=4, strategy=strategy,
+            fault_plan=tfaults.FaultPlan.parse(spec), ckpt_dir=os.path.join(root, name),
+            ckpt_every=2, devices=[CPU] * n, init_fn=init_fn, max_rollbacks=most,
+            init_method=f"{init_method}_{name}", rank=rank, world_size=nprocs)
+        try:
+            res = sup.run()
+            out[name] = {"losses": res.losses, "error": None}
+        except RuntimeError as e:
+            out[name] = {"losses": None, "error": f"{type(e).__name__}: {e}"}
+        finally:
+            sup.close()
+        out[name].update(skipped=sorted(sup.skipped), events=[_event(e) for e in sup.events],
+                         member=sup._member, layout=(sup._data, sup._model, sup._active))
+        out[name]["layout"] = [None if g is None else (type(g).__name__, g.rank, g.size)
+                               for g in out[name]["layout"]]
+    with open(os.path.join(root, f"spmd_{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+@pytest.fixture(scope="module")
+def spmd_runs(tmp_path_factory):
+    """The port's runs across processes: one spawn of 4 processes (the
+    fused kill run, then the persistent NaN), one of 2 (scatter_gather)."""
+    root = tmp_path_factory.mktemp("spmd")
+    out = {}
+    for n in (4, 2):
+        names = [k for k, v in SPMD_RUNS.items() if v[1] == n]
+        collective.spawn(_spmd_child, n, (names, str(root)), timeout=300, workdir=str(root))
+        for r in range(n):
+            with open(root / f"spmd_{r}.json") as f:
+                for name, rec in json.load(f).items():
+                    out.setdefault(name, []).append(rec)
+    return out
+
+
+def _one_process_spmd(name, root, monkeypatch):
+    strategy, n, spec, steps, most = SPMD_RUNS[name]
+    cfg, init_fn = _init_fn(FUSED)
+    monkeypatch.setattr(tsup, "time", FakeClock())
+    monkeypatch.setattr(tckpt, "_write", tckpt._write)
+    slow_writes(tckpt, SLOW_WRITE_S)
+    sup = tsup.TrainSupervisor(
+        cfg, steps=steps, seq=16, batch=4, strategy=strategy,
+        fault_plan=tfaults.FaultPlan.parse(spec), ckpt_dir=str(root), ckpt_every=2,
+        devices=[CPU] * n, init_fn=init_fn, max_rollbacks=most)
+    try:
+        return {"losses": sup.run().losses, "error": None,
+                "events": [_event(e) for e in sup.events], "skipped": sorted(sup.skipped)}
+    except RuntimeError as e:
+        return {"losses": None, "error": f"{type(e).__name__}: {e}",
+                "events": [_event(e) for e in sup.events], "skipped": sorted(sup.skipped)}
+
+
+@pytest.mark.parametrize("name", list(SPMD_RUNS))
+def test_supervisor_across_processes(reference_runs, spmd_runs, monkeypatch, tmp_path, name):
+    """Every process of the world against the reference's SPMD run and
+    the port's one process on the same device list (module docstring)."""
+    want = reference_runs[name]
+    want_events = [_event(type("E", (), e)) for e in want["events"]]
+    one = _one_process_spmd(name, tmp_path, monkeypatch)
+    assert one["events"] == want_events and one["skipped"] == want["skipped"]
+    recs = spmd_runs[name]
+    for rank, rec in enumerate(recs):
+        events = want_events if rank == 0 else [e for e in want_events
+                                                if e["kind"] != "ckpt_retry"]
+        if not rec["member"]:
+            # its device left: it stops at the rescale, its last event
+            cut = [e["kind"] for e in events].index("rescale") + 1
+            events = events[:cut]
+        assert rec["events"] == events, (name, rank)
+        if rec["member"]:
+            assert rec["skipped"] == want["skipped"], (name, rank)
+        if want["error"] is not None:
+            assert rec["error"] is not None and rec["error"].split(":")[0] == \
+                want["error"].split(":")[0], (name, rank, rec["error"], want["error"])
+            assert "rollback" in rec["error"]
+            continue
+        assert rec["error"] is None, (name, rank, rec["error"])
+        got = rec["losses"] if rec["member"] else [
+            x for x in rec["losses"] if not math.isnan(x)]
+        _close(got, want["losses"][:len(got)])
+        _close(got, one["losses"][:len(got)])
+    if name.endswith("_kill"):
+        resc = [e for e in want_events if e["kind"] == "rescale"]
+        n = SPMD_RUNS[name][1]
+        assert resc[0]["detail"]["devices"] == f"{n}->{n - 1}"
+        # after the loss: one process per data position over the survivors
+        assert [r["member"] for r in recs] == [True] * (n - 1) + [False]
+        survivors = [r["layout"] for r in recs[:n - 1]]
+        if n == 4:
+            assert all(lay[0] == ["DataGroup", r, 3] and lay[1] is None
+                       for r, lay in enumerate(survivors)), survivors
+        else:
+            assert survivors == [[None, None, None]]
 
 
 # ---------------------------------------------------------------------------
