@@ -5,7 +5,8 @@ reference's XLA dry-run.
   ``jax.sharding.Mesh`` (2, 4) over 8 of its fake CPU devices with
   ``qwen3_0p6b.scaled_down()`` (``get_config`` patched in the subprocess):
   train_4k, prefill_32k and decode_32k under fused, ai_core_assignment and
-  scatter_gather, and pipeline's train_4k.  The scaled-down stack has 2
+  scatter_gather, and pipeline's train_4k (lowered in turn, compiled in
+  threads).  The scaled-down stack has 2
   layers, which the 4-stage pipeline refuses (``ValueError: 4 stages > 2
   layers``): that cell is recorded with its error, and the pipeline is
   compared at ``scaled_down(num_layers=8)`` instead.  The stand-in's
@@ -25,6 +26,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the suite runs in xdist workers that share the cores: one intra-op thread each
+torch.set_num_threads(1)
 
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.dist.sharding import Mesh  # noqa: E402
@@ -43,8 +46,10 @@ from jax.sharding import Mesh
 import repro.launch.dryrun as dr  # appends the 512-device flag; the mesh takes 8
 from repro.configs import base
 
+from concurrent.futures import ThreadPoolExecutor
+
 mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 4), ("data", "model"))
-out = {}
+out, lowered = {}, {}
 for layers in (None, 8):
     cfg = base.get_config("qwen3_0p6b").scaled_down(
         **({} if layers is None else {"num_layers": layers}))
@@ -54,10 +59,21 @@ for layers in (None, 8):
             continue
         key = f"{layers}/{strategy}/{shape}"
         try:
-            low = dr.lower_cell("qwen3_0p6b", shape, mesh, strategy)
-            out[key] = int(low.compile().memory_analysis().argument_size_in_bytes)
+            lowered[key] = dr.lower_cell("qwen3_0p6b", shape, mesh, strategy)
         except Exception as e:
             out[key] = f"{type(e).__name__}: {e}"[:300]
+
+
+def arg_bytes(low):
+    try:
+        return int(low.compile().memory_analysis().argument_size_in_bytes)
+    except Exception as e:
+        return f"{type(e).__name__}: {e}"[:300]
+
+
+# the cells compile in threads (XLA compiles outside the GIL)
+with ThreadPoolExecutor(4) as pool:
+    out.update(zip(lowered, pool.map(arg_bytes, lowered.values())))
 print("REF_DRYRUN " + json.dumps(out))
 """
 
@@ -71,7 +87,7 @@ def reference():
         env={"PYTHONPATH": os.path.join(repo, "src"),
              "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
              "HOME": os.environ.get("HOME", "/tmp"), "JAX_PLATFORMS": "cpu"},
-        cwd=repo, timeout=300)
+        cwd=repo, timeout=180)
     line = [x for x in r.stdout.splitlines() if x.startswith("REF_DRYRUN ")]
     assert line, r.stdout + r.stderr
     return json.loads(line[0][len("REF_DRYRUN "):])

@@ -7,7 +7,8 @@ position (``repro_torch.dist.collective``), gloo on the CPU.
   ``pipeline`` on a (2, 2) mesh (2 processes x 2 stages on the CPU, 1F1B,
   2 microbatches) are each held to two references: the reference's
   jitted step on an Auto-axis mesh of the same shape over 4 fake CPU
-  devices (one JAX subprocess), and the port's one-process step on the
+  devices (one JAX subprocess, which writes its inputs first and then
+  runs beside the port's processes), and the port's one-process step on the
   same global batch.  Loss and ``grad_norm`` within 1e-5 (relative) at
   both steps; params within 1e-5 of the one-process port's after step 2,
   and no more than 1e-5 farther from the reference's than the
@@ -48,11 +49,14 @@ import os
 import re
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the suite runs in xdist workers that share the cores: one intra-op thread each
+torch.set_num_threads(1)
 
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
@@ -69,7 +73,9 @@ OPT = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
 B, S, GA, STEPS = 8, 32, 2, 2
 #: strategy -> (mesh shape, processes)
 CASES = {"scatter_gather": ((4, 1), 4), "fused": ((4, 1), 4), "pipeline": ((2, 2), 2)}
-SPAWN_TIMEOUT = 240
+#: limits on each spawn and on the reference's subprocess, near their
+#: measured times
+SPAWN_TIMEOUT, REF_TIMEOUT = 60, 300
 #: the MoE pipeline's configs: 2 layers (one a stage), capacity factor
 #: 0.75 and one microbatch, so that the data shards' calls drop choices
 MOE_ARCHS, MOE_LAYERS, MOE_CF, MOE_M = ("mixtral_8x22b", "deepseek_v2_236b"), 2, 0.75, 1
@@ -98,6 +104,24 @@ batches = [rng.integers(0, cfg.vocab, (B, S + 1)).astype(np.int32) for _ in rang
 res = {f"tokens{i}": t for i, t in enumerate(batches)}
 for k, v in jax.tree_util.tree_flatten_with_path(state0["params"])[0]:
     res["params" + jax.tree_util.keystr(k)] = np.asarray(v)
+
+# the MoE pipeline's params and batches; every input is written (whole,
+# then renamed) before the first step compiles, for the port's processes
+import dataclasses
+moe = {}
+for arch in MOE_ARCHS:
+    mcfg = dataclasses.replace(get_config(arch).scaled_down(num_layers=MOE_LAYERS),
+                               moe_capacity_factor=MOE_CF)
+    mstate = init_state(jax.random.PRNGKey(0), mcfg, jnp.float32, jnp.float32)
+    mrng = np.random.default_rng(6)
+    toks = [mrng.integers(0, MOE_IDS, (B, S + 1)).astype(np.int32) for _ in range(STEPS)]
+    moe[arch] = mcfg, mstate, toks
+    for i, t in enumerate(toks):
+        res[f"{arch}/tokens{i}"] = t
+    for k, v in jax.tree_util.tree_flatten_with_path(mstate["params"])[0]:
+        res[f"{arch}/params" + jax.tree_util.keystr(k)] = np.asarray(v)
+np.savez(sys.argv[2] + ".tmp.npz", **res)
+os.replace(sys.argv[2] + ".tmp.npz", sys.argv[2])
 
 
 def ns(mesh, tree):
@@ -130,21 +154,12 @@ for strategy, ((d, m), _) in CASES.items():
 # the MoE pipeline: the jitted pipe on the (2, 2) mesh, then step 1's
 # routing of each data shard's rows op by op (the pipe's stage arithmetic
 # on those rows) against the global capacity
-import dataclasses
 from repro.dist.pipeline import _moe_global_capacity
 from repro.models import transformer as jtf
 
 mesh = Mesh(np.array(jax.devices()).reshape(2, 2), ("data", "model"))
 for arch in MOE_ARCHS:
-    mcfg = dataclasses.replace(get_config(arch).scaled_down(num_layers=MOE_LAYERS),
-                               moe_capacity_factor=MOE_CF)
-    mstate = init_state(jax.random.PRNGKey(0), mcfg, jnp.float32, jnp.float32)
-    mrng = np.random.default_rng(6)
-    toks = [mrng.integers(0, MOE_IDS, (B, S + 1)).astype(np.int32) for _ in range(STEPS)]
-    for i, t in enumerate(toks):
-        res[f"{arch}/tokens{i}"] = t
-    for k, v in jax.tree_util.tree_flatten_with_path(mstate["params"])[0]:
-        res[f"{arch}/params" + jax.tree_util.keystr(k)] = np.asarray(v)
+    mcfg, mstate, toks = moe[arch]
     with mesh:
         step = jax.jit(make_pipeline_train_step(mcfg, opt, mesh, num_microbatches=MOE_M,
                                                 schedule="1f1b"))
@@ -203,23 +218,54 @@ def _nest(z, prefix):
 
 
 @pytest.fixture(scope="module")
-def reference(tmp_path_factory):
+def reference_run(tmp_path_factory):
     """The reference's jitted steps on 4 fake CPU devices, one subprocess
-    (the device override must not leak into this process)."""
+    (the device override must not leak into this process), started here:
+    it writes its inputs (params, batches) before its steps compile, so
+    the port's processes overlap it.  Yields (process, inputs path,
+    results path, log path)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    out = tmp_path_factory.mktemp("ref_multiproc") / "ref.npz"
+    tmp = tmp_path_factory.mktemp("ref_multiproc")
+    out, ins, log = tmp / "ref.npz", tmp / "inputs.npz", tmp / "ref.log"
     code = (f"B, S, GA, STEPS = {B}, {S}, {GA}, {STEPS}\nCASES = {CASES!r}\n"
             f"MOE_ARCHS, MOE_LAYERS, MOE_CF, MOE_M, MOE_IDS = {MOE_ARCHS!r}, {MOE_LAYERS}, "
             f"{MOE_CF}, {MOE_M}, {MOE_IDS}\n" + _REF_SCRIPT)
-    r = subprocess.run(
-        [sys.executable, "-c", code, str(out)], capture_output=True, text=True,
-        env={"PYTHONPATH": os.path.join(repo, "src"),
-             "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
-             "HOME": os.environ.get("HOME", "/tmp"),
-             "JAX_PLATFORMS": "cpu"},
-        cwd=repo, timeout=300)
-    assert "REF_MULTIPROC_OK" in r.stdout, r.stdout + r.stderr
-    return str(out)
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", code, str(out), str(ins)], stdout=f,
+            stderr=subprocess.STDOUT, text=True, cwd=repo,
+            env={"PYTHONPATH": os.path.join(repo, "src"),
+                 "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
+                 "HOME": os.environ.get("HOME", "/tmp"),
+                 "JAX_PLATFORMS": "cpu"})
+    try:
+        yield proc, str(ins), str(out), log
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(10)
+
+
+@pytest.fixture(scope="module")
+def ref_inputs(reference_run):
+    """The reference's params and batches, once its subprocess wrote them."""
+    proc, ins, _, log = reference_run
+    deadline = time.monotonic() + REF_TIMEOUT
+    while not os.path.exists(ins):
+        assert proc.poll() is None, log.read_text()
+        assert time.monotonic() < deadline, "no reference inputs within the timeout"
+        time.sleep(0.5)
+    return ins
+
+
+@pytest.fixture(scope="module")
+def reference(reference_run, multiproc):
+    """The reference's results (its inputs too), once its subprocess ends
+    (after the port's processes, which overlap it)."""
+    proc, _, out, log = reference_run
+    proc.wait(REF_TIMEOUT)
+    assert "REF_MULTIPROC_OK" in log.read_text(), log.read_text()
+    return out
 
 
 def _inputs(ref_path):
@@ -370,13 +416,13 @@ def _serve_child(rank, nprocs, init_method, out_dir, prompts, new_tokens, chunk)
 
 
 @pytest.fixture(scope="module")
-def multiproc(reference, tmp_path_factory):
+def multiproc(ref_inputs, tmp_path_factory):
     """Each strategy's per-process records: 4 processes for the (4, 1)
     strategies, 2 for the pipeline."""
     out = tmp_path_factory.mktemp("multiproc")
-    collective.spawn(_train_child, 4, (reference, ("scatter_gather", "fused"), str(out)),
+    collective.spawn(_train_child, 4, (ref_inputs, ("scatter_gather", "fused"), str(out)),
                      timeout=SPAWN_TIMEOUT, workdir=str(out))
-    collective.spawn(_train_child, 2, (reference, ("pipeline",), str(out)),
+    collective.spawn(_train_child, 2, (ref_inputs, ("pipeline",), str(out)),
                      timeout=SPAWN_TIMEOUT, workdir=str(out))
     return {s: [torch.load(out / f"{s}_{r}.pt") for r in range(n)]
             for s, (_, n) in CASES.items()}
@@ -669,7 +715,7 @@ def test_local_mesh_and_backend():
         tsh.local_mesh(pod, collective.DataGroup(0, 3, "gloo"))
 
 
-def _torchrun(module, args, cwd, timeout=240):
+def _torchrun(module, args, cwd, timeout=60):
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=os.path.join(repo, "src"), OMP_NUM_THREADS="1")
     for var in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):

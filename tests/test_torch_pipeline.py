@@ -38,6 +38,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the suite runs in xdist workers that share the cores: one intra-op thread each
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -60,17 +62,6 @@ CPU = torch.device("cpu")
 LOGIT_TOL, LOSS_RTOL, GRAD_TOL = 1e-5, 1e-5, 1e-4
 REF_LOGIT_TOL = 1e-4
 SMALL = dict(num_layers=6, d_model=64, vocab=256)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The pipe runs many small ops: one intra-op thread, so that parallel
-    test workers do not oversubscribe the cores (their barriers then cost
-    more than the ops)."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _mesh(data, model):
@@ -402,7 +393,7 @@ def reference_pipeline(tmp_path_factory):
              "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
              "HOME": os.environ.get("HOME", "/tmp"),
              "JAX_PLATFORMS": "cpu"},
-        cwd=repo, timeout=300)
+        cwd=repo, timeout=120)
     assert "REF_PIPELINE_OK" in r.stdout, r.stdout + r.stderr
     return dict(np.load(out))
 

@@ -18,6 +18,8 @@ import functools
 import pytest
 
 torch = pytest.importorskip("torch")
+# the suite runs in xdist workers that share the cores: one intra-op thread each
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 

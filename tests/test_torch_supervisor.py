@@ -13,7 +13,9 @@
   kind, step, steps lost and the error's type (the port's tree has more
   leaves, so the torn write stops at another leaf), the losses within
   1e-5 relative, the skipped set and the latest checkpoint equal; the
-  persistent-NaN refusal after the same events.
+  persistent-NaN refusal after the same events.  Each background
+  checkpoint write starts ``SLOW_WRITE_S`` late in both packages, as in
+  the runs across processes below.
 * Pipeline: one subprocess runs the reference's clean, slowdown and kill
   runs of ``TestSupervisorPipeline`` on 4 fake CPU devices (its own
   ``jax.sharding.Mesh``, Auto axes); the port runs them on ``[cpu] * 4``.
@@ -24,7 +26,8 @@
   devices with the fused plan plus ``kill:step=7,lose=1`` ((2, 2) ->
   (3, 1): batch 4 over 3 data positions), its scatter_gather one on 2
   ((2, 1) -> (1, 1)) and its persistent-NaN refusal on 4, from the same
-  subprocess as the pipeline runs (in both packages each background
+  subprocess as the pipeline runs, which runs beside the port's spawns
+  (in both packages each background
   checkpoint write there starts ``SLOW_WRITE_S`` late, so that the write a
   crash armed after a save kills is that save's, as at full size); the
   port runs each as 4 (2) processes
@@ -52,6 +55,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the suite runs in xdist workers that share the cores: one intra-op thread each
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -99,16 +104,6 @@ class FakeClock:
 exec(CLOCK)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Many small ops: one intra-op thread, so parallel workers do not
-    oversubscribe the cores."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
-
-
 def _init_fn(small):
     """The port's ``init_fn``: the reference's params from PRNGKey(0)."""
     params = jax.tree.map(np.asarray, jtf.init(jax.random.PRNGKey(0),
@@ -145,6 +140,13 @@ def _fused_pair(monkeypatch, tmp_path, spec, **kw):
     jcfg = jget_config("qwen3_0p6b").scaled_down(**FUSED)
     common = dict(steps=kw.pop("steps", 8), seq=16, batch=4, strategy="fused", ckpt_every=2,
                   **kw)
+    # every write starts SLOW_WRITE_S late in both packages, as in the runs
+    # across processes: the write a crash armed after a save kills is that
+    # save's, however loaded the machine (a write that lands first passes
+    # the crash to the next one: another event list)
+    for mod in (jckpt, tckpt):
+        monkeypatch.setattr(mod, "_write", mod._write)
+        slow_writes(mod, SLOW_WRITE_S)
     monkeypatch.setattr(jsup, "time", FakeClock())
     ref = jsup.TrainSupervisor(jcfg, fault_plan=spec(jfaults), ckpt_dir=str(tmp_path / "j"),
                                **common)
@@ -222,6 +224,9 @@ SPMD_RUNS = {
 #: one that dies (a write that already landed passes the crash to the
 #: next, whose failure a restore then finds first: another event list)
 SLOW_WRITE_S = 0.3
+#: limits on the reference's subprocess and on each spawn of the runs
+#: across processes, near their measured times
+REF_TIMEOUT, SPAWN_TIMEOUT = 300, 100
 SLOW_WRITES = r"""
 import time as _time
 
@@ -287,22 +292,40 @@ print("REF_SUPERVISOR_OK")
 
 
 @pytest.fixture(scope="module")
-def reference_runs(tmp_path_factory):
-    """The reference's three pipeline runs from one 4-fake-device
-    subprocess (the device override must not leak into this process)."""
+def reference_proc(tmp_path_factory):
+    """The reference's pipeline and SPMD runs in one 4-fake-device
+    subprocess (the device override must not leak into this process),
+    started here so that it overlaps the port's runs across processes.
+    Yields (process, results path, log path)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    out = tmp_path_factory.mktemp("ref_supervisor") / "ref.json"
+    tmp = tmp_path_factory.mktemp("ref_supervisor")
+    out, log = tmp / "ref.json", tmp / "ref.log"
     code = (f"CLOCK = {CLOCK!r}\nPIPE = {PIPE!r}\nRUNS = {PIPE_RUNS!r}\nFUSED = {FUSED!r}\n"
             f"SPMD_RUNS = {SPMD_RUNS!r}\nSLOW_WRITES = {SLOW_WRITES!r}\n"
             f"SLOW_WRITE_S = {SLOW_WRITE_S!r}\n" + _REF_SCRIPT)
-    r = subprocess.run(
-        [sys.executable, "-c", code, str(out)], capture_output=True, text=True,
-        env={"PYTHONPATH": os.path.join(repo, "src"),
-             "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
-             "HOME": os.environ.get("HOME", "/tmp"),
-             "JAX_PLATFORMS": "cpu"},
-        cwd=repo, timeout=400)
-    assert "REF_SUPERVISOR_OK" in r.stdout, r.stdout + r.stderr
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", code, str(out)], stdout=f, stderr=subprocess.STDOUT,
+            text=True, cwd=repo,
+            env={"PYTHONPATH": os.path.join(repo, "src"),
+                 "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
+                 "HOME": os.environ.get("HOME", "/tmp"),
+                 "JAX_PLATFORMS": "cpu"})
+    try:
+        yield proc, out, log
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(10)
+
+
+@pytest.fixture(scope="module")
+def reference_runs(reference_proc, spmd_runs):
+    """The reference's runs, once its subprocess ends (after the port's
+    runs across processes, which overlap it)."""
+    proc, out, log = reference_proc
+    proc.wait(REF_TIMEOUT)
+    assert "REF_SUPERVISOR_OK" in log.read_text(), log.read_text()
     with open(out) as f:
         return json.load(f)
 
@@ -379,7 +402,8 @@ def spmd_runs(tmp_path_factory):
     out = {}
     for n in (4, 2):
         names = [k for k, v in SPMD_RUNS.items() if v[1] == n]
-        collective.spawn(_spmd_child, n, (names, str(root)), timeout=300, workdir=str(root))
+        collective.spawn(_spmd_child, n, (names, str(root)), timeout=SPAWN_TIMEOUT,
+                         workdir=str(root))
         for r in range(n):
             with open(root / f"spmd_{r}.json") as f:
                 for name, rec in json.load(f).items():

@@ -9,6 +9,8 @@ their cases from this module's ``SHAPES``.
 import pytest
 
 torch = pytest.importorskip("torch")
+# the suite runs in xdist workers that share the cores: one intra-op thread each
+torch.set_num_threads(1)
 
 from test_torch_tp import (  # noqa: E402,F401  (fixtures and tests collected here)
     one_process,
