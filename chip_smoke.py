@@ -91,7 +91,12 @@ qwen3_0p6b (f32, random weights from seed 0):
   qwen3_0p6b at full width (14 layers), f32, B 2 x 512, two train steps
   under ai_core_assignment (1, 2) and fused (2, 2), loss and grad norm
   within 1e-5 of the same rows in one process, params within 1e-4, flash
-  launches exact, placed bytes equal to the stand-in's, then the static
+  launches exact, placed bytes equal to the stand-in's, on (1, 2) one
+  more step under ``launch.counters.Counters`` (flops and collective bytes
+  by kind equal to the dry-run stand-in's kernel-route record of the same
+  cell, rank 0 of a fake world on ``meta``; the card's memory growth over
+  the step within 10 % of the stand-in's output + temp bytes, the ratio
+  printed), then the static
   path on (1, 2) (tokens equal under the margin rule, decode launches
   exact at 8 / 4 heads); deepseek_v2_236b's static path at the ``[moe]``
   depth under ai_core_assignment (1, 2), tokens equal to the one-process
@@ -104,6 +109,10 @@ qwen3_0p6b (f32, random weights from seed 0):
   ``generate`` after 256 patch embeddings; the same gates (params where
   every step's update is decided), flash / decode / dequant launches and
   the caches' KV and SSM state heads a process exact;
+* the dry-run stand-in's kernel routes (``[dryrun]``, after ``[tp]``):
+  flash, dense decode, the paged kernel, the dequant GEMM and the ALU at
+  one main-path shape each on ``meta`` against their CUDA calls, the
+  bytes they allocate and the work they report equal;
 * the VTA path: ResNet-18's convolutions (batch 1, 224 x 224) as int8
   GEMMs through ``ops.vta_conv2d`` and ``ops.dense_requant_int8``, the
   conv weights packed K-major by ``ops.pack_conv_weight``;
@@ -351,55 +360,33 @@ def bound_ms(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def flash_work(b, s, h, hkv, d, dv, q_offset, kv_len, esize, window=0, bidirectional=False):
-    """Operations and bytes one flash call needs: every visible (query,
-    key) pair costs 2*D + 2*Dv (bidirectional: every query sees every live
-    key); q and the live K/V (of a window: the keys some query sees) are
-    read once, the output written once."""
-    lo = (lambda p: max(0, p - window + 1)) if window else (lambda p: 0)
-    if bidirectional:
-        pairs, keys = s * kv_len, kv_len
-    else:
-        pairs = sum(min(q_offset + i + 1, kv_len) - lo(q_offset + i) for i in range(s))
-        keys = kv_len - lo(q_offset)
-    flops = b * h * pairs * 2 * (d + dv)
-    nbytes = esize * (b * s * h * d + b * keys * hkv * (d + dv) + b * s * h * dv)
-    return flops, nbytes
+def flash_work(*args, **kw):
+    """``kernels.flash_attention.flash_work``: the formula the bounds here
+    and the dry-run's counters share."""
+    from repro_torch.kernels.flash_attention import flash_work as work
+
+    return work(*args, **kw)
 
 
-def decode_work(b, h, hkv, d, dv, kv_len, esize, shared=False):
-    """Operations and bytes one dense decode call needs: each query head
-    scores the live keys (2*D + 2*Dv a key); q and the live K/V rows are
-    read once (a ``shared`` cache, V the leading columns of K's rows, once:
-    D columns a key), the output written once."""
-    flops = b * h * kv_len * 2 * (d + dv)
-    nbytes = esize * (b * h * d + b * kv_len * hkv * (d if shared else d + dv) + b * h * dv)
-    return flops, nbytes
+def decode_work(*args, **kw):
+    """``kernels.decode_attention.decode_work`` (as :func:`flash_work`)."""
+    from repro_torch.kernels.decode_attention import decode_work as work
+
+    return work(*args, **kw)
 
 
-def paged_work(b, s, h, hkv, d, dv, kv_lens, esize, pages_per_seq, kv_esize=None,
-               shared=False, pg=16):
-    """Operations and bytes one paged call needs: each query row scores
-    every key of its sequence's live span; q, the live K/V rows, the
-    block table and lengths are read once, the output written once.
-    ``kv_esize`` is the pages' element size where it is not q's (int8
-    pages also read two f32 scales a live page and head); a ``shared`` pool
-    (MLA's keys and values in one) is read once, D columns a key."""
-    kv_esize = esize if kv_esize is None else kv_esize
-    keys = sum(kv_lens)
-    flops = s * h * keys * 2 * (d + dv)
-    pages = sum(-(-n // pg) for n in kv_lens) if kv_esize == 1 else 0
-    nbytes = (esize * (b * s * h * d + b * s * h * dv)
-              + kv_esize * keys * hkv * (d if shared else d + dv)
-              + 4 * (b * pages_per_seq + b) + 8 * hkv * pages)
-    return flops, nbytes
+def paged_work(*args, **kw):
+    """``kernels.decode_attention.paged_work`` (as :func:`flash_work`)."""
+    from repro_torch.kernels.decode_attention import paged_work as work
+
+    return work(*args, **kw)
 
 
-def gemm_work(m, k, n, out_bytes, extra_bytes=0):
-    """Operations and bytes one int8 GEMM call needs: 2*M*N*K operations;
-    a and w read once (int8), the output written once, plus its
-    per-column vectors."""
-    return 2 * m * n * k, m * k + k * n + out_bytes * m * n + extra_bytes
+def gemm_work(*args, **kw):
+    """``kernels.vta_gemm.gemm_work`` (as :func:`flash_work`)."""
+    from repro_torch.kernels.vta_gemm import gemm_work as work
+
+    return work(*args, **kw)
 
 
 def paged_inputs(torch, gen, dev, dtype, b, s, h, hkv, d, w, pg, kv_lens, int8=False,
@@ -1193,9 +1180,10 @@ def alu_phase(torch, gen, dev, operands):
 
 def time_alu(torch, pairs):
     """Each ALU op at the four accumulators' shapes and on the int8 x:
-    kernel, plain version, the one-call PyTorch counterpart and the byte
-    bound (each operand read once, the int32 output written once: 12 bytes
-    per element binary and 8 unary on int32 operands), device time of
+    kernel, plain version, the one-call PyTorch counterpart and the bound
+    (``kernels.vta_alu.alu_work``: each operand read once, the int32 output
+    written once, 12 bytes per element binary and 8 unary on int32
+    operands, and one operation an element), device time of
     CUDA-graph replays.  Each is timed on operands cycled past the L2
     (``cold_copies``, each call's output kept), the reading the byte bound
     at the HBM rate applies to; kernel and torch also on one pair of
@@ -1203,7 +1191,7 @@ def time_alu(torch, pairs):
     where the GEMM has just written them.  Returns the binary and unary
     rows at the stem accumulator (M 12544, N 64), each the mean over its
     ops of the cycled readings."""
-    from repro_torch.kernels.vta_alu import _BINARY, vta_alu, vta_alu_ref
+    from repro_torch.kernels.vta_alu import _BINARY, alu_work, vta_alu, vta_alu_ref
 
     library = {"add": lambda x, y, kw: torch.add(x, y),
                "max": lambda x, y, kw: torch.maximum(x, y),
@@ -1217,8 +1205,8 @@ def time_alu(torch, pairs):
     for pi, (name, x, y) in enumerate(timed):
         for op, kw in ALU_TIMED.items():
             yy = y if op in _BINARY else None
-            nbytes = (x.element_size() + 4 + (yy.element_size() if yy is not None else 0)
-                      ) * x.numel()
+            ops, nbytes = alu_work(x.numel(), x.element_size(),
+                                   yy.element_size() if yy is not None else 0)
             n = cold_copies(nbytes)
             xs = [x.clone() for _ in range(n)]
             ys = [yy.clone() if yy is not None else None for _ in range(n)]
@@ -1231,7 +1219,7 @@ def time_alu(torch, pairs):
             del xs, ys
             warm = graph_ms(torch, lambda _: vta_alu(x, yy, op=op, **kw))
             warm_lib = graph_ms(torch, lambda _: library[op](x, yy, kw))
-            bnd, by = bound_ms(0, nbytes, "int8")
+            bnd, by = bound_ms(ops, nbytes, "int8")
             where = "past the L2" if n * nbytes >= COLD_BYTES else "(all in the L2)"
             log(f"[time] vta_alu {op} {name}: operands cycled {where} ({n} copies, "
                 f"{n * nbytes / 1e6:.1f} MB): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
@@ -3457,7 +3445,8 @@ def train_ft_phase(torch, params, cfg, dev, card: str) -> int:
 
 
 # the [train-ft-multi] phase: TrainSupervisor across processes, qwen3_0p6b at
-# full width and [tp]'s depth (MULTI_LAYERS), f32, B 4 x 512 (flash runs),
+# full width and [train-ft]'s depth (FT_MULTI_LAYERS, cut 14 -> 8 for run
+# time: the phase took 186 s of a 1080 s run at 14), f32, B 4 x 512 (flash runs),
 # 4 gloo processes sharing the card under fused: (2, 2), one process per mesh
 # position, until a kill leaves (3, 1), one per data position over 3 of the 4
 # (batch 4 computed whole by each); checkpoints every 2 steps (process 0
@@ -3469,6 +3458,7 @@ def train_ft_phase(torch, params, cfg, dev, card: str) -> int:
 # at depends on the disk: armed at step 1 it took the step-0 anchor's write
 # on the card)
 FT_MULTI_PROCS, FT_MULTI_STEPS = 4, 5
+FT_MULTI_LAYERS = FT_LAYERS
 FT_MULTI_PLAN = "nan:step=1;ckpt_crash:step=2;kill:step=4,lose=1"
 # losses against the one-process supervisor on a 4-entry mesh of the card
 FT_MULTI_TOL = 1e-5
@@ -4479,6 +4469,10 @@ TP_PARAM_TOL = 1e-4
 # undecided count and the worst element over all are printed
 TP_GRAD_FLOOR, TP_TIE = 1e-6, 0.5
 TP_TIMEOUT = 600
+# the qwen3 (1, 2) training task's one counted step (after its warm-up
+# steps): its memory growth on the card held to the dry-run stand-in's
+# output + temp bytes within this fraction
+TP_MEM_TOL = 0.10
 # deepseek_v2_236b static under ai_core_assignment on (1, 2) at the [moe]
 # phase's depth and shapes (MOE_STATIC); mixtral_8x22b training across 2
 # processes (EP: 4 experts a process) at depth 1 (2.9e9 params).  In f32 its
@@ -4784,6 +4778,8 @@ def tp_task(torch, task, ctx):
             st.adamw.apply = apply
         rec["steps"] = steps
         rec["peak_gib"] = peak_gib()
+        if task.get("count"):
+            rec["counted"] = tp_counted_step(torch, step, state, batches[0], ctx, sync)
         mine = state["params"]
         del state, step
         free()
@@ -4864,6 +4860,76 @@ def tp_task(torch, task, ctx):
             free()
         rec["serve"] = serve
     return rec
+
+
+def tp_counted_step(torch, step, state, batch, ctx, sync) -> dict:
+    """One more train step, after the task's warm-up steps, under
+    ``launch.counters.Counters``: its record (flops, collective bytes by
+    kind, ...) with ``growth``, the card's ``max_memory_allocated`` over the
+    step (after ``reset_peak_memory_stats``) minus the bytes live before
+    it.  Its result is dropped; its launches are none of the phase's."""
+    from repro_torch.dist import collective
+    from repro_torch.launch.counters import Counters
+
+    cuda = ctx["dev"].type == "cuda"
+    sync()
+    collective.barrier(ctx["model"], ctx["data"])
+    before = torch.cuda.memory_allocated() if cuda else 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with Counters(args=(state, batch)) as c:
+        out = step(state, batch)
+    sync()
+    growth = torch.cuda.max_memory_allocated() - before if cuda else 0
+    rec = dict(c.record(out), growth=growth, before=before)
+    del out
+    reset_counts()
+    return rec
+
+
+def tp_stand_in(torch, cfg, strategy: str, shape) -> dict:
+    """The dry-run stand-in's kernel-route record (``launch.dryrun.
+    run_position``, rank 0 of a fake world on ``meta``) of [tp]'s counted
+    train step: ``cfg`` in f32, the global batch of ``TP_BATCH`` x
+    ``TP_SEQ`` int64 tokens, ``strategy`` on a ``shape`` mesh; with
+    ``stand_in``, its ``output_bytes + temp_bytes``."""
+    import math
+
+    from repro_torch.dist.sharding import data_specs
+    from repro_torch.ft.elastic import state_shardings
+    from repro_torch.launch import dryrun
+    from repro_torch.train.step import init_state
+
+    mesh = _tp_mesh(torch, ["meta"] * math.prod(shape), shape)
+    state = init_state(cfg, generator=torch.Generator(), dtype=torch.float32,
+                       moments_dtype=torch.float32, device="meta")
+    batch = {"tokens": torch.empty((TP_BATCH, TP_SEQ + 1), dtype=torch.long, device="meta")}
+    cell = dryrun.Cell("train", (state, batch),
+                       (state_shardings(state, mesh, strategy), data_specs(batch, mesh)))
+    rec = dryrun.run_position(cfg, cell, mesh, strategy, route="kernel")
+    # the record's algebra: per_device - arg_bytes, the peak over the held arguments
+    rec["stand_in"] = rec["peak_bytes"] + rec["held_ints"] - rec["arg_bytes"]
+    return rec
+
+
+def tp_check_counted(label: str, got: dict, want: dict, card: str) -> None:
+    """[tp]'s counted step against the stand-in: flops and collective bytes
+    by kind equal, the card's memory growth within ``TP_MEM_TOL`` of the
+    stand-in's ``output_bytes + temp_bytes``."""
+    ratio = got["growth"] / want["stand_in"]
+    log(f"[tp] {label} counted step on {card}: flops {got['flops']:.6g} (stand-in "
+        f"{want['flops']:.6g}), collective bytes {got['collective_bytes']} (stand-in "
+        f"{want['collective_bytes']}), bytes accessed {got['bytes_accessed']:.6g} (stand-in "
+        f"{want['bytes_accessed']:.6g}), kernel calls {got['kernel_calls']} (stand-in "
+        f"{want['kernel_calls']}); memory growth {got['growth']} B over {got['before']} B live "
+        f"before, stand-in output + temp {want['stand_in']} B: ratio {ratio:.4f}")
+    check(got["flops"] == want["flops"],
+          f"[tp] {label}: flops {got['flops']} != stand-in {want['flops']}")
+    check(got["collective_bytes"] == want["collective_bytes"],
+          f"[tp] {label}: collective bytes {got['collective_bytes']} != stand-in "
+          f"{want['collective_bytes']}")
+    check(abs(ratio - 1) <= TP_MEM_TOL,
+          f"[tp] {label}: memory growth / stand-in {ratio:.4f} outside 1 +- {TP_MEM_TOL}")
 
 
 def tp_spawn(torch, label: str, job: dict) -> list:
@@ -5097,7 +5163,7 @@ def tp_phase(torch, dev, card: str, configs=None) -> dict:
     qwen_tasks = {
         (1, 2): dict(kind="train", cfg=qwen, strategy="ai_core_assignment", seq=TP_SEQ,
                      batch=TP_BATCH, steps=TP_STEPS, serve=(TP_BATCH, TP_SEQ, TP_SEQ, TP_NEW),
-                     compare=True),
+                     compare=True, count=True),
         (2, 2): dict(kind="train", cfg=qwen, strategy="fused", seq=TP_SEQ, batch=TP_BATCH,
                      steps=TP_STEPS, compare=True)}
     pairs, fused = tp_family_tasks(config)
@@ -5132,7 +5198,7 @@ def tp_phase(torch, dev, card: str, configs=None) -> dict:
                     f"{label} {task['compress']} compressor", recs, 2 * cfg.num_layers, card,
                     params=False)
             elif cfg is qwen:
-                tp_check_qwen(label, recs, shape, qwen, card, total)
+                tp_check_qwen(torch, label, recs, shape, qwen, card, total, task["strategy"])
             elif cfg is moe["deepseek_v2_236b"]:
                 tp_check_deepseek(recs, cfg, card, total)
             elif cfg is moe["mixtral_8x22b"]:
@@ -5144,11 +5210,15 @@ def tp_phase(torch, dev, card: str, configs=None) -> dict:
     return {"launches": total, "errs": errs}
 
 
-def tp_check_qwen(label, recs, shape, qwen, card, total) -> None:
-    """The qwen3 job's gates: training, then on (1, 2) the static path."""
+def tp_check_qwen(torch, label, recs, shape, qwen, card, total, strategy) -> None:
+    """The qwen3 job's gates: training (on (1, 2) its counted step against
+    the dry-run stand-in), then on (1, 2) the static path."""
     L = qwen.num_layers
     # each process computes its rows' forward and the remat recompute
     total["flash_attention"] += tp_check_train(label, recs, 2 * L, card)
+    if "counted" in recs[0]:
+        tp_check_counted(label, recs[0]["counted"],
+                         tp_stand_in(torch, qwen, strategy, shape), card)
     if "serve" not in recs[0]:
         return
     sv = [r["serve"] for r in recs]
@@ -5311,6 +5381,68 @@ def tp_check_family(task, recs, shape, card, total) -> None:
         f"{sv[0]['collectives']} calls, {sv[0]['collective_ms']:.1f} ms; launches a process "
         f"{expect} at {kv} KV / {ssm} SSM heads; peak device memory a process "
         f"{[round(s['peak_gib'], 2) for s in sv]} GiB; on {card}")
+
+
+def dryrun_phase(torch, dev, card: str) -> None:
+    """``[dryrun]``: each kernel wrapper's ``meta`` route (the dry-run
+    stand-in's, ``launch.dryrun``) against its CUDA call at one main-path
+    shape each: flash at the static path's last chunk, dense decode at its
+    middle step, the paged kernel at the engine's 8 slots, the dequant GEMM
+    at one prefill chunk's ``w_up``, the ALU's add at ResNet-18's stem
+    accumulator.  Around one call on each device (after a warm CUDA call:
+    the build, the decode kernels' arrival counters, which persist),
+    ``launch.counters.Counters`` counts the bytes of the storages the call
+    makes and the analytic work it reports: equal on both, and so are the
+    outputs' shapes and dtypes."""
+    from repro_torch.kernels.decode_attention import decode_attention, paged_decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.vta_alu import vta_alu
+    from repro_torch.kernels.vta_gemm import vta_gemm
+    from repro_torch.launch.counters import Counters
+
+    gen = torch.Generator(device=dev).manual_seed(2828)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    paged_args, paged_kw = paged_inputs(torch, gen, dev, torch.float32, 8, 1, 16, 8, 128,
+                                        128, ENGINE["page_size"], ENGINE_LENS)
+    ints = [torch.randint(-2 ** 20, 2 ** 20, (12544, 64), generator=gen, device=dev,
+                          dtype=torch.int32) for _ in range(2)]
+    cases = {
+        "flash_attention": (flash_attention, (rn(BATCH, CHUNK, 16, 128),
+                                              rn(BATCH, PROMPT, 8, 128), rn(BATCH, PROMPT, 8, 128)),
+                            dict(q_offset=PROMPT - CHUNK, kv_len=PROMPT)),
+        "decode_attention": (decode_attention, (rn(BATCH, 1, 16, 128),
+                                                rn(BATCH, DECODE_KV + 16, 8, 128),
+                                                rn(BATCH, DECODE_KV + 16, 8, 128)),
+                             dict(kv_len=DECODE_KV)),
+        "paged_decode_attention": (paged_decode_attention, paged_args, paged_kw),
+        "vta_gemm_dequant": (vta_gemm, (int8_operands(torch, gen, dev, CHUNK, 1024),
+                                        int8_operands(torch, gen, dev, 3072, 1024).T),
+                             dict(scale=rn(3072), epilogue="dequant")),
+        "vta_alu_add": (vta_alu, tuple(ints), dict(op="add")),
+    }
+    for name, (fn, args, kw) in cases.items():
+        fn(*args, **kw)
+        torch.cuda.synchronize()
+        got = {}
+        for where in ("cuda", "meta"):
+            a, k = args, kw
+            if where == "meta":
+                a = tuple(x.to("meta") for x in args)
+                k = {n: v.to("meta") if isinstance(v, torch.Tensor) else v for n, v in kw.items()}
+            with Counters(args=(a, k)) as c:
+                out = fn(*a, **k)
+            got[where] = dict(allocated=c.allocated, flops=c.kernel_flops,
+                              bytes=c.kernel_bytes, shape=tuple(out.shape), dtype=str(out.dtype))
+            del out
+        check(got["cuda"] == got["meta"],
+              f"[dryrun] {name}: meta route {got['meta']} != CUDA call {got['cuda']}")
+        log(f"[dryrun] {name} on {card}: the meta route allocates {got['meta']['allocated']} B "
+            f"and reports {got['meta']['flops']:.6g} operations, {got['meta']['bytes']:.6g} B, "
+            f"as the CUDA call ({got['cuda']['allocated']} B)")
+    torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------
@@ -5763,7 +5895,7 @@ def main() -> int:
     n_multi_decode = multi["decode_attention"]
     lap("multi")
     n_train_flash += train_ft_multi_phase(
-        torch, dataclasses.replace(cfg, num_layers=MULTI_LAYERS), dev, f"{kind} ({smi})")
+        torch, dataclasses.replace(cfg, num_layers=FT_MULTI_LAYERS), dev, f"{kind} ({smi})")
     lap("train-ft-multi")
     check(layers.attention_impl() == "auto" and layers.gemm_impl() == "auto"
           and layers.tuning_table() is None,
@@ -5904,6 +6036,8 @@ def main() -> int:
     for name, err in tp["errs"].items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
     lap("tp")
+    dryrun_phase(torch, dev, f"{kind} ({smi})")
+    lap("dryrun")
 
     # ---- the remaining families: mamba2, zamba2, seamless, internvl2 ----------
     # the kernels at the families' new shapes first, then the models

@@ -28,7 +28,9 @@ The backend follows the layout, never a failure:
   * ``gloo`` when the processes' devices are CPUs;
   * ``nccl`` when every process owns distinct CUDA devices;
   * ``gloo`` when processes share a card (NCCL refuses two ranks on one
-    GPU).
+    GPU);
+  * ``fake`` for the dry-run stand-in (:func:`fake_world`: one process
+    runs one position of a world of any size on ``meta``).
 
 Every backend runs the same collectives: a bucketed ``all_reduce`` for
 replicated leaves, ``all_gather_into_tensor`` and ``reduce_scatter_tensor``
@@ -162,6 +164,28 @@ def init_world(backend: str, *, init_method: str | None = None, rank: int,
     dist.init_process_group(backend, init_method=init_method or "env://", rank=rank,
                             world_size=world_size, timeout=TIMEOUT)
     return DataGroup(rank, world_size, backend)
+
+
+#: the backend of a world of one process standing in for many (``fake``:
+#: collectives return at once, their outputs' shapes only), which the
+#: dry-run stand-in runs one mesh position in; neither ``nccl`` nor ``gloo``,
+#: so a collective runs where its tensor is, with no host staging
+FAKE = "fake"
+
+
+def fake_world(world_size: int) -> DataGroup:
+    """A world of ``world_size`` positions over the ``fake`` backend in
+    this one process, as rank 0: the default group, as a group.  A
+    process that already has a default group raises ``RuntimeError``
+    naming it; :func:`close` ends the world."""
+    if dist.is_initialized():
+        raise RuntimeError(f"a fake world of {world_size} needs a process with no default "
+                           f"group; this one is rank {dist.get_rank()} of "
+                           f"{dist.get_world_size()} over {dist.get_backend()}")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group(FAKE, store=FakeStore(), rank=0, world_size=world_size)
+    return DataGroup(0, world_size, FAKE)
 
 
 def subgroups(mesh, rank: int, backend: str, per_position: bool):

@@ -26,6 +26,12 @@ KERNELS = ("flash_attention", "decode_attention", "paged_decode_attention", "vta
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _SMS: dict[int, int] = {}
+#: SMs of an NVIDIA H100 SXM: what a wrapper plans with on a ``meta`` tensor,
+#: the card the dry-run stand-in predicts
+H100_SMS = 132
+#: listeners of the kernels' analytic work (``launch.counters``), each called
+#: as ``fn(name, flops, nbytes)`` (:func:`note_work`)
+WORK_LISTENERS: list = []
 
 
 def _nvcc() -> str:
@@ -93,9 +99,11 @@ def load(name: str) -> ctypes.CDLL:
 
 def sm_count(device) -> int:
     """The number of SMs of CUDA ``device`` (a ``torch.device``), looked up
-    once per device."""
+    once per device; an H100's for ``meta``."""
     import torch
 
+    if device.type == "meta":
+        return H100_SMS
     idx = device.index if device.index is not None else torch.cuda.current_device()
     sms = _SMS.get(idx)
     if sms is None:
@@ -144,3 +152,11 @@ def refuse_grad(what: str, *tensors) -> None:
             isinstance(x, torch.Tensor) and x.requires_grad for x in tensors):
         raise ValueError(f"{what}: the kernel has no backward; call it under "
                          f"torch.no_grad() or on tensors that do not require grad")
+
+
+def note_work(name: str, flops: float, nbytes: float) -> None:
+    """Tell every listener (:data:`WORK_LISTENERS`) the analytic operations
+    and bytes of one call of kernel ``name``: where its wrapper launches it,
+    and where a ``meta`` tensor stands in for the launch."""
+    for fn in WORK_LISTENERS:
+        fn(name, flops, nbytes)

@@ -16,6 +16,14 @@ decode or S > 1 speculative verify, float or int8 pages.  On a CUDA tensor
 it launches ``csrc/paged_decode_attention.cu`` or raises; on a CPU tensor
 it runs ``paged_decode_attention_ref``.  ``paged_partition_counts`` is the
 oracle of its per-page execution map.
+
+On a ``meta`` tensor (the dry-run stand-in, ``launch.dryrun``) each wrapper
+runs everything but the launch: its checks, its plan (at an H100's SM
+count) and the allocation of its output and split-KV partials, and it
+tells ``launch.counters`` the call's analytic work (:func:`decode_work`,
+:func:`paged_work`, as it does where it launches); it counts no launch.
+The arrival counters (``_arrive``) are made once per stream and kept, so
+a ``meta`` call makes none.
 """
 
 from __future__ import annotations
@@ -62,6 +70,36 @@ def decode_partition_counts(t: int, kv_len: int, *,
     kv-head) decode step."""
     m = decode_partition_map(t, kv_len, block_k=block_k, window=window)
     return int(m.sum()), m.numel()
+
+
+def decode_work(b, h, hkv, d, dv, kv_len, esize, shared=False, window=0) -> tuple[int, int]:
+    """Operations and bytes one dense decode call needs: each query head
+    scores the live keys (the last ``window`` of them with a window; 2*D +
+    2*Dv a key); q and the live K/V rows are read once (a ``shared``
+    cache, V the leading columns of K's rows, once: D columns a key), the
+    output written once."""
+    keys = min(kv_len, window) if window else kv_len
+    flops = b * h * keys * 2 * (d + dv)
+    nbytes = esize * (b * h * d + b * keys * hkv * (d if shared else d + dv) + b * h * dv)
+    return flops, nbytes
+
+
+def paged_work(b, s, h, hkv, d, dv, kv_lens, esize, pages_per_seq, kv_esize=None,
+               shared=False, pg=16) -> tuple[int, int]:
+    """Operations and bytes one paged call needs: each query row scores
+    every key of its sequence's live span; q, the live K/V rows, the
+    block table and lengths are read once, the output written once.
+    ``kv_esize`` is the pages' element size where it is not q's (int8
+    pages also read two f32 scales a live page and head); a ``shared`` pool
+    (MLA's keys and values in one) is read once, D columns a key."""
+    kv_esize = esize if kv_esize is None else kv_esize
+    keys = sum(kv_lens)
+    flops = s * h * keys * 2 * (d + dv)
+    pages = sum(-(-n // pg) for n in kv_lens) if kv_esize == 1 else 0
+    nbytes = (esize * (b * s * h * d + b * s * h * dv)
+              + kv_esize * keys * hkv * (d if shared else d + dv)
+              + 4 * (b * pages_per_seq + b) + 8 * hkv * pages)
+    return flops, nbytes
 
 
 def combine_partitions(o_part, m_part, l_part):
@@ -295,9 +333,14 @@ def decode_plan(b: int, h: int, hkv: int, t: int, d: int, dv: int, esize: int,
 
 def _shares_rows(k, v) -> bool:
     """v is the leading columns of k's own rows (MLA's one latent cache):
-    the kernel reads the values from the copied K rows."""
-    return (v.data_ptr() == k.data_ptr() and v.stride() == k.stride()
-            and v.shape[-1] <= k.shape[-1])
+    the kernel reads the values from the copied K rows.  A ``meta`` tensor
+    has no address: its storage and offset stand in."""
+    if k.device.type == "meta":
+        same = (v.untyped_storage()._cdata == k.untyped_storage()._cdata
+                and v.storage_offset() == k.storage_offset())
+    else:
+        same = v.data_ptr() == k.data_ptr()
+    return same and v.stride() == k.stride() and v.shape[-1] <= k.shape[-1]
 
 
 def decode_attention(q, k, v, *, kv_len: int, window: int = 0,
@@ -314,7 +357,7 @@ def decode_attention(q, k, v, *, kv_len: int, window: int = 0,
         return decode_attention_ref(q, k, v, kv_len=kv_len, window=window,
                                     scale=scale, block_k=block_k,
                                     return_counts=return_counts)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"decode_attention runs on cuda or cpu, not {q.device}")
     _build.refuse_grad("decode_attention", q, k, v)
     b, _, h, d = q.shape
@@ -333,11 +376,15 @@ def decode_attention(q, k, v, *, kv_len: int, window: int = 0,
     if plan is None:
         plan = _DECODE_PLANS[key] = decode_plan(b, h, hkv, t, d, dv, q.element_size(),
                                                 shared, _build.sm_count(dev))
-    lib = _lib()
     out = torch.empty((b, 1, h, dv), dtype=q.dtype, device=dev)
     part = torch.empty(b * hkv * plan["nspan"] * g * (dv + 2), dtype=torch.float32, device=dev)
     counts = (torch.empty((b, hkv, np_), dtype=torch.int32, device=dev)
               if return_counts else None)
+    work = decode_work(b, h, hkv, d, dv, kvlen, q.element_size(), shared, int(window))
+    if dev.type == "meta":
+        _build.note_work("decode_attention", *work)
+        return (out, counts) if return_counts else out
+    lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     arrive = _arrive(lib.decode_attention_capture_id, dev, stream, b * hkv * plan["groups"])
     rc = lib.decode_attention_fwd(
@@ -350,6 +397,7 @@ def decode_attention(q, k, v, *, kv_len: int, window: int = 0,
         kvlen, int(window), kc, float(scale if scale is not None else d ** -0.5), stream)
     _build.check(rc, "decode_attention", lib.decode_attention_error_string)
     decode_attention.launches += 1
+    _build.note_work("decode_attention", *work)
     return (out, counts) if return_counts else out
 
 
@@ -583,7 +631,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens, *,
         return paged_decode_attention_ref(
             q, k_pages, v_pages, block_tables, kv_lens, window=window, scale=scale,
             dv=dv, k_scales=k_scales, v_scales=v_scales, return_counts=return_counts)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"paged_decode_attention runs on cuda or cpu, not {q.device}")
     _build.refuse_grad("paged_decode_attention", q, k_pages, v_pages, k_scales, v_scales)
     b, s, h, d = q.shape
@@ -605,7 +653,6 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens, *,
     lens = kv_lens.to(torch.int32).contiguous()
     scales = [x.float().contiguous() if x is not None else None
               for x in (k_scales, v_scales)]
-    lib = _paged_lib()
     nspan = plan["nspan"]
     out = torch.empty((b, s, h, dv), dtype=q.dtype, device=dev)
     o_part = torch.empty((b, hkv, nspan, rows, dv), dtype=torch.float32, device=dev)
@@ -613,6 +660,14 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens, *,
     l_part = torch.empty((b, hkv, nspan, rows), dtype=torch.float32, device=dev)
     counts = (torch.empty((b, hkv, max_pp), dtype=torch.int32, device=dev)
               if return_counts else None)
+    # the lengths stay on the device (reading them would synchronise): the
+    # work is counted with every sequence at its table's capacity
+    work = paged_work(b, s, h, hkv, d, dv, [max_pp * pg] * b, q.element_size(), max_pp,
+                      k_pages.element_size(), _shares_rows(k_pages, v_pages), pg)
+    if dev.type == "meta":
+        _build.note_work("paged_decode_attention", *work)
+        return (out, counts) if return_counts else out
+    lib = _paged_lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     arrive = _arrive(lib.paged_decode_attention_capture_id, dev, stream,
                      b * hkv * plan["tiles"])
@@ -630,6 +685,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens, *,
         int(window), float(scale if scale is not None else d ** -0.5), stream)
     _build.check(rc, "paged_decode_attention", lib.paged_decode_attention_error_string)
     paged_decode_attention.launches += 1
+    _build.note_work("paged_decode_attention", *work)
     return (out, counts) if return_counts else out
 
 

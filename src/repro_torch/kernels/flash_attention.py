@@ -10,6 +10,12 @@ version, ``flash_attention_ref``.  ``q_offset`` and ``kv_len`` are host
 ints here: the serving cache keeps its length on the host, so no launch
 waits on the device to read them.
 
+On a ``meta`` tensor (the dry-run stand-in, ``launch.dryrun``) the wrapper
+runs everything but the launch: the checks it makes on the card and the
+allocation of its output, and it tells ``launch.counters`` the call's
+analytic work (:func:`flash_work`, as it does where it launches); it
+counts no launch.
+
 The wrapper writes its output through a raw pointer, so autograd sees no
 path from it to q, k and v; it refuses inputs that require grad while
 grad is enabled.  ``flash_attention_diff`` is the differentiable route,
@@ -116,6 +122,44 @@ def flash_tile_counts(s: int, t: int, *, block_q: int = DEFAULT_BLOCK_Q,
                        q_offset=q_offset, window=window,
                        bidirectional=bidirectional, kv_len=kv_len)
     return int(m.sum()), m.numel()
+
+
+def _sum_min(a: int, b: int, cap: int) -> int:
+    """sum(min(x, cap) for x in range(a, b + 1))."""
+    if b < a:
+        return 0
+    if cap >= b:
+        return (a + b) * (b - a + 1) // 2
+    if cap < a:
+        return cap * (b - a + 1)
+    return (a + cap) * (cap - a + 1) // 2 + cap * (b - cap)
+
+
+def _sum_pos(a: int, b: int) -> int:
+    """sum(max(x, 0) for x in range(a, b + 1))."""
+    a = max(a, 1)
+    return (a + b) * (b - a + 1) // 2 if b >= a else 0
+
+
+def flash_work(b, s, h, hkv, d, dv, q_offset, kv_len, esize, window=0,
+               bidirectional=False) -> tuple[int, int]:
+    """Operations and bytes one flash call needs: every visible (query,
+    key) pair costs 2*D + 2*Dv (bidirectional: every query sees every live
+    key); q and the live K/V (of a window: the keys some query sees) are
+    read once, the output written once.  The query at ``p`` sees keys
+    ``[max(0, p - window + 1), min(p + 1, kv_len))``, summed in closed
+    form over the ``s`` queries."""
+    if bidirectional:
+        pairs, keys = s * kv_len, kv_len
+    else:
+        pairs = _sum_min(q_offset + 1, q_offset + s, kv_len)
+        keys = kv_len
+        if window:
+            pairs -= _sum_pos(q_offset - window + 1, q_offset + s - window)
+            keys -= max(0, q_offset - window + 1)
+    flops = b * h * pairs * 2 * (d + dv)
+    nbytes = esize * (b * s * h * d + b * keys * hkv * (d + dv) + b * s * h * dv)
+    return flops, nbytes
 
 
 def _pick_chunk(n: int, target: int) -> int:
@@ -242,7 +286,7 @@ def flash_attention(q, k, v, *, q_offset: int = 0, kv_len: int | None = None,
                                   q_offset=q_offset, window=window,
                                   bidirectional=bidirectional, kv_len=kvlen)
         return out, tile_map.expand(b, hkv, nq, nk).contiguous()
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     _build.refuse_grad("flash_attention", q, k, v)
 
@@ -254,10 +298,15 @@ def flash_attention(q, k, v, *, q_offset: int = 0, kv_len: int | None = None,
         raise ValueError(f"a (G*block_q={h // hkv * qc})-row panel at D={d}, "
                          f"Dv={dv}, block_k={kc} needs {smem} B of shared "
                          f"memory (> {SMEM_LIMIT}); lower block_q or block_k")
-    lib = _lib()
     out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
     counts = (torch.zeros((b, hkv, nq, nk), dtype=torch.int32, device=q.device)
               if return_counts else None)
+    work = flash_work(b, s, h, hkv, d, dv, q_offset, kvlen, q.element_size(), window,
+                      bidirectional)
+    if q.device.type == "meta":
+        _build.note_work("flash_attention", *work)
+        return (out, counts) if return_counts else out
+    lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -271,6 +320,7 @@ def flash_attention(q, k, v, *, q_offset: int = 0, kv_len: int | None = None,
         float(scale if scale is not None else d ** -0.5), qc, kc, stream)
     _build.check(rc, "flash_attention", lib.flash_attention_error_string)
     flash_attention.launches += 1
+    _build.note_work("flash_attention", *work)
     return (out, counts) if return_counts else out
 
 

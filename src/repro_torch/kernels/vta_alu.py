@@ -26,6 +26,12 @@ block multiple) and changes nothing.
 
 Each op counts its own launches in ``vta_alu.launches`` (a dict keyed by
 op): they replace the two ``pl.pallas_call``s (binary and unary).
+
+On a ``meta`` tensor (the dry-run stand-in, ``launch.dryrun``) the wrapper
+runs everything but the launch: its checks, the operands made contiguous
+and the allocation of its output, and it tells ``launch.counters`` the
+call's analytic work (:func:`alu_work`, as it does where it launches); it
+counts no launch.
 """
 
 from __future__ import annotations
@@ -42,6 +48,13 @@ _UNARY = ("add_imm", "max_imm", "relu", "shr")
 OPS = {op: i for i, op in enumerate(_BINARY + _UNARY)}  # the kernel's op ids
 INT32_MIN, INT32_MAX = -(2 ** 31), 2 ** 31 - 1
 DTYPES = (torch.int8, torch.int32)  # the kernel's operand types
+
+
+def alu_work(n: int, x_esize: int, y_esize: int = 0) -> tuple[int, int]:
+    """Operations and bytes one ALU call needs: one operation an element;
+    each operand read once (``y_esize`` 0 for a unary op), the int32
+    output written once."""
+    return n, (x_esize + y_esize + 4) * n
 
 
 def vta_alu_ref(x, y=None, op: str = "add", imm: int = 0, shift: int = 0):
@@ -94,13 +107,17 @@ def vta_alu(x, y=None, *, op: str = "add", imm: int = 0, shift: int = 0,
         y = None
     if x.device.type == "cpu":
         return vta_alu_ref(x, y, op, imm=imm, shift=shift)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"vta_alu runs on cuda or cpu, not {x.device}")
     x = x.contiguous()
     y = y.contiguous() if y is not None else None
     out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
     n = out.numel()
     if n == 0:
+        return out
+    work = alu_work(n, x.element_size(), y.element_size() if y is not None else 0)
+    if x.device.type == "meta":
+        _build.note_work(f"vta_alu_{op}", *work)
         return out
     lib = _lib()
     rc = lib.vta_alu_fwd(x.data_ptr(), y.data_ptr() if y is not None else None,
@@ -109,6 +126,7 @@ def vta_alu(x, y=None, *, op: str = "add", imm: int = 0, shift: int = 0,
                          torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "vta_alu", lib.vta_alu_error_string)
     vta_alu.launches[op] += 1
+    _build.note_work(f"vta_alu_{op}", *work)
     return out
 
 

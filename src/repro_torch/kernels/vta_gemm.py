@@ -27,6 +27,13 @@ reference's ``shift_right_arithmetic`` there.
 
 Each epilogue counts its own launches in ``vta_gemm.launches`` (a dict
 keyed by epilogue): they replace three ``pl.pallas_call``s.
+
+On a ``meta`` tensor (the dry-run stand-in, ``launch.dryrun``) the wrapper
+runs everything but the launch: its checks, its operand conversions, its
+tile and split plan (at an H100's SM count) and the allocation of its
+output and split-K workspace, and it tells ``launch.counters`` the call's
+analytic work (:func:`gemm_work`, as it does where it launches); it counts
+no launch.
 """
 
 from __future__ import annotations
@@ -140,6 +147,13 @@ def _splits(m: int, n: int, k: int, sms: int) -> tuple[int, int]:
     return -(-nk // per), per * _TILE_K
 
 
+def gemm_work(m, k, n, out_bytes, extra_bytes=0) -> tuple[int, int]:
+    """Operations and bytes one int8 GEMM call needs: 2*M*N*K operations;
+    a and w read once (int8), the output written once, plus its
+    per-column vectors."""
+    return 2 * m * n * k, m * k + k * n + out_bytes * m * n + extra_bytes
+
+
 def w_layout(w) -> tuple[bool, int]:
     """(K-major, stride): a K-major (K, N) ``w`` (strides (1, ldw)) or an
     N-contiguous one (strides (ldw, 1)); anything else raises."""
@@ -162,7 +176,7 @@ def vta_gemm(a, w, bias=None, scale=None, *, block_m: int = 128,
     if a.device.type == "cpu":
         return vta_gemm_ref(a, w, bias, scale, epilogue=epilogue, shift=shift,
                             relu=relu, act=act)
-    if a.device.type != "cuda":
+    if a.device.type not in ("cuda", "meta"):
         raise ValueError(f"vta_gemm runs on cuda or cpu, not {a.device}")
     _build.refuse_grad("vta_gemm", a, w, bias, scale)
     m, k = a.shape
@@ -186,6 +200,11 @@ def vta_gemm(a, w, bias=None, scale=None, *, block_m: int = 128,
     sms = _build.sm_count(dev)
     splits, per = _splits(m, n, k, sms)
     ws = torch.empty((m, n), dtype=torch.int32, device=dev) if splits > 1 else None
+    vectors = sum(x.numel() * x.element_size() for x in (bias, scale) if x is not None)
+    work = gemm_work(m, k, n, out.element_size(), vectors)
+    if dev.type == "meta":
+        _build.note_work(f"vta_gemm_{epilogue}", *work)
+        return out
     lib = _lib()
     rc = lib.vta_gemm_fwd(
         a.data_ptr(), w.data_ptr(),
@@ -198,6 +217,7 @@ def vta_gemm(a, w, bias=None, scale=None, *, block_m: int = 128,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "vta_gemm", lib.vta_gemm_error_string)
     vta_gemm.launches[epilogue] += 1
+    _build.note_work(f"vta_gemm_{epilogue}", *work)
     return out
 
 

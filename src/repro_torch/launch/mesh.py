@@ -93,6 +93,13 @@ def refuse_lone_process(mesh, module: str, strategy: str | None = None) -> None:
                          f"under {strategy}: run {layouts(mesh, module)}")
 
 
+def per_position(mesh, strategy: str) -> bool:
+    """Whether ``strategy`` on ``mesh`` runs one process per mesh position
+    (ai_core_assignment or fused with a 'model' axis of 2 or more) rather
+    than one per data position."""
+    return strategy in TP_STRATEGIES and mesh.shape.get(MDL, 1) > 1
+
+
 def join_groups(mesh, strategy: str, module: str):
     """This process's ``(data, model)`` groups for the launcher's world
     (``dist.collective``): none for one process (which must fit the mesh,
@@ -109,7 +116,7 @@ def join_groups(mesh, strategy: str, module: str):
     n = world[1]
     if n == data_positions(mesh):
         return data_group(mesh), None
-    if n == mesh.size and strategy in TP_STRATEGIES and mesh.shape.get(MDL, 1) > 1:
+    if n == mesh.size and per_position(mesh, strategy):
         return mesh_groups(mesh)
     raise SystemExit(f"{n} processes under --strategy {strategy} for the mesh {mesh.shape}: "
                      f"run {layouts(mesh, module)}")

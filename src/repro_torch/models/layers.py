@@ -13,6 +13,10 @@ Attention dispatch (``set_attention_impl``):
   "kernel" — the CUDA kernel; a CPU tensor raises
   "ref"    — the plain version on any device (reference runs on the card)
 There is no environment switch: the tensor's device decides under "auto".
+A ``meta`` tensor (shapes only: the dry-run stand-in, ``launch.dryrun``)
+goes to the wrapper as a CUDA tensor would, where the wrapper allocates
+what it allocates on the card and launches nothing; ``meta_route("plain")``
+sends it to the plain version instead (the stand-in's CPU comparison).
 
 Tensor parallelism (one process per mesh position, ``dist.tensor``'s
 ambient model group): a vocab-split embedding looks up this rank's rows
@@ -43,6 +47,8 @@ environment switch.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -86,12 +92,33 @@ def attention_impl() -> str:
     return _ATTN_IMPL
 
 
+_META_ROUTES = ("kernel", "plain")
+_META_ROUTE = "kernel"
+
+
+@contextlib.contextmanager
+def meta_route(route: str):
+    """Within the block a ``meta`` tensor goes to the kernels' wrappers
+    (``"kernel"``, the default: the card's path) or to their plain versions
+    (``"plain"``: the CPU's path)."""
+    global _META_ROUTE
+    if route not in _META_ROUTES:
+        raise ValueError(f"route must be one of {_META_ROUTES}, got {route!r}")
+    prev, _META_ROUTE = _META_ROUTE, route
+    try:
+        yield
+    finally:
+        _META_ROUTE = prev
+
+
 def _to_wrapper(impl: str, what: str, x: torch.Tensor) -> bool:
     """True when the call goes to the kernel's wrapper under ``impl``.  A
-    ``meta`` tensor (shapes only: the dry-run stand-in) takes the plain
-    version."""
-    if impl == "ref" or x.device.type == "meta":
+    ``meta`` tensor takes the wrapper unless ``meta_route("plain")`` is
+    active."""
+    if impl == "ref":
         return False
+    if x.device.type == "meta":
+        return _META_ROUTE == "kernel"
     if impl == "kernel" and x.device.type != "cuda":
         raise RuntimeError(f"{what} impl 'kernel' needs a CUDA tensor, "
                            f"got one on {x.device}")

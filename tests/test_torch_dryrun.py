@@ -11,10 +11,26 @@ reference's XLA dry-run.
   layers``): that cell is recorded with its error, and the pipeline is
   compared at ``scaled_down(num_layers=8)`` instead.  The stand-in's
   ``arg_bytes`` on a (2, 4) ``meta`` mesh equals each compiled module's
-  ``memory_analysis().argument_size_in_bytes``.
-* A record holds only keys the stand-in computes; skipped cells carry the
-  reference's reasons; the CLI appends a ``status: "ok"`` record for one
-  full-size cell.
+  ``memory_analysis().argument_size_in_bytes``.  The subprocess also
+  returns each module's ``output_size_in_bytes``, ``temp_size_in_bytes``,
+  cost-analysis ``flops`` and ``collective_bytes`` (its HLO parse), and
+  the test prints the stand-in's rank-0 record (a fake world of 8 on
+  ``meta``) beside them.  ``output_bytes`` is held equal on the train
+  cells of fused, ai_core_assignment and scatter_gather, where both steps
+  return the same tree, the new state and the metrics, on one position:
+  XLA's figure also counts its output tuple's table, 8 bytes a leaf of
+  the reference's (stacked) tree.  It differs, by design, on the serving
+  cells (the port writes its caches in place, so they are no output; the
+  reference's donated caches are) and on the pipeline (the port's record
+  is a row process's, all its stages; the reference's one device's).
+  ``temp_bytes``, ``flops`` and the collectives differ by design: the port
+  runs its eager program (no fusion, no donation, the global batch and
+  ``fused``'s whole-param gathers in each process, collectives written by
+  hand), the reference XLA's partitioned module.
+* A record holds only keys the stand-in computes (``lower_s`` and
+  ``compile_s`` need a compiler); skipped cells carry the reference's
+  reasons; the CLI appends a ``status: "ok"`` record for one full-size
+  cell, whose peak is its arguments, outputs and temporaries.
 """
 
 import json
@@ -29,15 +45,17 @@ torch = pytest.importorskip("torch")
 # the suite runs in xdist workers that share the cores: one intra-op thread each
 torch.set_num_threads(1)
 
-from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.configs.base import SHAPES, get_config  # noqa: E402
 from repro_torch.dist.sharding import Mesh  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.counters import KINDS  # noqa: E402
 
 META = torch.device("meta")
 CELLS = [(s, k) for s in ("fused", "ai_core_assignment", "scatter_gather")
          for k in ("train_4k", "prefill_32k", "decode_32k")] + [("pipeline", "train_4k")]
-RECORD_KEYS = {"arch", "shape", "mesh", "strategy", "status", "arg_bytes", "flops_global",
-               "stand_in"}
+RECORD_KEYS = {"arch", "shape", "mesh", "strategy", "status", "position", "route",
+               "arg_bytes", "output_bytes", "temp_bytes", "per_device_mem_bytes", "flops",
+               "bytes_accessed", "collective_bytes", "kernel_calls", "stand_in"}
 
 _REF_SCRIPT = r"""
 import json, sys
@@ -64,16 +82,26 @@ for layers in (None, 8):
             out[key] = f"{type(e).__name__}: {e}"[:300]
 
 
-def arg_bytes(low):
+def figures(low):
     try:
-        return int(low.compile().memory_analysis().argument_size_in_bytes)
+        compiled = low.compile()
     except Exception as e:
         return f"{type(e).__name__}: {e}"[:300]
+    mem = compiled.memory_analysis()
+    cost = compiled.cost_analysis()
+    if isinstance(cost, (list, tuple)):
+        cost = cost[0] if cost else {}
+    return {"arg_bytes": int(mem.argument_size_in_bytes),
+            "out_leaves": compiled.out_tree.num_leaves,
+            "output_bytes": int(mem.output_size_in_bytes),
+            "temp_bytes": int(mem.temp_size_in_bytes),
+            "flops": float(cost.get("flops", 0.0)),
+            "collective_bytes": dr.collective_bytes(compiled.as_text())}
 
 
 # the cells compile in threads (XLA compiles outside the GIL)
 with ThreadPoolExecutor(4) as pool:
-    out.update(zip(lowered, pool.map(arg_bytes, lowered.values())))
+    out.update(zip(lowered, pool.map(figures, lowered.values())))
 print("REF_DRYRUN " + json.dumps(out))
 """
 
@@ -108,17 +136,34 @@ def test_arg_bytes_equal_reference(reference, strategy, shape):
         print(f"reference lower_cell refused {strategy} x {shape} at 2 layers: {want}")
         layers = {"num_layers": 8}
         want = reference[f"8/{strategy}/{shape}"]
-    assert isinstance(want, int), want
+    assert isinstance(want, dict), want
     cfg = get_config("qwen3_0p6b").scaled_down(**layers)
-    assert dryrun.arg_bytes(cfg, shape, _mesh(), strategy) == want
+    assert dryrun.arg_bytes(cfg, shape, _mesh(), strategy) == want["arg_bytes"]
+    # the port's per-position figures beside the reference's per-device ones
+    rec = dryrun.cell_record(cfg, shape, _mesh(), strategy, verbose=False)
+    assert rec["status"] == "ok" and rec["arg_bytes"] == want["arg_bytes"]
+    for key in ("output_bytes", "temp_bytes", "flops"):
+        print(f"{strategy} x {shape} {key}: port {rec[key]}, reference {want[key]}")
+    for kind in KINDS:
+        print(f"{strategy} x {shape} {kind} bytes: port {rec['collective_bytes'][kind]}, "
+              f"reference {want['collective_bytes'][kind]}")
+    if SHAPES[shape].kind == "train" and strategy != "pipeline":
+        # the same tree (the new state and the metrics) on one position; XLA
+        # also counts its output tuple's table, 8 bytes a leaf
+        assert rec["output_bytes"] + 8 * want["out_leaves"] == want["output_bytes"]
+    assert rec["per_device_mem_bytes"] == (rec["arg_bytes"] + rec["output_bytes"]
+                                           + rec["temp_bytes"])
 
 
 def test_record_keys_and_skips():
     cfg = get_config("qwen3_0p6b").scaled_down()
     rec = dryrun.cell_record(cfg, "decode_32k", _mesh(), "fused", verbose=False)
     assert set(rec) == RECORD_KEYS
-    assert rec["status"] == "ok" and rec["stand_in"] == "meta" and rec["flops_global"] > 0
-    assert rec["mesh"] == "2x4"
+    assert rec["status"] == "ok" and rec["stand_in"] == "meta" and rec["flops"] > 0
+    assert rec["mesh"] == "2x4" and rec["position"] == "mesh" and rec["route"] == "kernel"
+    assert set(rec["collective_bytes"]) == set(KINDS) | {"total"}
+    # the decode step's attention took the dense decode wrapper, once a layer
+    assert rec["kernel_calls"] == {"decode_attention": cfg.num_layers}
     skip = dryrun.cell_record(cfg, "prefill_32k", _mesh(), "pipeline", verbose=False)
     assert skip["status"] == "skipped" and "train path only" in skip["reason"]
     long = dryrun.cell_record(get_config("qwen3_0p6b"), "long_500k", _mesh(), "fused",
@@ -132,6 +177,8 @@ def test_cli_full_size_cell(tmp_path):
                         "--out", str(out)]) == 0
     (rec,) = [json.loads(x) for x in out.read_text().splitlines()]
     assert rec["status"] == "ok" and rec["mesh"] == "16x16" and set(rec) == RECORD_KEYS
+    assert rec["per_device_mem_bytes"] == (rec["arg_bytes"] + rec["output_bytes"]
+                                           + rec["temp_bytes"]) >= rec["arg_bytes"]
     # full width: 28 layers of (128, 32768, 8, 128) bf16 K/V split over
     # 'data' (16) and the heads over 'model' (8 of 16 divide: replicated)
     assert rec["arg_bytes"] > 28 * 2 * 128 * 32768 * 8 * 128 * 2 // 16
