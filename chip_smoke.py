@@ -30,15 +30,15 @@ qwen3_0p6b (f32, random weights from seed 0):
   every token, counter and event equal to the same run with the GEMMs on
   their plain version;
 * single-device training (``[train]``): ``train.step.make_train_step`` on
-  the same weights' first 14 layers (a depth cut for run time) at batch
+  the same weights' first 8 layers (a depth cut for run time) at batch
   4, seq 2048, grad_accum 2, remat, with
   ``SyntheticLM`` batches, four steps through an ``AsyncCheckpointer``:
   step 1 held to the same step on the plain versions (loss and every
-  gradient leaf), flash launched 2 x 14 x 2 times a step (forward and
+  gradient leaf), flash launched 2 x 8 x 2 times a step (forward and
   remat recompute; the backward recomputes the plain version), the state
   saved after step 2 restored bitwise into a fresh state, and step 3 from
   it held to the uninterrupted step 3;
-* the pipeline runtime (``[pipeline]``): the same weights' first 12 layers
+* the pipeline runtime (``[pipeline]``): the same weights' first 8 layers
   (a depth cut for run time) and batch (B 4, seq 2048) through four stages
   on the one card
   (``make_mesh_for([dev] * 4, model_axis=4)``, m 4 from
@@ -48,9 +48,24 @@ qwen3_0p6b (f32, random weights from seed 0):
   ``loss_and_grad`` bitwise equal and held to the single-device
   ``value_and_grad``, schedule counts against ``pipeline_bubble_counts``,
   and three ``make_pipeline_train_step`` steps, each launching flash
-  3 x 12 x 4 times, timed against the single-device step;
+  3 x 8 x 4 times, timed against the single-device step;
+* pipeline stages as processes (``[pipe-stages]``): qwen3_0p6b at full
+  width, its first 8 layers over four stages, one spawned process a stage
+  (``dist.collective.mesh_groups`` on a (1, 4) mesh, gloo as they share
+  the one card; activations and gradients by point-to-point sends), B 4 x
+  512, f32, m 4, GPipe and 1F1B: each process's ``loss_and_grad`` and two
+  AdamW steps held to the one-process row pipe of the same work (its
+  stage's layer grads and the CE bitwise, the grads summed across the
+  stages, the metrics and the decided params within 1e-5), GPipe == 1F1B
+  bitwise, the stages' busy and idle rounds summing to
+  ``pipeline_bubble_counts``, flash launched 3 x 2 x 4 times a stage a
+  call, placed bytes equal to the stand-in's arithmetic, and one counted
+  1F1B step a stage held to the dry-run stand-in of its rank (flops and
+  collective bytes by kind equal, its received activations and gradients
+  as ``collective-permute``; memory growth within 1.00-1.05x of the
+  stand-in's output + temp bytes);
 * the training supervisor (``[train-ft]``): ``ft.supervisor.TrainSupervisor``
-  on the same weights' first 12 layers (a depth cut for run time) at batch
+  on the same weights' first 8 layers (a depth cut for run time) at batch
   4, seq 512, checkpoints in a temporary
   directory under ``build/``: fused, 8 steps, a NaN batch at data index 3
   and a checkpoint write crash at step 4 (one rollback, one ``ckpt_retry``,
@@ -73,7 +88,7 @@ qwen3_0p6b (f32, random weights from seed 0):
   one per data position (``dist.collective``: spawned fresh, gloo as they
   share the one card; again over NCCL on distinct cards where there are
   two or more), each on its row of the global batch (B 2 x 512, f32;
-  qwen3's first 14 of 28 layers):
+  qwen3's first 8 of 28 layers):
   two train steps each under scatter_gather and fused on the (2, 1) mesh
   and pipeline on the (2, 2) mesh (two stages a process), then the static
   path (8 new tokens); every process's loss and grad norm, and the
@@ -88,7 +103,7 @@ qwen3_0p6b (f32, random weights from seed 0):
   on distinct cards where there are enough), flash and dense decode first
   held to their plain versions at the local head counts (the families'
   too, and the dequant GEMM at int8 zamba2's whole projections);
-  qwen3_0p6b at full width (14 layers), f32, B 2 x 512, two train steps
+  qwen3_0p6b at full width (8 layers), f32, B 2 x 512, two train steps
   under ai_core_assignment (1, 2) and fused (2, 2), loss and grad norm
   within 1e-5 of the same rows in one process, params within 1e-4, flash
   launches exact, placed bytes equal to the stand-in's, on (1, 2) one
@@ -145,14 +160,14 @@ qwen3_0p6b (f32, random weights from seed 0):
   the port's ``init``, seed 0, each freed before the next), after flash
   and dense decode are held and timed at their new shapes (G 1 at D 80,
   bidirectional S = T = 1024, S 512 and S 1 against 1024 frames, a
-  768-row first chunk at G 8): mamba2_2p7b (depth cut 64 -> 16, the
+  768-row first chunk at G 8): mamba2_2p7b (depth cut 64 -> 8, the
   static path, prompt 2048 in four 512-token chunks, 16 new tokens; its
   chunked prefill against one pass, prefill(2047) + one decode step
   against prefill(2048), and the chunked SSD against its recurrence in
   f64), zamba2_2p7b (depth cut 54 -> 12 Mamba2 layers in 2 groups with
   the shared attention block, the same static path, in f32 and on
   ``quantize_params`` weights, bitwise to a plain-GEMM run),
-  seamless_m4t_large_v2 (decoder cut 24 -> 12, its 24 encoder layers
+  seamless_m4t_large_v2 (decoder cut 24 -> 6, its 24 encoder layers
   whole, ``serve.step.generate`` with 1024 frames and a 1024-token prompt
   in two chunks) and internvl2_76b (depth cut to 2, ``generate`` with 256
   patch embeddings before a 1536-token prompt), their f32 logits held to
@@ -247,10 +262,10 @@ PROJ = [("mixer", "wq"), ("mixer", "wk"), ("mixer", "wv"), ("mixer", "wo"),
         ("ffn", "w_gate"), ("ffn", "w_up"), ("ffn", "w_down")]
 # 7 projections in each layer per forward call; the static path makes 4
 # prefill-chunk calls and 31 decode calls.  int8 static and the int8 engine
-# run the main path's first 14 of 28 layers (a depth cut for run time;
-# every width and gate kept): dequant 7 x 14 x 35 = 3430 launches on the
+# run the main path's first 8 of 28 layers (a depth cut for run time;
+# every width and gate kept): dequant 7 x 8 x 35 = 1960 launches on the
 # static path (6860 at 28 layers)
-INT8_LAYERS = 14
+INT8_LAYERS = 8
 # the projection whose N-contiguous-weight time ``time_dequant`` logs
 NCONTIG_PROJ = ("ffn", "w_down")
 # ResNet-18 convolutions at batch 1, 224 x 224 (the paper's workload):
@@ -2131,11 +2146,12 @@ FAMILY_BATCH, FAMILY_CHUNK, FAMILY_NEW = 2, 512, 16
 # the card holds: 2, as the MoE slice.  mamba2 and zamba2 run the launcher's
 # static path; seamless and internvl2 ``serve.step.generate``
 # (prompt, frames or patch embeddings, depth): the depth cuts keep the whole
-# run under 900 s (mamba2 64 -> 16 layers, zamba2 54 -> 12: two groups of
-# six around the shared block, seamless's decoder 24 -> 12 before its 24
-# encoder layers; internvl2 80 -> 2, as its f32 weights would not fit)
-FAMILIES = {"mamba2_2p7b": (2048, 0, 16), "zamba2_2p7b": (2048, 0, 12),
-            "seamless_m4t_large_v2": (1024, 1024, 12), "internvl2_76b": (1536, 256, 2)}
+# run inside the time limit (mamba2 64 -> 8 layers, zamba2 54 -> 12: two
+# groups of six around the shared block, seamless's decoder 24 -> 6 before
+# its 24 encoder layers; internvl2 80 -> 2, as its f32 weights would not
+# fit)
+FAMILIES = {"mamba2_2p7b": (2048, 0, 8), "zamba2_2p7b": (2048, 0, 12),
+            "seamless_m4t_large_v2": (1024, 1024, 6), "internvl2_76b": (1536, 256, 2)}
 # mamba2's gates: the four-chunk prefill against one 2048-token pass, and
 # prefill(2047) + one decode step against prefill(2048), relative to the
 # largest |logit|; the SSM and conv states relative to their largest
@@ -2612,18 +2628,18 @@ SERVE_FT_EVENTS = {
 SERVE_FT_INT8 = [("int8 decode_nan", None, {}, (20,)),
                  ("int8 device_loss", "device_loss:step=25,lose=1", {"devices": [0, 1, 2, 3]},
                   ())]
-# the fault and deadline runs take the main path's first 14 layers (a depth
+# the fault and deadline runs take the main path's first 8 layers (a depth
 # cut for run time), held to a clean supervised run at that depth; the
 # clean run at full depth stays held to the [engine] run
-SERVE_FT_LAYERS = 14
+SERVE_FT_LAYERS = 8
 # the int8 runs hold the kernels to the plain GEMM within the same runs, so
 # they take the first 4 layers (depth cut to keep the whole run under 900 s;
 # every width and gate kept)
 SERVE_FT_INT8_LAYERS = 4
 # the [train] phase: qwen3_0p6b full width, f32, remat, SyntheticLM batches,
-# the main path's first 14 of 28 layers (a depth cut for run time)
+# the main path's first 8 of 28 layers (a depth cut for run time)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS, TRAIN_SAVE_AT = 4, 2048, 2, 4, 2
-TRAIN_LAYERS = 14
+TRAIN_LAYERS = 8
 # step 1 against the same step on the plain versions: the loss (f32 sums
 # over 8192 tokens in another order) and each gradient leaf against its
 # max|grad| (the kernel's ~1e-6 attention differences through the layers)
@@ -2635,9 +2651,9 @@ TRAIN_RESUME_TOL = 1e-6
 # backward unit's re-run and its remat recompute) where the single-device
 # step runs two
 PIPE_STAGES, PIPE_STEPS = 4, 3
-# depth cut 28 -> 12 for run time (the main path's first 12 layers; an even
-# planner cut of 3 a stage): every comparison and gate stays
-PIPE_LAYERS = 12
+# depth cut 28 -> 8 for run time (the main path's first 8 layers; an even
+# planner cut of 2 a stage): every comparison and gate stays
+PIPE_LAYERS = 8
 # pipelined vs single-device on the same batch, both on the kernels: the
 # loss (f32 CE sums in microbatches of 1 vs one batch of 4) and each grad
 # leaf against its max (GEMMs at M 2048 vs 8192 sum in other orders)
@@ -3283,6 +3299,290 @@ def pipeline_phase(torch, params, cfg, dev, card: str) -> int:
     return n_flash
 
 
+# the [pipe-stages] phase: the pipeline with one process a stage (four
+# gloo processes sharing the one card: NCCL refuses two ranks on one GPU),
+# qwen3_0p6b at full width, its first 8 layers (2 a stage, a depth cut for
+# run time), B 4 x 512 (flash runs: FLASH_MIN_SEQ is 512), f32, m 4, GPipe
+# and 1F1B, a loss_and_grad and two AdamW steps each; each process also
+# runs the one-process row pipe of the same work (all four stages on the
+# card in the process) and holds its stage to it: the stage's layer grads
+# and the CE bitwise, the grads of the leaves off 'model' (summed across
+# the stages) and the metrics within STAGE_TOL, the params where both
+# steps' row grads clear STAGE_GRAD_FLOOR within STAGE_TOL; then one counted
+# 1F1B step, held to the dry-run stand-in of its rank: flops and collective
+# bytes equal, memory growth within STAGE_MEM of its output + temp bytes
+STAGE_PROCS, STAGE_LAYERS, STAGE_BATCH, STAGE_SEQ, STAGE_M, STAGE_STEPS = 4, 8, 4, 512, 4, 2
+STAGE_TOL, STAGE_GRAD_FLOOR = 1e-5, 1e-6
+STAGE_MEM = (1.0, 1.05)
+STAGE_TIMEOUT = 600
+
+
+def stage_child(rank, nprocs, init_method, job):
+    """One stage process of the ``[pipe-stages]`` phase (a spawned
+    process): the row pipe's work, then the stage layout's under both
+    schedules, then the counted step; writes its record as JSON to
+    ``job["out"]/stage_<rank>.json``."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist import collective
+    from repro_torch.dist import pipeline as pl
+    from repro_torch.dist.sharding import place
+    from repro_torch.ft.elastic import state_shardings
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.dryrun import tree_bytes
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import step as st
+    from repro_torch.tree import flatten_with_path, leaves as tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = job["cfg"]
+    mesh = _tp_mesh(torch, job["devs"], (1, nprocs))
+    data, model = collective.mesh_groups(mesh, init_method=init_method, rank=rank,
+                                         world_size=nprocs)
+    dev = torch.device(job["devs"][rank])
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    k, per = model.rank, cfg.num_layers // nprocs
+    params = tf.init(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                     dtype=torch.float32, device=dev)
+    feed = SyntheticLM(cfg.vocab, job["seq"], STAGE_BATCH, seed=0)
+    batches = [{"tokens": torch.from_numpy(feed.batch(i)["tokens"]).long().to(dev)}
+               for i in range(STAGE_STEPS + 1)]
+    opt = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=STAGE_STEPS)
+
+    def own(tree):
+        """This stage's part of a whole tree: its layers, the rest whole."""
+        return dict(tree, blocks=tree["blocks"][k * per:(k + 1) * per])
+
+    # ---- the one-process row pipe: every stage in this process
+    (_, rmet), rg = pl.make_pipeline_loss_and_grad(cfg, mesh, STAGE_M, schedule="1f1b")(
+        params, batches[0])
+    row = {"ce": rmet["ce"], "grads": own(rg)}
+    del rg
+    clear, apply = [], adamw.apply
+
+    def spy(c, p, g, s, norm_fn=adamw.global_norm):
+        mask = [x.abs() >= STAGE_GRAD_FLOOR for x in tree_leaves(own(g))]
+        clear[:] = mask if not clear else [a & b for a, b in zip(clear, mask)]
+        return apply(c, p, g, s, norm_fn)
+
+    step = st.make_pipeline_train_step(cfg, opt, mesh, num_microbatches=STAGE_M,
+                                       schedule="1f1b")
+    rstate, row["steps"] = st.make_state(params), []
+    st.adamw.apply = spy
+    try:
+        for i in range(STAGE_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            rstate, mt = step(rstate, batches[i])
+            row["steps"].append({"loss": float(mt["loss"]), "grad_norm": float(mt["grad_norm"])})
+            sync()
+            row["steps"][-1]["ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        st.adamw.apply = apply
+    row["params"] = own(rstate["params"])
+    del rstate, step
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # ---- the stage layout, both schedules
+    state0 = st.make_state(params)
+    specs = state_shardings(state0, mesh, "pipeline")
+    rec = {"rank": rank, "stage": k, "expect_bytes": tree_bytes(state0, specs, mesh),
+           "row_steps": row["steps"], "schedules": {}}
+    outs = {}
+    for sched in ("gpipe", "1f1b"):
+        state = place(state0, specs, mesh, None, model)
+        placed = sum(t.untyped_storage().nbytes() for t in tree_leaves(state)
+                     if isinstance(t, torch.Tensor))
+        lg = pl.make_pipeline_loss_and_grad(cfg, mesh, STAGE_M, schedule=sched, model=model)
+        flash_attention.launches = 0
+        (loss, met), g = lg(state["params"], batches[0])
+        sync()
+        r = {"placed_bytes": placed, "counts": list(lg.counts),
+             "lg_flash": flash_attention.launches,
+             "ce_bitwise": bool(torch.equal(met["ce"], row["ce"])),
+             "blocks_bitwise": all(torch.equal(a, b) for a, b in
+                                   zip(tree_leaves(g["blocks"]),
+                                       tree_leaves(row["grads"]["blocks"])))}
+        worst, at = 0.0, None
+        for (path, a), (_, b) in zip(flatten_with_path(dict(g, blocks=[])),
+                                     flatten_with_path(dict(row["grads"], blocks=[]))):
+            err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            if err >= worst:
+                worst, at = err, "/".join(map(str, path))
+        r.update(rest_err=worst, rest_leaf=at)
+        step = st.make_pipeline_train_step(cfg, opt, mesh, num_microbatches=STAGE_M,
+                                           schedule=sched, model=model)
+        r["steps"] = []
+        for i in range(STAGE_STEPS):
+            flash_attention.launches = 0
+            sync()
+            t0 = time.perf_counter()
+            state, mt = step(state, batches[i])
+            r["steps"].append({"loss": float(mt["loss"]), "grad_norm": float(mt["grad_norm"]),
+                               "ms": 0.0})
+            sync()
+            r["steps"][-1].update(ms=(time.perf_counter() - t0) * 1e3,
+                                  flash=flash_attention.launches)
+        err, leaf = 0.0, None
+        for (path, a), b, m in zip(flatten_with_path(state["params"]),
+                                   tree_leaves(row["params"]), clear):
+            e = float(((a - b).abs() * m).max())
+            if e >= err:
+                err, leaf = e, "/".join(map(str, path))
+        r.update(param_err=err, param_leaf=leaf)
+        if sched == "1f1b":
+            r["counted"] = tp_counted_step(torch, step, state, batches[STAGE_STEPS],
+                                           {"dev": dev, "model": model, "data": None}, sync)
+            prev = outs["gpipe"]
+            r["schedules_bitwise"] = (
+                torch.equal(loss, prev[0])
+                and all(torch.equal(a, b) for a, b in zip(tree_leaves(g), tree_leaves(prev[1])))
+                and all(torch.equal(a, b) for a, b in zip(tree_leaves(state["params"]),
+                                                          tree_leaves(prev[2]))))
+        outs[sched] = (loss, g, state["params"])
+        rec["schedules"][sched] = r
+        del state, step, lg
+    with open(Path(job["out"]) / f"stage_{rank}.json", "w") as f:
+        json.dump(rec, f)
+    collective.close(data, model)
+
+
+def stage_stand_in(torch, cfg, rank: int) -> dict:
+    """The dry-run stand-in's kernel-route record of ``[pipe-stages]``'
+    counted 1F1B step for ``rank`` (its own fake world on ``meta``), with
+    ``stand_in``, its ``output_bytes + temp_bytes``."""
+    from repro_torch.dist.sharding import data_specs
+    from repro_torch.ft.elastic import state_shardings
+    from repro_torch.launch import dryrun
+    from repro_torch.train.step import init_state
+
+    mesh = _tp_mesh(torch, ["meta"] * STAGE_PROCS, (1, STAGE_PROCS))
+    state = init_state(cfg, generator=torch.Generator(), dtype=torch.float32,
+                       moments_dtype=torch.float32, device="meta")
+    batch = {"tokens": torch.empty((STAGE_BATCH, STAGE_SEQ + 1), dtype=torch.long,
+                                   device="meta")}
+    cell = dryrun.Cell("train", (state, batch),
+                       (state_shardings(state, mesh, "pipeline"), data_specs(batch, mesh)),
+                       grad_accum=STAGE_M, schedule="1f1b")
+    rec = dryrun.run_position(cfg, cell, mesh, "pipeline", route="kernel", rank=rank)
+    rec["stand_in"] = rec["peak_bytes"] + rec["held_ints"] - rec["arg_bytes"]
+    return rec
+
+
+def pipe_stages_phase(torch, cfg, dev, card: str) -> int:
+    """The pipeline with one process a stage at qwen3_0p6b's full width
+    (``STAGE_LAYERS`` layers, the constants' comment above): four spawned
+    processes on the one card (``dist.collective.mesh_groups`` on a (1, 4)
+    mesh, gloo).  Gates: each stage's layer grads and CE bitwise the row
+    pipe's, the leaves off 'model' within ``STAGE_TOL``; every process
+    reads the same metrics, within ``STAGE_TOL`` of the row pipe's; params
+    within ``STAGE_TOL`` where decided; GPipe == 1F1B bitwise; the stages'
+    busy and idle rounds summing to ``pipeline_bubble_counts``; flash
+    launched 3 x 2 layers x m times a stage a call; placed bytes equal to
+    ``tree_bytes``; each rank's counted step equal to its stand-in in flops
+    and collective bytes, memory growth within ``STAGE_MEM``.  Returns the
+    stage layout's flash launches, summed over processes."""
+    import shutil
+
+    from repro_torch.dist import collective
+    from repro_torch.dist import pipeline as pl
+
+    cfg = dataclasses.replace(cfg, num_layers=STAGE_LAYERS)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    out = ROOT / "build" / "pipe_stages"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    collective.spawn(stage_child, STAGE_PROCS,
+                     (dict(cfg=cfg, devs=[str(dev)] * STAGE_PROCS, seq=STAGE_SEQ, out=str(out)),),
+                     timeout=STAGE_TIMEOUT, workdir=str(out))
+    log(f"[pipe-stages] {ARCH} full width f32, {STAGE_LAYERS} layers over {STAGE_PROCS} "
+        f"stage processes on {dev} (gloo), B {STAGE_BATCH} x {STAGE_SEQ}, m {STAGE_M}: done "
+        f"in {time.perf_counter() - t0:.1f} s")
+    recs = [json.loads((out / f"stage_{r}.json").read_text()) for r in range(STAGE_PROCS)]
+    per = STAGE_LAYERS // STAGE_PROCS
+    flash_per = 3 * per * STAGE_M
+    total = 0
+    row = recs[0]["row_steps"]
+    for sched in ("gpipe", "1f1b"):
+        runs = [rec["schedules"][sched] for rec in recs]
+        rounds, busy, idle = pl.pipeline_bubble_counts(STAGE_PROCS, STAGE_M, sched)
+        counts = [r["counts"] for r in runs]
+        check(all(c[0] == rounds for c in counts) and sum(c[1] for c in counts) == busy
+              and sum(c[2] for c in counts) == idle,
+              f"[pipe-stages] {sched}: the stages' counts {counts} vs the oracle's "
+              f"{(rounds, busy, idle)}")
+        for r, run in enumerate(runs):
+            check(run["ce_bitwise"] and run["blocks_bitwise"],
+                  f"[pipe-stages] {sched} stage {r}: CE / layer grads not bitwise the row "
+                  f"pipe's")
+            check(run["rest_err"] <= STAGE_TOL, f"[pipe-stages] {sched} stage {r}: "
+                  f"{run['rest_leaf']} {run['rest_err']} from the row pipe's")
+            check(run["lg_flash"] == flash_per and all(s["flash"] == flash_per
+                                                       for s in run["steps"]),
+                  f"[pipe-stages] {sched} stage {r}: flash {run['lg_flash']} / "
+                  f"{[s['flash'] for s in run['steps']]}, expect {flash_per}")
+            total += run["lg_flash"] + sum(s["flash"] for s in run["steps"])
+            check(run["placed_bytes"] == recs[r]["expect_bytes"],
+                  f"[pipe-stages] stage {r}: placed {run['placed_bytes']} B vs "
+                  f"{recs[r]['expect_bytes']} B")
+            check(run["param_err"] <= STAGE_TOL, f"[pipe-stages] {sched} stage {r}: params "
+                  f"{run['param_err']} ({run['param_leaf']}) from the row pipe's")
+        for i in range(STAGE_STEPS):
+            got = {(r["steps"][i]["loss"], r["steps"][i]["grad_norm"]) for r in runs}
+            check(len(got) == 1, f"[pipe-stages] {sched} step {i + 1}: processes read {got}")
+            loss, gnorm = got.pop()
+            rl, rg = row[i]["loss"], row[i]["grad_norm"]
+            check(abs(loss - rl) <= STAGE_TOL * abs(rl) and abs(gnorm - rg) <= STAGE_TOL * abs(rg),
+                  f"[pipe-stages] {sched} step {i + 1}: loss {loss} / grad_norm {gnorm} vs the "
+                  f"row pipe's {rl} / {rg}")
+            log(f"[pipe-stages] {sched} step {i + 1}: loss {loss:.6f} (row {rl:.6f}), grad_norm "
+                f"{gnorm:.6f} ({rg:.6f}); step ms a stage "
+                f"{[round(r['steps'][i]['ms'], 1) for r in runs]} vs the row pipe's "
+                f"{[round(rec['row_steps'][i]['ms'], 1) for rec in recs]} (four at once); "
+                f"flash {flash_per} a stage; on {card}")
+        log(f"[pipe-stages] {sched}: CE and each stage's layer grads bitwise the row pipe's; "
+            f"leaves off 'model' within {max(r['rest_err'] for r in runs):.3e} (tol "
+            f"{STAGE_TOL}); params within {max(r['param_err'] for r in runs):.3e} where "
+            f"decided; counts {counts} sum to {(rounds, busy, idle)}")
+    check(all(rec["schedules"]["1f1b"]["schedules_bitwise"] for rec in recs),
+          "[pipe-stages] GPipe and 1F1B bitwise in every stage")
+    for r, rec in enumerate(recs):
+        got = rec["schedules"]["1f1b"]["counted"]
+        want = stage_stand_in(torch, cfg, r)
+        ratio = got["growth"] / want["stand_in"]
+        log(f"[pipe-stages] stage {r} counted step on {card}: flops {got['flops']:.6g} (stand-in "
+            f"{want['flops']:.6g}), collective bytes {got['collective_bytes']} (stand-in "
+            f"{want['collective_bytes']}), bytes accessed {got['bytes_accessed']:.6g} "
+            f"(stand-in {want['bytes_accessed']:.6g}), kernel calls {got['kernel_calls']}; "
+            f"memory growth {got['growth']} B over {got['before']} B live before, stand-in "
+            f"output + temp {want['stand_in']} B: ratio {ratio:.4f}")
+        check(got["flops"] == want["flops"],
+              f"[pipe-stages] stage {r}: flops {got['flops']} != stand-in {want['flops']}")
+        check(got["collective_bytes"] == want["collective_bytes"],
+              f"[pipe-stages] stage {r}: collective bytes {got['collective_bytes']} != "
+              f"stand-in {want['collective_bytes']}")
+        check(STAGE_MEM[0] <= ratio <= STAGE_MEM[1],
+              f"[pipe-stages] stage {r}: memory growth / stand-in {ratio:.4f} outside "
+              f"{STAGE_MEM}")
+    log(f"[pipe-stages] GPipe == 1F1B bitwise in every stage; flash launches {total} over the "
+        f"processes")
+    return total
+
+
 def train_ft_phase(torch, params, cfg, dev, card: str) -> int:
     """``ft.supervisor.TrainSupervisor`` at qwen3_0p6b's full width on the one
     card, depth cut to ``FT_LAYERS`` (the main path's first layers), B 4 x
@@ -3891,9 +4191,9 @@ def tune_phase(torch, params, cfg, dev, card: str, untuned: dict) -> dict:
 # multi-card execution over the data axes ([multi]): 2 processes, one per
 # data position, at full width; B 2 x 512 (one row a process), f32
 MULTI_PROCS, MULTI_SEQ, MULTI_BATCH, MULTI_STEPS, MULTI_NEW = 2, 512, 2, 2, 8
-# qwen3's depth in [multi] and [tp]: its first 14 of 28 layers (a cut for
+# qwen3's depth in [multi] and [tp]: its first 8 of 28 layers (a cut for
 # run time, with the [tp] families; every width and gate kept)
-MULTI_LAYERS = TP_QWEN_LAYERS = 14
+MULTI_LAYERS = TP_QWEN_LAYERS = 8
 # across processes the gradient sums run in another order (all_reduce)
 MULTI_TOL = 1e-5
 # the plain one-process step (grad_accum 1: the global batch in one GEMM,
@@ -4488,28 +4788,28 @@ TP_BF16_TOL = 1e-2
 # the one-process [moe] run's f32 static tokens and top-2 margins, per config
 MOE_TOKENS: dict = {}
 # the SSM, hybrid, enc-dec and VLM families under TP at full width, f32:
-# mamba2 (16 layers, as [families]) and zamba2 (12 layers) two AdamW steps
+# mamba2 (8 layers, as [families]) and zamba2 (12 layers) two AdamW steps
 # at B 2 x 512 under ai_core_assignment (1, 2), then the static path (B 2,
 # prompt 512, 8 new); zamba2 again on quantize_params weights (static) and
-# under fused on (2, 2) (training, TP_FUSED_LAYERS); seamless, encoder and decoder 24 -> 6
+# under fused on (2, 2) (training, TP_FUSED_LAYERS); seamless, encoder and decoder 24 -> 3
 # for run time, two steps and generate with 1024 stub frames; internvl2 at
 # the [vlm] phase's depth 2, generate after 256 stub patch embeddings.
 # internvl2 trains on the CPU only (tests/test_torch_tp.py): its f32
 # training state at depth 2 (~3.8 B params x 16 bytes = 61 GB) and two
 # processes' activations would not fit the card
-TP_FAMILY_LAYERS = {"mamba2_2p7b": 16, "zamba2_2p7b": 12, "internvl2_76b": 2}
+TP_FAMILY_LAYERS = {"mamba2_2p7b": 8, "zamba2_2p7b": 12, "internvl2_76b": 2}
 # zamba2 under fused on (2, 2): one group of six layers around the shared
 # block (four processes' FSDP and TP collectives cross the host)
 TP_FUSED_LAYERS = 6
-TP_SEAMLESS_LAYERS = 6
+TP_SEAMLESS_LAYERS = 3
 TP_FRAMES, TP_PATCHES = 1024, 256
 # qwen3 training under ai_core_assignment (1, 2) with each gradient
 # compressor (optim.compress): the int8 scale and the top-k threshold of a
 # leaf split over 'model' come from the whole leaf across the group; loss
 # and grad norm within TP_TOL of the same rows and compressor in one process
 TP_COMPRESSORS = ("int8", "topk")
-# their depth: qwen3's first 7 layers (a cut for run time)
-TP_COMPRESS_LAYERS = 7
+# their depth: qwen3's first 4 layers (a cut for run time)
+TP_COMPRESS_LAYERS = 4
 
 
 def _tp_mesh(torch, devs, shape):
@@ -5883,6 +6183,8 @@ def main() -> int:
     lap("train")
     n_train_flash += pipeline_phase(torch, params, cfg, dev, f"{kind} ({smi})")
     lap("pipeline")
+    n_train_flash += pipe_stages_phase(torch, cfg, dev, f"{kind} ({smi})")
+    lap("pipe-stages")
     n_train_flash += train_ft_phase(torch, params, cfg, dev, f"{kind} ({smi})")
     lap("train-ft")
     tuned = tune_phase(torch, params, cfg, dev, f"{kind} ({smi})", engine_run)

@@ -9,10 +9,13 @@ Two layouts:
     (``dist.sharding.local_mesh``), and within a process everything runs
     as with one process;
   * one process per mesh position (:func:`mesh_groups`, under
-    ``ai_core_assignment`` / ``fused``): each process owns one device and
-    belongs to two subgroups, its *model group* (the positions that share
-    its data position: tensor and expert parallelism, ``dist.tensor``) and
-    its *data group* (the positions that share its model index).
+    ``ai_core_assignment`` / ``fused`` / ``pipeline``): each process owns
+    one device and belongs to two subgroups, its *model group* (the
+    positions that share its data position: tensor and expert parallelism,
+    ``dist.tensor``, or a row's pipeline stages, which pass activations
+    and gradients to their neighbours with :func:`send_to` /
+    :func:`recv_from`) and its *data group* (the positions that share its
+    model index).
 
 A :class:`DataGroup` is this process's view of the data axes: a
 ``torch.distributed`` process group (``pg``; ``None`` is the default
@@ -34,8 +37,9 @@ The backend follows the layout, never a failure:
 
 Every backend runs the same collectives: a bucketed ``all_reduce`` for
 replicated leaves, ``all_gather_into_tensor`` and ``reduce_scatter_tensor``
-for FSDP slices.  gloo has a CUDA ``all_reduce`` but no CUDA
-``all_gather`` or ``reduce_scatter``: under gloo those two stage CUDA
+for FSDP slices, blocking ``send`` / ``recv`` between pipeline stages.
+gloo has a CUDA ``all_reduce`` but no CUDA ``all_gather``,
+``reduce_scatter``, ``send`` or ``recv``: under gloo those stage CUDA
 tensors through a pinned host buffer.
 
 The rendezvous comes from torchrun's environment (``RANK``,
@@ -173,9 +177,9 @@ def init_world(backend: str, *, init_method: str | None = None, rank: int,
 FAKE = "fake"
 
 
-def fake_world(world_size: int) -> DataGroup:
+def fake_world(world_size: int, rank: int = 0) -> DataGroup:
     """A world of ``world_size`` positions over the ``fake`` backend in
-    this one process, as rank 0: the default group, as a group.  A
+    this one process, as ``rank``: the default group, as a group.  A
     process that already has a default group raises ``RuntimeError``
     naming it; :func:`close` ends the world."""
     if dist.is_initialized():
@@ -184,8 +188,8 @@ def fake_world(world_size: int) -> DataGroup:
                            f"{dist.get_world_size()} over {dist.get_backend()}")
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
-    dist.init_process_group(FAKE, store=FakeStore(), rank=0, world_size=world_size)
-    return DataGroup(0, world_size, FAKE)
+    dist.init_process_group(FAKE, store=FakeStore(), rank=rank, world_size=world_size)
+    return DataGroup(rank, world_size, FAKE)
 
 
 def subgroups(mesh, rank: int, backend: str, per_position: bool):
@@ -268,6 +272,64 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t)
     return host
+
+
+def _peer(group, r: int) -> int:
+    """The world rank of ``group``'s position ``r``."""
+    return r if group.pg is None else dist.get_global_rank(group.pg, r)
+
+
+def send_to(t: torch.Tensor, dst: int, group) -> None:
+    """Send ``t`` to position ``dst`` of ``group`` (a neighbouring stage of
+    a model group), a blocking ``send``: its receiver must post the
+    matching :func:`recv_from` in the same order.  Under gloo a CUDA tensor
+    goes through a pinned host buffer; NCCL sends it from the card."""
+    src = t.detach().contiguous()
+    if group.backend == "gloo" and src.device.type == "cuda":
+        src = _to_host(src)
+    dist.send(src, _peer(group, dst), group=group.pg)
+
+
+def recv_from(buf: torch.Tensor, src: int, group) -> torch.Tensor:
+    """Receive into ``buf`` (its shape and dtype those of the sent tensor)
+    from position ``src`` of ``group``, a blocking ``recv``; returns
+    ``buf``.  Under gloo a CUDA buffer is filled through a pinned host
+    buffer."""
+    if group.backend == "gloo" and buf.device.type == "cuda":
+        host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+        dist.recv(host, _peer(group, src), group=group.pg)
+        return buf.copy_(host)
+    dist.recv(buf, _peer(group, src), group=group.pg)
+    return buf
+
+
+def gather_stages_first(tree, specs, model):
+    """``tree`` with every per-layer list whose layer axis is on 'model'
+    (``specs``' :class:`~repro_torch.dist.sharding.LayerSpecs` with
+    ``layer == "model"``; the tree holds stage ``model.rank``'s slice of
+    it, one process per mesh position under ``pipeline``) made whole on
+    the model group's first process, the stages' slices in stage order
+    (one ``gather`` a leaf); on the others those lists are None.  The
+    identity without a model group (a checkpoint's writer)."""
+    if model is None:
+        return tree
+    from repro_torch.dist.sharding import MDL, _is_named_tuple
+
+    def walk(node, spec):
+        if isinstance(node, dict):
+            return {k: walk(v, spec[k]) for k, v in node.items()}
+        if _is_named_tuple(node):
+            return type(node)(*[walk(getattr(node, f), getattr(spec, f))
+                                for f in node._fields])
+        if isinstance(node, list) and getattr(spec, "layer", None) == MDL:
+            parts = [gather_first(t[None], (0, model.size), model) for t in leaves(node)]
+            if model.rank:
+                return None
+            return [layer for s in range(model.size)
+                    for layer in unflatten(node, [p[s] for p in parts])]
+        return node
+
+    return walk(tree, specs)
 
 
 def barrier(*groups) -> None:

@@ -17,16 +17,24 @@ layer count (:func:`pad_pipeline_params`), so the block list has
 slice.  Padding rows are clones of the stage's last real layer that the
 executors never run: they get exactly zero gradient.
 
-**Execution.**  One process drives a row's stages.  Stage k's layers run
-on the device of the row's k-th 'model' column (every column of a mesh
-that lists one card several times is that card); activations move to
-the next stage with ``.to()``.  Without a data group the data axis runs
-in the same process: each microbatch's rows are split over the data
-shards where ``fix_spec`` keeps the split, each shard runs its own
-units, and the shards' gradients and losses are averaged in shard order,
-as the reference's ``pmean`` does.  With one (one process per data
-position, ``dist.collective``) each process runs its own shard on its
-own row, and the train step averages across processes.
+**Execution.**  Two layouts.  In the row layout one process drives a
+row's stages: stage k's layers run on the device of the row's k-th
+'model' column (every column of a mesh that lists one card several times
+is that card); activations move to the next stage with ``.to()``.
+Without a data group the data axis runs in the same process: each
+microbatch's rows are split over the data shards where ``fix_spec`` keeps
+the split, each shard runs its own units, and the shards' gradients and
+losses are averaged in shard order, as the reference's ``pmean`` does.
+With one (one process per data position, ``dist.collective``) each
+process runs its own shard on its own row, and the train step averages
+across processes.  In the stage layout (a ``model`` group: one process
+per mesh position, as the reference's SPMD program runs one stage a
+device) stage k of row j is a process of its own on its own device,
+holding only its layers; what a unit hands the next stage goes by a
+point-to-point send at the end of the round (``_stage_exchange``), where
+the reference's ring ``ppermute``s every round.  Each stage runs the
+same units on the same values as the row layout's stage k, so its layer
+grads and the CE are bitwise the row's.
 
 **Schedules.**  The forward pipe is fill-and-drain (``m + S - 1``
 rounds).  The pipelined train loop (:func:`make_pipeline_loss_and_grad`)
@@ -81,6 +89,7 @@ from repro_torch.dist.sharding import (
     _place_all,
     fix_spec,
     local_mesh,
+    position_device,
     stage_devices,
 )
 from repro_torch.models import transformer as tf
@@ -186,9 +195,11 @@ def _check_padded(blocks, stages: int, max_d: int, per: int) -> None:
         )
 
 
-def _stage_layers(blocks, depths, max_d: int, per: int) -> list:
-    """Each stage's real layers (padding rows skipped), in order."""
-    return [blocks[k * max_d * per:(k * max_d + d) * per] for k, d in enumerate(depths)]
+def _stage_layers(blocks, own, depths, max_d: int, per: int) -> dict:
+    """Stage k's real layers (padding rows skipped), for each stage k of
+    ``own``: ``blocks`` holds their ``max_d * per`` rows in turn."""
+    return {k: blocks[j * max_d * per:(j * max_d + depths[k]) * per]
+            for j, k in enumerate(own)}
 
 
 def _moe_global_capacity(cfg, global_tokens: int) -> int | None:
@@ -262,12 +273,75 @@ def _data_shards(mesh, m: int, mb: int, s: int, d: int) -> int:
     return _axis_size(mesh, io[1])
 
 
+def _stage_exchange(model, t: int, fwd_at, bwd_at, outbox: dict, inbox: dict, like):
+    """Round ``t``'s transfers between this stage process (``model.rank``
+    of the row's ``model.size`` stages) and its neighbours: the forward
+    unit's output to stage k + 1, the backward unit's input gradient to
+    stage k - 1, and what they sent this round into ``inbox`` (consumed
+    next round).  ``fwd_at(j)`` / ``bwd_at(j)`` give the microbatch of
+    stage ``j``'s forward / backward unit this round, or None; ``like()``
+    a receive buffer.  Blocking sends pair in a fixed order: each link
+    (a, a + 1) runs its forward send, then its backward send, and an even
+    stage takes its right link first, an odd one its left, so that every
+    round's even links run before its odd ones and no cycle of waits forms,
+    idle rounds included."""
+    from repro_torch.dist.collective import recv_from, send_to
+
+    k, last = model.rank, model.size - 1
+
+    def right():
+        if k == last:
+            return
+        i = fwd_at(k)
+        if i is not None:
+            send_to(outbox.pop(("f", k + 1, i)), k + 1, model)
+        i = bwd_at(k + 1)
+        if i is not None:
+            inbox[("b", k, i)] = recv_from(like(), k + 1, model)
+
+    def left():
+        if k == 0:
+            return
+        i = fwd_at(k - 1)
+        if i is not None:
+            inbox[("f", k, i)] = recv_from(like(), k - 1, model)
+        i = bwd_at(k)
+        if i is not None:
+            send_to(outbox.pop(("b", k - 1, i)), k - 1, model)
+
+    for link in ((right, left) if k % 2 == 0 else (left, right)):
+        link()
+    if outbox:
+        raise RuntimeError(f"stage {k} round {t}: unsent {sorted(outbox)}")
+
+
+def _own_stages(mesh, stages: int, group, model):
+    """The stages this process runs and each one's device: every stage of
+    its row (``dist.sharding.stage_devices``), or with a ``model`` group
+    (one process per mesh position) stage ``model.rank`` alone, on its
+    position's device."""
+    if model is None:
+        row_mesh = local_mesh(mesh, group) if group is not None else mesh
+        return list(range(stages)), stage_devices(row_mesh), row_mesh
+    if model.size != stages:
+        raise ValueError(f"a model group of {model.size} for {stages} stages")
+    row_mesh = local_mesh(mesh, group) if group is not None else mesh
+    devices = [None] * stages
+    devices[model.rank] = position_device(mesh, group, model)
+    return [model.rank], devices, row_mesh
+
+
+def _mb(i: int, m: int):
+    return i if 0 <= i < m else None
+
+
 # ---------------------------------------------------------------------------
 # forward (inference / equivalence) pipeline — fill-and-drain
 # ---------------------------------------------------------------------------
 
 
-def make_pipeline_forward(cfg, mesh, num_microbatches: int = 8, boundaries=None):
+def make_pipeline_forward(cfg, mesh, num_microbatches: int = 8, boundaries=None,
+                          group=None, model=None):
     """Build ``fwd(params, tokens, embeds=None) -> logits`` running the
     layer stack as a ``mesh.shape['model']``-stage fill-and-drain
     pipeline.
@@ -277,6 +351,14 @@ def make_pipeline_forward(cfg, mesh, num_microbatches: int = 8, boundaries=None)
     params padded with :func:`pad_pipeline_params`.  Needs
     ``batch % num_microbatches == 0``; enc-dec stacks are not supported.
     ``fwd.counts`` is ``(rounds, busy, idle)`` of the last call.
+
+    With a ``model`` group (one process per mesh position, ``group`` its
+    data group or None) the process runs stage ``model.rank`` alone on
+    its position's device, with ``params['blocks']`` that stage's
+    ``max_depth * per`` layers (``dist.sharding.place``), on its data
+    position's rows of ``tokens``; each activation goes to the next stage
+    by a point-to-point send.  The last stage returns the logits, the
+    others None; ``fwd.counts`` is then this stage's.
     """
     stages = num_stages(mesh)
     bounds = _resolve_boundaries(cfg, stages, boundaries)
@@ -287,38 +369,61 @@ def make_pipeline_forward(cfg, mesh, num_microbatches: int = 8, boundaries=None)
     if m < 1:
         raise ValueError("need at least one microbatch")
     _warn_moe_over_capacity(cfg)
-    devices = stage_devices(mesh)
+    own, devices, row_mesh = _own_stages(mesh, stages, group, model)
+    last = stages - 1
 
     def fwd(params, tokens, embeds=None):
-        x = tf._embed(params, cfg, tokens, embeds)
-        b, s, d = x.shape
+        b = tokens.shape[0]
+        s = tokens.shape[1] + (0 if embeds is None else embeds.shape[1])
+        d = cfg.d_model
         if b % m:
             raise ValueError(f"batch {b} not divisible by {m} microbatches")
-        _check_padded(params["blocks"], stages, max_d, per)
         run = _make_run_stage(cfg, _moe_global_capacity(cfg, b * s))
+        if model is not None and group is not None:
+            ndp = _data_shards(mesh, m, b // m, s, d)
+            rows = {"tokens": tokens} if embeds is None else {"tokens": tokens, "embeds": embeds}
+            rows = shard_rows(rows, m, ndp, group.rank // (group.size // ndp))
+            tokens, embeds = rows["tokens"], rows.get("embeds")
+            b = tokens.shape[0]
+        _check_padded(params["blocks"], len(own), max_d, per)
         mb = b // m
-        ndp = _data_shards(mesh, m, mb, s, d)
+        ndp = _data_shards(row_mesh, m, mb, s, d)
         r = mb // ndp
-        layers = _stage_layers(params["blocks"], depths, max_d, per)
-        shared = [_place_all(params.get("shared_attn"), dev) for dev in devices]
-        sched = _Rounds(stages, m + stages - 1)
-        acts, outs = {}, [None] * m
+        layers = _stage_layers(params["blocks"], own, depths, max_d, per)
+        shared = {k: _place_all(params.get("shared_attn"), devices[k]) for k in own}
+        x = tf._embed(params, cfg, tokens, embeds) if 0 in own else None
+        dtype = params["embed"]["table"].dtype
+        sched = _Rounds(len(own), m + stages - 1)
+        inbox, outs = {}, [None] * m
         for t in range(m + stages - 1):
-            for k in range(stages):
+            outbox = {}
+            for k in own:
                 i = t - k
                 if not 0 <= i < m:
                     continue
                 if k == 0:
                     xin = [x[i * mb + j * r:i * mb + (j + 1) * r] for j in range(ndp)]
+                elif model is None:
+                    xin = inbox.pop(("f", k, i))
                 else:
-                    xin = acts.pop((k, i))
+                    xin = [inbox.pop(("f", k, i))]
                 ys = [run(layers[k], xj.to(devices[k]), shared[k])[0] for xj in xin]
-                if k == stages - 1:
+                if k == last:
                     outs[i] = ys
                 else:
-                    acts[(k + 1, i)] = ys
+                    # a stage process's row runs one data shard
+                    outbox[("f", k + 1, i)] = ys if model is None else ys[0]
                 sched.mark(k, t)
+            if model is None:
+                inbox.update(outbox)
+            else:
+                k = model.rank
+                _stage_exchange(
+                    model, t, lambda j: _mb(t - j, m), lambda j: None, outbox, inbox,
+                    lambda: torch.empty((r, s, d), dtype=dtype, device=devices[k]))
         fwd.counts = sched.counts()
+        if last not in own:
+            return None
         dev = params["final_norm"]["scale"].device
         y = torch.cat([yj.to(dev) for ys in outs for yj in ys], dim=0)
         return tf._head(params, cfg, y)
@@ -348,7 +453,7 @@ def _leaves_grad(tree):
 def make_pipeline_loss_and_grad(cfg, mesh, num_microbatches: int = 8,
                                 boundaries=None, schedule: str = "1f1b",
                                 aux_weight: float = 0.01, remat: bool = True,
-                                group=None):
+                                group=None, model=None):
     """Build ``loss_and_grad(params, batch) -> ((loss, metrics), grads)``
     with microbatch gradient accumulation *through* the pipe.
 
@@ -360,7 +465,9 @@ def make_pipeline_loss_and_grad(cfg, mesh, num_microbatches: int = 8,
     re-runs the stage from the stash (per-layer ``checkpoint`` when
     ``remat``), seeds the stage's aux with ``aux_weight / m``, and takes
     the grads of the stage's real layers and of its input, accumulated in
-    f32 in ascending microbatch order.  The embedding runs outside the
+    f32 in ascending microbatch order.  What a unit sends the next stage
+    (an activation forward, an input gradient backward) arrives at the end
+    of the round and is taken the next.  The embedding runs outside the
     pipe, its grad fed by the dX leaving stage 0; a tied table's grad is
     the lookup's plus the head's.  ``grads['blocks']`` comes out padded
     like the params, padding rows exactly zero.
@@ -381,6 +488,21 @@ def make_pipeline_loss_and_grad(cfg, mesh, num_microbatches: int = 8,
     averages them across processes.  An MoE layer's capacity comes from
     the global batch's tokens in either case, so each process drops the
     choices the reference's pipe drops in its data shard.
+
+    With a ``model`` group as well (one process per mesh position; ``group``
+    then its data group, None for one data position) the process is stage
+    ``model.rank`` of its row alone, on its position's device, with
+    ``params['blocks']`` that stage's ``max_depth`` layers
+    (``dist.sharding.place``) and every leaf off 'model' whole.  Its units
+    are the row's stage k's, in the same rounds: activations and input
+    gradients go to the neighbouring stages by point-to-point sends
+    (``dist.collective.send_to`` / ``recv_from``), stage 0 alone embeds
+    and takes the lookup's gradient, the last stage alone runs the CE and
+    the head.  The CE, the aux and the grads of the leaves off 'model'
+    are then summed over the model group (one ``all_reduce``), so that
+    every stage returns the row's loss and those grads; ``grads['blocks']``
+    is the stage's own, padded.  ``loss_and_grad.counts`` is this stage's:
+    the stages' busy and idle rounds sum to :func:`pipeline_bubble_counts`.
     """
     stages = num_stages(mesh)
     if cfg.attn_every or cfg.is_enc_dec:
@@ -405,10 +527,10 @@ def make_pipeline_loss_and_grad(cfg, mesh, num_microbatches: int = 8,
     lag = (stages - 1) if schedule == "1f1b" else (m + stages - 1)
     rounds = lag + m + stages - 1
     tied = cfg.tie_embeddings
+    last = stages - 1
     # across processes the rows are split before the pipe, which then runs
-    # on this process's row: one data shard
-    row_mesh = local_mesh(mesh, group) if group is not None else mesh
-    devices = stage_devices(row_mesh)
+    # on this process's row: one data shard; a stage process runs its stage
+    own, devices, row_mesh = _own_stages(mesh, stages, group, model)
     f32 = torch.float32
 
     def head_loss(hp, y, tg):
@@ -419,24 +541,25 @@ def make_pipeline_loss_and_grad(cfg, mesh, num_microbatches: int = 8,
             return chunked_ce(lambda hh: embedding_logits(hp["embed"], hh), h, tg)
         return chunked_ce(lambda hh: dense_apply(hp["lm_head"], hh), h, tg)
 
-    def shard_units(layers, head, run, xs, ts, sched):
+    def shard_units(layers, head, run, xs, ts, sched, deliver):
         """One data shard through the schedule: per-stage f32 layer grads,
         f32 head grads, the dX of each microbatch, the CE and each
-        stage's aux sum."""
-        last = stages - 1
-        stash = [dict() for _ in range(stages)]
-        fq, bq, dhq, dxq = {}, {}, {}, [None] * m
-        gblocks = [[torch.zeros(p.shape, dtype=f32, device=p.device) for p in leaves(ls)]
-                   for ls in layers]
-        ghead = [torch.zeros(p.shape, dtype=f32, device=p.device) for p in leaves(head)]
-        ce_acc = torch.zeros((), dtype=f32, device=devices[last])
-        aux_acc = [torch.zeros((), dtype=f32, device=dev) for dev in devices]
+        stage's aux sum, for this process's stages."""
+        stash = {k: {} for k in own}
+        inbox, dhq, dxq = {}, {}, [None] * m
+        gblocks = {k: [torch.zeros(p.shape, dtype=f32, device=p.device)
+                       for p in leaves(layers[k])] for k in own}
+        ghead = ([torch.zeros(p.shape, dtype=f32, device=p.device) for p in leaves(head)]
+                 if last in own else None)
+        ce_acc = torch.zeros((), dtype=f32, device=devices[last]) if last in own else None
+        aux_acc = {k: torch.zeros((), dtype=f32, device=devices[k]) for k in own}
         for t in range(rounds):
-            for k in range(stages):
+            outbox = {}
+            for k in own:
                 # ---- forward unit: microbatch t - k
                 i = t - k
                 if 0 <= i < m:
-                    x_in = (xs[i] if k == 0 else fq.pop((k, i))).to(devices[k])
+                    x_in = (xs[i] if k == 0 else inbox.pop(("f", k, i))).to(devices[k])
                     stash[k][i] = x_in
                     with torch.no_grad():
                         y, a = run(layers[k], x_in)
@@ -453,14 +576,14 @@ def make_pipeline_loss_and_grad(cfg, mesh, num_microbatches: int = 8,
                         ghead = [acc + dg.float() for acc, dg in zip(ghead, g[:-1])]
                         dhq[i] = g[-1].to(x_in.dtype)
                     else:
-                        fq[(k + 1, i)] = y
+                        outbox[("f", k + 1, i)] = y
                     sched.mark(k, t)
                 # ---- backward unit: microbatch t - lag - (S - 1 - k),
                 # recomputed from the stashed stage input
                 i = t - lag - (last - k)
                 if 0 <= i < m:
                     x_j = stash[k].pop(i)
-                    dy = dhq.pop(i) if k == last else bq.pop((k, i))
+                    dy = dhq.pop(i) if k == last else inbox.pop(("b", k, i))
                     lflat, lp = _leaves_grad(layers[k])
                     xg = x_j.detach().requires_grad_()
                     with torch.enable_grad():
@@ -475,8 +598,9 @@ def make_pipeline_loss_and_grad(cfg, mesh, num_microbatches: int = 8,
                     if k == 0:
                         dxq[i] = g[-1]
                     else:
-                        bq[(k - 1, i)] = g[-1]
+                        outbox[("b", k - 1, i)] = g[-1]
                     sched.mark(k, t)
+            deliver(t, outbox, inbox)
         return gblocks, ghead, dxq, ce_acc, aux_acc
 
     def loss_and_grad(params, batch):
@@ -491,32 +615,44 @@ def make_pipeline_loss_and_grad(cfg, mesh, num_microbatches: int = 8,
         tokens = batch["tokens"]
         inp_tok, tgt = tokens[:, :-1], tokens[:, 1:]
         table = params["embed"]["table"].detach()
-        x = tf._embed({"embed": {"table": table}}, cfg, inp_tok)
-        b, s, d = x.shape
+        b, s, d = inp_tok.shape[0], inp_tok.shape[1], cfg.d_model
         if b % m:
             raise ValueError(f"batch {b} not divisible by {m} microbatches")
-        _check_padded(params["blocks"], stages, max_d, 1)
+        x = tf._embed({"embed": {"table": table}}, cfg, inp_tok) if 0 in own else None
+        _check_padded(params["blocks"], len(own), max_d, 1)
         mb = b // m
         # the dp factor that survives spec repair: a microbatch that does
         # not divide the data axes replicates, and the dX normalizer is
         # the EFFECTIVE shard count
         ndp = _data_shards(row_mesh, m, mb, s, d)
         r = mb // ndp
-        layers = _stage_layers(params["blocks"], depths, max_d, 1)
+        layers = _stage_layers(params["blocks"], own, depths, max_d, 1)
         head_tree = {"final_norm": params["final_norm"]}
         if tied:
             head_tree["embed"] = params["embed"]
         else:
             head_tree["lm_head"] = params["lm_head"]
-        head = _place_all(head_tree, devices[-1])
-        xd = x.detach()
-        sched = _Rounds(stages, rounds)
+        head = _place_all(head_tree, devices[last]) if last in own else None
+        xd = x.detach() if x is not None else None
+        sched = _Rounds(len(own), rounds)
+        if model is None:
+            def deliver(t, outbox, inbox):
+                inbox.update(outbox)
+        else:
+            def deliver(t, outbox, inbox):
+                _stage_exchange(
+                    model, t, lambda j: _mb(t - j, m), lambda j: _mb(t - lag - (last - j), m),
+                    outbox, inbox,
+                    lambda: torch.empty((r, s, d), dtype=table.dtype, device=devices[own[0]]))
         shards = []
         for j in range(ndp):
             sl = [slice(i * mb + j * r, i * mb + (j + 1) * r) for i in range(m)]
-            shards.append(shard_units(layers, head, run, [xd[q] for q in sl],
-                                      [tgt[q] for q in sl], sched))
+            shards.append(shard_units(layers, head, run,
+                                      [xd[q] for q in sl] if xd is not None else None,
+                                      [tgt[q] for q in sl], sched, deliver))
         loss_and_grad.counts = sched.counts()
+        if model is not None:
+            return stage_result(params, shards[0], inp_tok, table)
 
         # reductions: per-shard grads are d(local-mean loss); the global
         # loss is the mean over data shards, so grads average over them
@@ -536,30 +672,20 @@ def make_pipeline_loss_and_grad(cfg, mesh, num_microbatches: int = 8,
 
         def stage_sum(acc):
             total = acc[0]
-            for a in acc[1:]:
-                total = total + a.to(total.device)
+            for k in range(1, stages):
+                total = total + acc[k].to(total.device)
             return total
 
         aux = mean([stage_sum(sh[4]) for sh in shards]) / m
         dx = torch.cat([sh[2][i] / ndp if ndp > 1 else sh[2][i]
                         for i in range(m) for sh in shards], dim=0)
-        # the lookup's gradient (its backward's index_put_) sums each
-        # token's dX rows in f32, as the stages' grads accumulate: a sum in
-        # a narrower dtype loses a frequent token's low bits, the more the
-        # more rows one call sums (one process over every data shard's
-        # rows, a process of a data group over its own)
-        d_table = torch.zeros(table.shape, dtype=f32, device=table.device).index_put_(
-            (inp_tok.to(table.device),), dx.to(table.device, f32), accumulate=True)
+        d_table = _lookup_grad(table, inp_tok, dx)
         if tied:  # table grad: lookup (outside) + tied logits (in-pipe)
             d_table = d_table + ghead["embed"]["table"]
         gpad = []
         for k, dk in enumerate(depths):
-            real = unflatten(layers[k], gblocks[k])
-            for jj in range(max_d):
-                row = params["blocks"][k * max_d + jj]
-                gpad.append(real[jj] if jj < dk else
-                            tree_map(lambda p: torch.zeros(p.shape, dtype=f32,
-                                                           device=p.device), row))
+            gpad += _padded(unflatten(layers[k], gblocks[k]), params["blocks"][k * max_d:],
+                            dk, max_d)
         grads = {"blocks": gpad, "final_norm": ghead["final_norm"],
                  "embed": {"table": d_table}}
         if not tied:
@@ -567,5 +693,62 @@ def make_pipeline_loss_and_grad(cfg, mesh, num_microbatches: int = 8,
         loss = ce + aux_weight * aux
         return (loss, {"ce": ce, "aux": aux}), grads
 
+    def stage_result(params, shard, inp_tok, table):
+        """A stage process's loss and grads: the CE, the aux and the grads
+        of the leaves off 'model' summed over the model group (each only
+        where it ran: the head's and the CE on the last stage, the
+        lookup's on stage 0), the stage's layer grads padded."""
+        from repro_torch.dist.collective import all_reduce_sum
+
+        gblocks, ghead, dxq, ce_acc, aux_acc = shard
+        k = model.rank
+        dev = devices[k]
+
+        def zeros(p):
+            return torch.zeros(p.shape, dtype=f32, device=dev)
+
+        # this stage's part of each leaf off 'model': the head's grads on
+        # the last stage, the lookup's on stage 0 (a tied table's is the
+        # sum of both, on the two stages that ran them), zeros elsewhere
+        part = {"final_norm": tree_map(zeros, params["final_norm"]),
+                "embed": {"table": zeros(table)}}
+        if not tied:
+            part["lm_head"] = tree_map(zeros, params["lm_head"])
+        if k == last:
+            head = "embed" if tied else "lm_head"
+            part.update(unflatten({"final_norm": params["final_norm"], head: params[head]},
+                                  ghead))
+        if k == 0:
+            dx = torch.cat([dxq[i] for i in range(m)], dim=0)
+            part["embed"] = {"table": _lookup_grad(table, inp_tok, dx)}
+        ce = ce_acc if k == last else torch.zeros((), dtype=f32, device=dev)
+        flat = all_reduce_sum([ce, aux_acc[k]] + leaves(part), model)
+        ce, aux = flat[0], flat[1] / m
+        grads = unflatten(part, flat[2:])
+        grads["blocks"] = _padded(unflatten(params["blocks"][:depths[k]], gblocks[k]),
+                                  params["blocks"], depths[k], max_d)
+        loss = ce + aux_weight * aux
+        return (loss, {"ce": ce, "aux": aux}), grads
+
     loss_and_grad.counts = None
     return loss_and_grad
+
+
+def _lookup_grad(table, inp_tok, dx):
+    """The embedding lookup's gradient: its backward's ``index_put_``,
+    summing each token's dX rows in f32 as the stages' grads accumulate (a
+    sum in a narrower dtype loses a frequent token's low bits, the more
+    the more rows one call sums)."""
+    return torch.zeros(table.shape, dtype=torch.float32, device=table.device).index_put_(
+        (inp_tok.to(table.device),), dx.to(table.device, torch.float32), accumulate=True)
+
+
+def _padded(real: list, rows: list, depth: int, max_d: int) -> list:
+    """A stage's layer grads padded to ``max_d`` rows: its ``depth`` real
+    layers' grads, then exact zeros shaped as the padding ``rows``."""
+    out = []
+    for jj in range(max_d):
+        out.append(real[jj] if jj < depth else
+                   tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                  device=p.device), rows[jj]))
+    return out

@@ -39,7 +39,8 @@ list's length, else ``None``).
 mesh row, :func:`local_mesh`) this process's FSDP slices
 (:func:`data_shards`) on its row; with a model group as well (one process
 per mesh position) also its slices of every dim split over 'model'
-(:func:`model_shards`), on its own device (:func:`position_device`).
+(:func:`model_shards`) and, under ``pipeline``, its stage's layers
+(:func:`stage_slice`), on its own device (:func:`position_device`).
 Eager PyTorch has no sharding constraint: the collectives that the
 reference's activation hints (``hint``, ``hint_dp``) lead XLA to insert
 are written by hand in :mod:`repro_torch.dist.tensor`.
@@ -476,6 +477,35 @@ def stage_devices(mesh) -> list:
     return out
 
 
+def stage_slice(tree, specs, model):
+    """``tree`` with every per-layer list whose layer axis is on 'model'
+    (``LayerSpecs.layer == "model"``: the pipeline's layout) cut to stage
+    ``model.rank``'s contiguous ``len / model.size`` layers, the slice a
+    process per mesh position holds under ``pipeline``.  ``tree`` may be
+    ``specs`` itself: its cut lists stay :class:`LayerSpecs`.  The identity
+    without a model group, and for a tree with no such list."""
+    if model is None:
+        return tree
+
+    def walk(node, spec):
+        if isinstance(node, dict):
+            return {k: walk(v, spec[k]) for k, v in node.items()}
+        if _is_named_tuple(node):
+            return type(node)(*[walk(getattr(node, f), getattr(spec, f)) for f in node._fields])
+        if isinstance(node, list):
+            if getattr(spec, "layer", None) != MDL:
+                return node
+            per, k = len(node) // model.size, model.rank
+            out = node[k * per:(k + 1) * per]
+            if isinstance(node, LayerSpecs):
+                out = LayerSpecs(out)
+                out.layer = node.layer
+            return out
+        return node
+
+    return walk(tree, specs)
+
+
 def _mentions_model(specs) -> bool:
     if isinstance(specs, dict):
         return any(_mentions_model(v) for v in specs.values())
@@ -499,7 +529,10 @@ def place(tree, specs, mesh, group=None, model=None):
     With a ``model`` group (``dist.collective.mesh_groups``: one process
     per mesh position; ``group`` its data group, None for one data
     position) each leaf also keeps its slice of the dim split over 'model'
-    (:func:`model_shards`), and everything goes to this position's device.
+    (:func:`model_shards`), each per-layer list on 'model' its stage's
+    layers (:func:`stage_slice`, under ``pipeline``: the leaves off
+    'model', embed, final norm and head, stay whole but for their data
+    slices), and everything goes to this position's device.
 
     On a mesh (or row) of one device, however often it is listed, every
     tensor moves there — the identity for a tree already on it.  On a row
@@ -514,6 +547,7 @@ def place(tree, specs, mesh, group=None, model=None):
     if model is not None:
         from repro_torch.dist.collective import slice_tree
 
+        tree, specs = stage_slice(tree, specs, model), stage_slice(specs, specs, model)
         tree = slice_tree(tree, data_shards(specs, mesh), group)
         tree = slice_tree(tree, model_shards(specs, mesh), model)
         return _place_all(tree, position_device(mesh, group, model))

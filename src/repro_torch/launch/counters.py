@@ -24,12 +24,15 @@ threads it starts:
   read and write in device memory, not XLA's post-fusion estimate;
 * ``collective_bytes``: per c10d op, the bytes of the tensors of its first
   argument (its result on this process: an all-gather's gathered output,
-  an all-reduce's tensors, a reduce-scatter's output shard), under the
-  reference's kind (``KINDS``), an op of another kind under its own c10d
-  name, and ``total``.  They count in neither of the two above, and
-  neither does a backend's copy into a collective's result as it completes
-  (gloo's reduce-scatter copies its output out in ``wait``; ``fake`` and
-  NCCL make none);
+  an all-reduce's tensors, a reduce-scatter's output shard, a ``recv``'s
+  buffer), under the reference's kind (``KINDS``; a pipeline stage's
+  ``recv`` is a ``collective-permute``, the reference's per-device
+  result-shape count of its ``ppermute``), an op of another kind under its
+  own c10d name, and ``total``.  A ``send`` counts nothing: its bytes are
+  its receiver's result, so a transfer counts once, where it lands.  They
+  count in neither of the two above, and neither does a backend's copy
+  into a collective's result as it completes (gloo's reduce-scatter copies
+  its output out in ``wait``; ``fake`` and NCCL make none);
 * the live storage bytes on the step's device (the first argument
   tensor's): every storage there that an op returns and
   none of its inputs holds (a tensor constructor's fresh result
@@ -64,7 +67,10 @@ _C10D_KINDS = {
     "_reduce_scatter_base_": "reduce-scatter", "reduce_scatter_": "reduce-scatter",
     "reduce_scatter_tensor_coalesced_": "reduce-scatter",
     "alltoall_base_": "all-to-all", "alltoall_": "all-to-all",
+    "recv_": "collective-permute",
 }
+#: c10d ops whose bytes are another process's result (module docstring)
+_UNCOUNTED = frozenset({"send"})
 #: ops that allocate and touch nothing
 _BARE = frozenset({"empty", "empty_strided", "new_empty", "new_empty_strided", "empty_like"})
 
@@ -155,10 +161,11 @@ class Counters(TorchDispatchMode):
         name = func._schema.name
         if name.startswith("c10d::"):
             op = name[len("c10d::"):]
-            kind = _C10D_KINDS.get(op, op)
-            nbytes = sum(t.nbytes for t in _tensors(args[0] if args else ()))
-            with self._lock:
-                self.collective[kind] = self.collective.get(kind, 0) + nbytes
+            if op not in _UNCOUNTED:
+                kind = _C10D_KINDS.get(op, op)
+                nbytes = sum(t.nbytes for t in _tensors(args[0] if args else ()))
+                with self._lock:
+                    self.collective[kind] = self.collective.get(kind, 0) + nbytes
             self._landing = {_key(t) for t in _tensors(args[0] if args else ())}
         elif not func.is_view and func.overloadpacket.__name__ not in _BARE:
             if not (func is torch.ops.aten.copy_.default and _key(args[0]) in self._landing):

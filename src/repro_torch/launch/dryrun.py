@@ -21,8 +21,10 @@ each cell this module:
      process (``dist.collective.fake_world``; a process that has a default
      group raises) and forms rank 0's groups by the launchers' rule
      (``launch.mesh.per_position``): one process per mesh position under
-     ``fused`` / ``ai_core_assignment`` with a 'model' axis of 2 or more,
-     else one per data position (``dist.collective.subgroups``);
+     ``fused`` / ``ai_core_assignment`` / ``pipeline`` with a 'model' axis
+     of 2 or more (under ``pipeline`` one process a stage, holding its
+     stage's layers and sending to its neighbours), else one per data
+     position (``dist.collective.subgroups``);
   4. places rank 0's slices of the inputs (``place(tree, specs, mesh, data,
      model)``) and checks their storage bytes against ``arg_bytes``; as the
      launchers do, a train step takes the GLOBAL batch (each process takes
@@ -43,11 +45,10 @@ reports its analytic work; ``route="plain"`` takes the plain versions, the
 CPU's path, which the tests hold to real processes.
 
 A record holds ``arch``, ``shape``, ``mesh``, ``strategy``, ``status``,
-``position`` (``"mesh"``: rank 0 of one process per mesh position;
-``"data"``: of one per data position; ``"row"``: a pipeline row process,
-whose stages all run in it, so its figures are the row's), ``route``,
-``stand_in: "meta"``, ``kernel_calls`` (wrapper calls on ``meta``), and
-the reference's per-device keys:
+``position`` (``"mesh"``: rank 0 of one process per mesh position, under
+``pipeline`` stage 0 of row 0; ``"data"``: of one per data position),
+``route``, ``stand_in: "meta"``, ``kernel_calls`` (wrapper calls on
+``meta``), and the reference's per-device keys:
 
   * ``arg_bytes`` (above);
   * ``output_bytes``: the bytes of the step's outputs that share no
@@ -60,8 +61,7 @@ the reference's per-device keys:
     = per_device_mem_bytes - arg_bytes - output_bytes``, the reference's
     algebra.  What the process holds beyond ``arg_bytes`` counts in
     ``temp_bytes``: the global train batch's other rows, a serving
-    process's params gathered whole over the data group, a pipeline row's
-    other stages;
+    process's params gathered whole over the data group;
   * ``flops``: this position's operations (``FlopCounterMode``'s aten count
     plus each kernel call's analytic count), not the whole step's;
   * ``bytes_accessed``: the bytes the eager ops read and write (the
@@ -70,7 +70,16 @@ the reference's per-device keys:
   * ``collective_bytes``: this position's c10d results by the reference's
     five kinds plus ``total`` (another kind under its c10d name).  Under
     ``fused`` a train step all-gathers the params whole at its start; a
-    serving step has no param gather (the load's runs once).
+    serving step has no param gather (the load's runs once); a pipeline
+    stage's ``collective-permute`` is what it receives, m activations
+    from stage k - 1 and m gradients from stage k + 1, ``mb x S x D``
+    each (the reference's ring moves both every round, idle ones too).
+
+Under ``pipeline`` the record also holds ``per_stage``: those per-device
+keys (and ``stage``) for each stage of row 0, ranks 0 .. S - 1, each run
+in a fake world of its own; the verbose line names the stage with the
+largest ``per_device_mem_bytes``, the one that decides whether the cell
+fits a card.
 
 ``lower_s`` and ``compile_s`` are left out: there is no compiler.  A family
 whose path reads a value on ``meta`` (``.item()``, a data-dependent shape)
@@ -108,6 +117,7 @@ from repro_torch.dist.sharding import (
     model_shards,
     param_specs,
     place,
+    stage_slice,
 )
 from repro_torch.ft.elastic import state_shardings
 from repro_torch.launch import specs as specs_mod
@@ -178,13 +188,14 @@ class Cell:
     the GLOBAL argument trees (``meta`` or any device) and one spec tree
     each; ``grad_accum`` and the pipeline's ``boundaries`` for train;
     ``extra`` names a prefill's last argument (``"embeds"`` / ``"frames"``)
-    where it has one."""
+    where it has one; ``schedule`` a pipeline's."""
     kind: str
     args: tuple
     specs: tuple
     grad_accum: int = 1
     boundaries: tuple | None = None
     extra: str | None = None
+    schedule: str = "1f1b"
 
 
 def cell_inputs(cfg, shape_name: str, mesh, strategy: str = "fused",
@@ -252,12 +263,14 @@ def position_step(cfg, cell: Cell, mesh, strategy: str, data, model):
     from repro_torch.train.step import make_pipeline_train_step, make_train_step
 
     if cell.kind == "train":
-        specs = cell.specs[0]
+        # what this process holds (a pipeline stage process: its layers)
+        specs = stage_slice(cell.specs[0], cell.specs[0], model)
         shards = data_shards(specs, mesh)["params"] if data is not None else None
         if strategy == "pipeline":
             return make_pipeline_train_step(
                 cfg, AdamWConfig(), mesh, num_microbatches=max(cell.grad_accum, 1),
-                boundaries=cell.boundaries, group=data, shards=shards)
+                boundaries=cell.boundaries, schedule=cell.schedule, group=data, shards=shards,
+                model=model)
         mshards = model_shards(specs, mesh)["params"] if model is not None else None
         return make_train_step(cfg, AdamWConfig(), grad_accum=cell.grad_accum, group=data,
                                shards=shards, model=model, model_shards=mshards)
@@ -278,26 +291,24 @@ def position_step(cfg, cell: Cell, mesh, strategy: str, data, model):
 
 
 def run_position(cfg, cell: Cell, mesh, strategy: str = "fused", *,
-                 route: str = "kernel") -> dict:
-    """Rank 0's step of ``cell`` on ``mesh`` in a fake world (module
+                 route: str = "kernel", rank: int = 0) -> dict:
+    """Rank ``rank``'s step of ``cell`` on ``mesh`` in a fake world (module
     docstring, 3-5): the counters' record (``launch.counters``) with
     ``arg_bytes`` (the reference's), ``held_ints`` (``LEN_BYTES`` a host
     int of the arguments) and ``position``."""
     expect = [tree_bytes(a, s, mesh) for a, s in zip(cell.args, cell.specs)]
-    world = collective.fake_world(mesh.size)
+    world = collective.fake_world(mesh.size, rank)
     try:
-        data, model, _ = collective.subgroups(mesh, 0, collective.FAKE,
+        data, model, _ = collective.subgroups(mesh, rank, collective.FAKE,
                                               per_position(mesh, strategy))
         # this process's slices (module docstring, 4); the train batch global
         batch = 1 if cell.kind == "train" else None
         placed = [tree if i == batch else place(tree, specs, mesh, data, model)
                   for i, (tree, specs) in enumerate(zip(cell.args, cell.specs))]
-        # a pipeline row holds its row's stages
         for i, (tree, want) in enumerate(zip(placed, expect)):
-            if strategy != "pipeline" and i != batch:
-                if held_bytes(tree) != want:
-                    raise RuntimeError(f"rank 0's placed argument {i} holds "
-                                       f"{held_bytes(tree)} B where its specs give {want} B")
+            if i != batch and held_bytes(tree) != want:
+                raise RuntimeError(f"rank {rank}'s placed argument {i} holds "
+                                   f"{held_bytes(tree)} B where its specs give {want} B")
         if cell.kind != "train":
             # a serving process gathers its FSDP slices whole at load
             placed[0] = collective.gather_tree(placed[0], data_shards(cell.specs[0], mesh),
@@ -310,34 +321,49 @@ def run_position(cfg, cell: Cell, mesh, strategy: str = "fused", *,
         del out, placed, step
     finally:
         collective.close(world)
-    position = ("row" if strategy == "pipeline" else
-                "mesh" if per_position(mesh, strategy) else "data")
-    rec.update(arg_bytes=sum(expect), position=position,
+    position = "mesh" if per_position(mesh, strategy) else "data"
+    rec.update(arg_bytes=sum(expect), position=position, rank=rank,
                held_ints=held_bytes(cell.args) - sum(storages(cell.args).values()))
     return rec
 
 
+def per_device(r: dict) -> dict:
+    """The reference's per-device keys of a :func:`run_position` record."""
+    peak = r["peak_bytes"] + r["held_ints"]
+    return dict(arg_bytes=r["arg_bytes"], output_bytes=r["output_bytes"],
+                temp_bytes=peak - r["arg_bytes"] - r["output_bytes"],
+                per_device_mem_bytes=peak, flops=r["flops"],
+                bytes_accessed=r["bytes_accessed"], collective_bytes=r["collective_bytes"])
+
+
 def cell_record(cfg, shape_name: str, mesh, strategy: str = "fused",
                 grad_accum: int | None = None, verbose: bool = True) -> dict:
-    """One cell's record (module docstring)."""
+    """One cell's record (module docstring); under ``pipeline`` with one
+    process a stage, ``per_stage`` holds each stage of row 0's."""
     head = {"arch": cfg.name, "shape": shape_name, "mesh": _mesh_name(mesh)}
     reason = skip_reason(cfg, shape_name, strategy)
     if reason is not None:
         return dict(head, status="skipped", reason=reason)
     cell = cell_inputs(cfg, shape_name, mesh, strategy, grad_accum)
     r = run_position(cfg, cell, mesh, strategy)
-    peak = r["peak_bytes"] + r["held_ints"]
     rec = dict(head, strategy=strategy, status="ok", position=r["position"], route="kernel",
-               arg_bytes=r["arg_bytes"], output_bytes=r["output_bytes"],
-               temp_bytes=peak - r["arg_bytes"] - r["output_bytes"],
-               per_device_mem_bytes=peak, flops=r["flops"],
-               bytes_accessed=r["bytes_accessed"], collective_bytes=r["collective_bytes"],
-               kernel_calls=r["kernel_calls"], stand_in="meta")
+               **per_device(r), kernel_calls=r["kernel_calls"], stand_in="meta")
+    if strategy == "pipeline" and per_position(mesh, strategy):
+        # row 0's stages: ranks 0 .. S - 1, each in a fake world of its own
+        rec["per_stage"] = [dict(stage=0, **per_device(r))] + [
+            dict(stage=k, **per_device(run_position(cfg, cell, mesh, strategy, rank=k)))
+            for k in range(1, mesh.shape["model"])]
     if verbose:
         print(f"[dryrun] {cfg.name} x {shape_name} x {rec['mesh']} ({strategy}, "
               f"{rec['position']} rank 0, meta): temp {rec['temp_bytes'] / GIB:.2f} GiB/dev, "
-              f"peak {peak / GIB:.2f} GiB/dev, flops {rec['flops']:.3g}, "
-              f"coll {rec['collective_bytes']['total'] / MIB:.1f} MiB/dev")
+              f"peak {rec['per_device_mem_bytes'] / GIB:.2f} GiB/dev, flops "
+              f"{rec['flops']:.3g}, coll {rec['collective_bytes']['total'] / MIB:.1f} MiB/dev")
+        if "per_stage" in rec:
+            top = max(rec["per_stage"], key=lambda x: x["per_device_mem_bytes"])
+            print(f"[dryrun]   per stage: the largest peak is stage {top['stage']}'s, "
+                  f"{top['per_device_mem_bytes'] / GIB:.2f} GiB/dev (temp "
+                  f"{top['temp_bytes'] / GIB:.2f}, flops {top['flops']:.3g}, coll "
+                  f"{top['collective_bytes']['total'] / MIB:.1f} MiB/dev)")
     return rec
 
 

@@ -69,12 +69,12 @@ def launch_mesh(device: torch.device, group_size: int, production: bool = False)
 def layouts(mesh, module: str) -> str:
     """The torchrun commands that run ``mesh``: one process per data
     position, and where the mesh has a 'model' axis one per mesh position
-    (tensor and expert parallelism)."""
+    (tensor and expert parallelism, or one process a pipeline stage)."""
     n = data_positions(mesh)
     out = f"one process per data position, torchrun --nproc-per-node {n} -m {module} ..."
     if mesh.shape.get(MDL, 1) > 1:
-        out += (f"; or one process per mesh position (--strategy ai_core_assignment or "
-                f"fused), torchrun --nproc-per-node {mesh.size} -m {module} ...")
+        out += (f"; or one process per mesh position (--strategy ai_core_assignment, "
+                f"fused or pipeline), torchrun --nproc-per-node {mesh.size} -m {module} ...")
     return out
 
 
@@ -94,19 +94,24 @@ def refuse_lone_process(mesh, module: str, strategy: str | None = None) -> None:
 
 
 def per_position(mesh, strategy: str) -> bool:
-    """Whether ``strategy`` on ``mesh`` runs one process per mesh position
-    (ai_core_assignment or fused with a 'model' axis of 2 or more) rather
-    than one per data position."""
-    return strategy in TP_STRATEGIES and mesh.shape.get(MDL, 1) > 1
+    """Whether ``strategy`` on ``mesh`` can run one process per mesh
+    position (ai_core_assignment, fused or pipeline with a 'model' axis of
+    2 or more: tensor and expert parallelism, or one process a pipeline
+    stage) rather than one per data position.  Over distinct devices
+    ai_core_assignment and fused must (:func:`refuse_lone_process`); the
+    pipeline may also run its row layout, one process per data position
+    driving its row's stages."""
+    return strategy in TP_STRATEGIES + ("pipeline",) and mesh.shape.get(MDL, 1) > 1
 
 
 def join_groups(mesh, strategy: str, module: str):
     """This process's ``(data, model)`` groups for the launcher's world
     (``dist.collective``): none for one process (which must fit the mesh,
     :func:`refuse_lone_process`), a data group for one process per data
-    position, both for one process per mesh position under
-    ai_core_assignment or fused.  Any other world exits naming both
-    commands."""
+    position (under pipeline the row layout: each process drives its
+    row's stages), both for one process per mesh position under
+    ai_core_assignment, fused or pipeline (one process a stage).  Any
+    other world exits naming both commands."""
     from repro_torch.dist.collective import data_group, mesh_groups, requested_world
 
     world = requested_world()

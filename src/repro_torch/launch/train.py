@@ -4,6 +4,7 @@
     python -m repro_torch.launch.train --strategy pipeline --seq 512 --batch 4
     python -m repro_torch.launch.train --device cpu --smoke --steps 4 --seq 32 --batch 2
     torchrun --nproc-per-node 2 -m repro_torch.launch.train --seq 512 --batch 4
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --strategy pipeline --seq 512
 
 Runs the reference's unsupervised loop: a mesh from
 ``ft.elastic.make_mesh_for`` over the devices of ``--device`` (all the
@@ -24,18 +25,21 @@ and runs ``train.step.make_pipeline_train_step`` under
 
 Across cards it runs one process per data position of the mesh, under
 ``torchrun --nproc-per-node <positions>`` (``dist.collective.data_group``
-reads torchrun's environment), or under ``ai_core_assignment`` /
-``fused`` one process per mesh position, ``torchrun --nproc-per-node
-<mesh size>`` (``dist.collective.mesh_groups``: tensor and expert
-parallelism over the 'model' axis, ``dist.tensor``): each process draws
-the same global batch and trains on its rows with its slices, and only
-process 0 prints the reference's lines (the ``mesh`` line shows the
-global mesh) and writes checkpoints, in today's format, of the state
-gathered whole over both groups; every process restores a checkpoint
-whole and keeps its slices.  Run alone on a mesh with several data
-positions, or a 'model' axis it would split, over distinct cards it
-exits naming the torchrun commands, and so does any other world;
-``--device cpu`` under torchrun lists the CPU once per process.  It runs on the CUDA card
+reads torchrun's environment; under ``pipeline`` each process drives its
+row's stages), or under ``ai_core_assignment`` / ``fused`` / ``pipeline``
+one process per mesh position, ``torchrun --nproc-per-node <mesh size>``
+(``dist.collective.mesh_groups``: tensor and expert parallelism over the
+'model' axis, ``dist.tensor``, or one process a pipeline stage, its
+neighbours fed by point-to-point sends): each process draws the same
+global batch and trains on its rows with its slices (a stage its own
+layers), and only process 0 prints the reference's lines (the ``mesh``
+line shows the global mesh) and writes checkpoints, in today's format, of
+the state gathered whole over both groups (a pipeline's stages' layers
+too); every process restores a checkpoint whole and keeps its slices.
+Run alone on a mesh with several data positions, or a 'model' axis it
+would split, over distinct cards it exits naming the torchrun commands,
+and so does any other world; ``--device cpu`` under torchrun lists the
+CPU once per process.  It runs on the CUDA card
 by default; ``--device cpu`` runs the same path on the CPU with the
 kernels' plain versions, and nothing falls back.  On the card the attention of a sequence shorter than 512 tokens
 (``FLASH_MIN_SEQ``) runs no kernel: the reference's default ``--seq
@@ -71,6 +75,7 @@ from repro_torch.data.pipeline import Prefetcher, SyntheticLM
 from repro_torch.dist.collective import (
     barrier,
     close,
+    gather_stages_first,
     gather_tree_first,
     process_index,
     requested_world,
@@ -80,6 +85,7 @@ from repro_torch.dist.sharding import (
     data_shards,
     model_shards,
     place,
+    stage_slice,
 )
 from repro_torch.ft.checkpoint import AsyncCheckpointer, latest_step, restore
 from repro_torch.ft.elastic import state_shardings
@@ -228,13 +234,15 @@ def run(cfg, args, device):
     else:
         state = init_state(cfg, generator=gen, dtype=torch.float32, device=device)
     specs = state_shardings(state, mesh, args.strategy)
-    shards = data_shards(specs, mesh) if group is not None else None
-    mshards = model_shards(specs, mesh) if model is not None else None
+    # what this process holds: a pipeline stage process its stage's layers
+    local = stage_slice(specs, specs, model)
+    shards = data_shards(local, mesh) if group is not None else None
+    mshards = model_shards(local, mesh) if model is not None else None
     pshards = shards["params"] if shards is not None else None
     if args.strategy == "pipeline":
         step_fn = make_pipeline_train_step(
             cfg, opt, mesh, num_microbatches=microbatches, boundaries=boundaries,
-            schedule=args.pipeline_schedule, group=group, shards=pshards)
+            schedule=args.pipeline_schedule, group=group, shards=pshards, model=model)
     else:
         step_fn = make_train_step(cfg, opt, grad_accum=args.grad_accum, group=group,
                                   shards=pshards, model=model,
@@ -272,6 +280,7 @@ def run(cfg, args, device):
                 whole = gather_tree_first(state, shards, group)
                 if process_index(group) == 0:
                     whole = gather_tree_first(whole, mshards, model)
+                    whole = gather_stages_first(whole, specs, model)
                 if ckpt:
                     ckpt.save(whole, step + 1)
                 del whole

@@ -27,9 +27,10 @@ tokens across the data group (``models.moe``).
 ``make_pipeline_train_step`` is the pipeline-parallel sibling: the same
 microbatch grad accumulation, but *through* the pipe of
 :mod:`repro_torch.dist.pipeline` (uneven stage cuts, gpipe or 1f1b
-schedule).  Its state must be created with ``init_pipeline_state`` (or
-padded with ``pad_pipeline_state``) so the block list carries the padded
-per-stage layout.
+schedule), one process a row or (``model``) one process a stage.  Its
+state must be created with ``init_pipeline_state`` (or padded with
+``pad_pipeline_state``) so the block list carries the padded per-stage
+layout.
 """
 
 from __future__ import annotations
@@ -281,7 +282,8 @@ def repad_pipeline_state(state, cfg, old_boundaries, new_boundaries):
 def make_pipeline_train_step(cfg, opt_cfg: adamw.AdamWConfig, mesh, *,
                              num_microbatches: int = 8, boundaries=None,
                              schedule: str = "1f1b", aux_weight: float = 0.01,
-                             remat: bool = True, compress=None, group=None, shards=None):
+                             remat: bool = True, compress=None, group=None, shards=None,
+                             model=None):
     """Pipeline-parallel ``train_step(state, batch) -> (state, metrics)``.
 
     Microbatch gradient accumulation runs *through* the pipe
@@ -299,12 +301,28 @@ def make_pipeline_train_step(cfg, opt_cfg: adamw.AdamWConfig, mesh, *,
     reference's pipe does: each data position its own microbatch rows,
     against a capacity sized from the global batch, the aux loss averaged
     over the data positions.
+
+    With a ``model`` group (one process per mesh position: the process is
+    one pipeline stage of its row, ``dist.collective.mesh_groups``; its
+    state placed by ``dist.sharding.place``, the stage's layers and every
+    leaf off 'model') the pipe runs the stage alone and sums the grads of
+    the leaves off 'model' over the stages (``make_pipeline_loss_and_grad``);
+    each stage's layer grads stay its own.  The clipping norm sums each
+    stage's layers over the model group and counts each leaf off 'model'
+    once, and AdamW updates this process's leaves: those off 'model' stay
+    equal on every stage.  ``shards`` are then the data shards of the
+    stage's specs (``dist.sharding.stage_slice``), each stage averaging
+    over its own data group.  No compressor runs in this layout.
     """
     from repro_torch.dist.pipeline import make_pipeline_loss_and_grad
 
+    if model is not None and compress is not None:
+        raise NotImplementedError("a gradient compressor under one process per pipeline "
+                                  "stage is not ported: run the row layout (one process "
+                                  "per data position)")
     loss_grad = make_pipeline_loss_and_grad(
         cfg, mesh, num_microbatches=num_microbatches, boundaries=boundaries,
-        schedule=schedule, aux_weight=aux_weight, remat=remat, group=group)
+        schedule=schedule, aux_weight=aux_weight, remat=remat, group=group, model=model)
 
     def train_step(state, batch):
         params = state["params"]
@@ -313,7 +331,13 @@ def make_pipeline_train_step(cfg, opt_cfg: adamw.AdamWConfig, mesh, *,
 
             params = collective.gather_tree(params, shards, group)
         (loss, metrics), grads = loss_grad(params, batch)
-        return _update(opt_cfg, state, loss, metrics, grads, compress, group, shards)
+        own = None
+        if model is not None:
+            # a stage's layers are its own: summed over the stages once each
+            own = {k: tree_map(lambda _: (0, model.size) if k == "blocks" else None, v)
+                   for k, v in grads.items()}
+        return _update(opt_cfg, state, loss, metrics, grads, compress, group, shards, model,
+                       own)
 
     train_step.loss_and_grad = loss_grad
     return train_step

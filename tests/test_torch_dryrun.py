@@ -21,8 +21,11 @@ reference's XLA dry-run.
   XLA's figure also counts its output tuple's table, 8 bytes a leaf of
   the reference's (stacked) tree.  It differs, by design, on the serving
   cells (the port writes its caches in place, so they are no output; the
-  reference's donated caches are) and on the pipeline (the port's record
-  is a row process's, all its stages; the reference's one device's).
+  reference's donated caches are).  The pipeline's record is one process
+  a stage's (rank 0, stage 0 of row 0, as the reference's per-device
+  figures are one stage's), with ``per_stage``, the same keys for each of
+  row 0's 4 stages: each stage's ``arg_bytes`` and ``output_bytes``
+  equal XLA's (the latter, as on the other train cells, less its table).
   ``temp_bytes``, ``flops`` and the collectives differ by design: the port
   runs its eager program (no fusion, no donation, the global batch and
   ``fused``'s whole-param gathers in each process, collectives written by
@@ -53,9 +56,11 @@ from repro_torch.launch.counters import KINDS  # noqa: E402
 META = torch.device("meta")
 CELLS = [(s, k) for s in ("fused", "ai_core_assignment", "scatter_gather")
          for k in ("train_4k", "prefill_32k", "decode_32k")] + [("pipeline", "train_4k")]
+#: the reference's per-device keys, a pipeline's ``per_stage`` records
+STAGE_KEYS = {"arg_bytes", "output_bytes", "temp_bytes", "per_device_mem_bytes", "flops",
+              "bytes_accessed", "collective_bytes"}
 RECORD_KEYS = {"arch", "shape", "mesh", "strategy", "status", "position", "route",
-               "arg_bytes", "output_bytes", "temp_bytes", "per_device_mem_bytes", "flops",
-               "bytes_accessed", "collective_bytes", "kernel_calls", "stand_in"}
+               "kernel_calls", "stand_in"} | STAGE_KEYS
 
 _REF_SCRIPT = r"""
 import json, sys
@@ -147,12 +152,31 @@ def test_arg_bytes_equal_reference(reference, strategy, shape):
     for kind in KINDS:
         print(f"{strategy} x {shape} {kind} bytes: port {rec['collective_bytes'][kind]}, "
               f"reference {want['collective_bytes'][kind]}")
-    if SHAPES[shape].kind == "train" and strategy != "pipeline":
-        # the same tree (the new state and the metrics) on one position; XLA
-        # also counts its output tuple's table, 8 bytes a leaf
+    if SHAPES[shape].kind == "train":
+        # the same tree (the new state and the metrics) on one position (a
+        # pipeline's: one stage's layers); XLA also counts its output
+        # tuple's table, 8 bytes a leaf
         assert rec["output_bytes"] + 8 * want["out_leaves"] == want["output_bytes"]
     assert rec["per_device_mem_bytes"] == (rec["arg_bytes"] + rec["output_bytes"]
                                            + rec["temp_bytes"])
+    if strategy == "pipeline":
+        # one process a stage: rank 0 is stage 0, and every stage of row 0
+        # holds the reference's per-device arguments
+        assert rec["position"] == "mesh" and set(rec) == RECORD_KEYS | {"per_stage"}
+        assert [r["stage"] for r in rec["per_stage"]] == list(range(4))
+        assert {k: v for k, v in rec["per_stage"][0].items() if k != "stage"} == {
+            k: rec[k] for k in STAGE_KEYS}
+        for r in rec["per_stage"]:
+            assert set(r) == STAGE_KEYS | {"stage"}
+            assert r["arg_bytes"] == want["arg_bytes"], r
+            assert r["output_bytes"] + 8 * want["out_leaves"] == want["output_bytes"], r
+            assert r["per_device_mem_bytes"] == (r["arg_bytes"] + r["output_bytes"]
+                                                 + r["temp_bytes"])
+            print(f"pipeline stage {r['stage']}: output {r['output_bytes']}, temp "
+                  f"{r['temp_bytes']}, flops {r['flops']}, permute "
+                  f"{r['collective_bytes']['collective-permute']}")
+    else:
+        assert set(rec) == RECORD_KEYS
 
 
 def test_record_keys_and_skips():

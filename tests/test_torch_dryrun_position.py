@@ -13,6 +13,12 @@ the kernel wrappers' ``meta`` routes.
   mesh's size) equals rank 0's exactly in ``flops``, ``bytes_accessed``,
   ``collective_bytes`` by kind, ``output_bytes`` and the peak of live
   bytes; its ``arg_bytes`` equals ``tree_bytes`` of the specs.
+* The pipeline, one process a stage: one AdamW train step of 2
+  microbatches under 1F1B on (1, 2) and GPipe on (2, 2).  Every rank's
+  stand-in record (rank r of its own fake world) equals that process's in
+  the same keys, its ``collective-permute`` (the activations and
+  gradients it receives) included, and its placed state its specs'
+  ``arg_bytes``.
 * Each wrapper's ``meta`` route (flash, dense decode, paged decode, the
   VTA GEMM's three epilogues, the ALU) returns the shapes and dtypes of its
   plain version at the families' shapes, counts no launch and reports its
@@ -42,6 +48,7 @@ from repro_torch.dist.sharding import (  # noqa: E402
     model_shards,
     param_specs,
     place,
+    stage_slice,
 )
 from repro_torch.ft.elastic import state_shardings  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -52,7 +59,11 @@ from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.serve.step import make_serve_step  # noqa: E402
-from repro_torch.train.step import init_state, make_train_step  # noqa: E402
+from repro_torch.train.step import (  # noqa: E402
+    init_state,
+    make_pipeline_train_step,
+    make_train_step,
+)
 
 # the kernels' modules (the package exports functions of the same names)
 fa, da, gemm, alu = (importlib.import_module(f"repro_torch.kernels.{m}") for m in (
@@ -62,6 +73,10 @@ B, S, MAX_LEN, FILLED = 4, 16, 24, 7
 #: (kind, strategy, mesh shape)
 CASES = [("train", "ai_core_assignment", (1, 2)), ("train", "fused", (2, 1)),
          ("train", "fused", (2, 2)), ("decode", "ai_core_assignment", (1, 2))]
+#: the pipeline's cells, one process a stage: (mesh shape, schedule), 2
+#: microbatches
+PIPE_CASES = [((1, 2), "1f1b"), ((2, 2), "gpipe")]
+PIPE_M = 2
 SPAWN_TIMEOUT = 120
 COMPARED = ("flops", "bytes_accessed", "collective_bytes", "output_bytes", "peak_bytes")
 
@@ -95,11 +110,19 @@ def _inputs(kind, strategy, mesh, device):
                                       data_specs(tokens, mesh), cache_specs(caches, mesh))
 
 
+def _pipe_cell(shape, schedule, device):
+    """A pipeline cell's mesh and ``dryrun.Cell`` on ``device``."""
+    mesh = _mesh(shape, device)
+    args, specs = _inputs("train", "pipeline", mesh, device)
+    return mesh, dryrun.Cell("train", args, specs, grad_accum=PIPE_M, schedule=schedule)
+
+
 def _child(rank, nprocs, init_method, out, cases):
     """One process of a mesh: each case's step on its slices, measured."""
     torch.set_num_threads(1)
     recs = []
-    for kind, strategy, shape in cases:
+    for case in cases:
+        kind, strategy, shape = case[:3]
         mesh = _mesh(shape, CPU)
         if per_position(mesh, strategy):
             data, model = collective.mesh_groups(mesh, init_method=init_method, rank=rank,
@@ -110,7 +133,18 @@ def _child(rank, nprocs, init_method, out, cases):
             model = None
         (args, specs) = _inputs(kind, strategy, mesh, CPU)
         cfg = _cfg()
-        if kind == "train":
+        if strategy == "pipeline":
+            # the launchers' stage process: its stage's layers and data slices
+            state, batch = args
+            local = stage_slice(specs[0], specs[0], model)
+            shards = data_shards(local, mesh)["params"] if data is not None else None
+            step = make_pipeline_train_step(cfg, AdamWConfig(), mesh, num_microbatches=PIPE_M,
+                                            schedule=case[3], group=data, shards=shards,
+                                            model=model)
+            placed = (place(state, specs[0], mesh, data, model), batch)
+            with Counters(args=placed) as c:
+                out_tree = step(*placed)
+        elif kind == "train":
             state, batch = args
             shards = data_shards(specs[0], mesh) if data is not None else None
             mshards = model_shards(specs[0], mesh) if model is not None else None
@@ -133,17 +167,24 @@ def _child(rank, nprocs, init_method, out, cases):
         json.dump(recs, f)
 
 
+def _pipe(case):
+    """A pipeline case as ``_child`` takes it."""
+    return ("train", "pipeline") + case
+
+
 @pytest.fixture(scope="module")
 def processes(tmp_path_factory):
-    """Rank 0's records per case, from one spawn per process count."""
+    """Every rank's records per case, from one spawn per process count."""
     out = tmp_path_factory.mktemp("dryrun_position")
     recs = {}
     for n in (2, 4):
-        cases = [c for c in CASES if c[2][0] * c[2][1] == n]
+        cases = [c for c in CASES + [_pipe(p) for p in PIPE_CASES]
+                 if c[2][0] * c[2][1] == n]
         d = out / str(n)
         d.mkdir()
         collective.spawn(_child, n, (str(d), cases), timeout=SPAWN_TIMEOUT, workdir=str(d))
-        recs.update(zip(cases, json.loads((d / "rank_0.json").read_text())))
+        ranks = [json.loads((d / f"rank_{r}.json").read_text()) for r in range(n)]
+        recs.update(zip(cases, zip(*ranks)))
     return recs
 
 
@@ -154,7 +195,7 @@ def test_stand_in_equals_real_process(processes, case):
     args, specs = _inputs(kind, strategy, mesh, META)
     cell = dryrun.Cell(kind, args, specs)
     got = dryrun.run_position(_cfg(), cell, mesh, strategy, route="plain")
-    want = processes[case]
+    want = processes[case][0]
     print(f"{case}: stand-in {json.dumps({k: got[k] for k in COMPARED})}")
     for key in COMPARED:
         assert got[key] == want[key], (key, got[key], want[key])
@@ -165,6 +206,33 @@ def test_stand_in_equals_real_process(processes, case):
         # fused gathers the FSDP slices and scatters the grads over 'data'
         assert got["collective_bytes"]["all-gather"] > 0
         assert got["collective_bytes"]["reduce-scatter"] > 0
+    assert got["kernel_calls"] == {}
+
+
+@pytest.mark.parametrize("case,rank", [(c, r) for c in PIPE_CASES
+                                       for r in range(c[0][0] * c[0][1])],
+                         ids=lambda x: f"{x[0][0]}x{x[0][1]}-{x[1]}" if isinstance(x, tuple)
+                         else f"rank{x}")
+def test_stage_stand_in_equals_real_process(processes, case, rank):
+    """One process a pipeline stage: rank ``rank``'s stand-in record (its
+    own fake world) equals that real process's, its permutes included."""
+    shape, schedule = case
+    mesh, cell = _pipe_cell(shape, schedule, META)
+    got = dryrun.run_position(_cfg(), cell, mesh, "pipeline", route="plain", rank=rank)
+    want = processes[_pipe(case)][rank]
+    print(f"{case} rank {rank}: stand-in {json.dumps({k: got[k] for k in COMPARED})}")
+    for key in COMPARED:
+        assert got[key] == want[key], (key, got[key], want[key])
+    assert got["position"] == "mesh" and got["rank"] == rank
+    assert got["arg_bytes"] == sum(dryrun.tree_bytes(a, s, mesh)
+                                   for a, s in zip(cell.args, cell.specs))
+    # a stage receives one activation (stage > 0) and one gradient (stage
+    # < last) a microbatch, (mb rows, S, D) f32 each
+    cfg = _cfg()
+    k, last = rank % shape[1], shape[1] - 1
+    rows = B // PIPE_M // shape[0]
+    one = rows * S * cfg.d_model * 4
+    assert got["collective_bytes"]["collective-permute"] == PIPE_M * one * ((k > 0) + (k < last))
     assert got["kernel_calls"] == {}
 
 
